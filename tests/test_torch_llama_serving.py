@@ -1,0 +1,408 @@
+"""The port's Llama serving slice against the JAX package on the CPU.
+
+A seeded JAX LlamaForCausalLM (tiny config) carries its weights into
+paddle_tpu_torch's LlamaForCausalLM (extract_state -> numpy ->
+load_reference_state); the JAX ServingEngine on its split chain
+(megafront=False, megadecode=False) and the port's ServingEngine then run
+the same seeded join/leave trace. Every request's greedy tokens must be
+identical, every unified step's logits equal within 1e-4 (f32; the two
+frameworks sum in different orders), and the per-layer kernel route
+counts must be the split chain's: 2 * layers + 1 rms_norm, one
+rope_append and one ragged attention per layer per step."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.jit import extract_state
+from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models.llama import llama_tiny_config as jax_tiny_config
+from paddle_tpu.serving import ServingEngine as JaxEngine
+
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.convert import load_reference_state
+from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                           llama_tiny_config)
+from paddle_tpu_torch.serving import ServingEngine
+
+ENGINE_KW = dict(max_slots=2, page_size=4, prefill_chunk=4)
+
+
+def _trace(V, n, seed, smin=2, smax=11, mmin=2, mmax=7):
+    """Seeded request trace: (prompt, max_new, submit_at_step)."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, V, rng.randint(smin, smax)).astype(np.int32),
+             int(rng.randint(mmin, mmax)), int(rng.randint(0, 4)))
+            for _ in range(n)]
+
+
+def _serving_trace(V):
+    """Three requests sharing a prompt prefix, then a seeded join/leave
+    trace. Request 1 joins while request 0 decodes and forks its
+    prefilled pages (live-donor prefix sharing, with a partially shared
+    page that both copy on their next write); request 2 later forks
+    request 1's."""
+    rng = np.random.RandomState(7)
+    a = rng.randint(0, V, 6).astype(np.int32)
+    tail = rng.randint(0, V, 3).astype(np.int32)
+    shared = [(a, 6, 0), (np.concatenate([a, tail]), 4, 2),
+              (np.concatenate([a[:5], tail[:1]]), 3, 3)]
+    return shared + [(p, m, at + 3) for p, m, at in _trace(V, 5, seed=1)]
+
+
+def _drive(eng, trace):
+    """Submit each request at its step; step until idle."""
+    pending = list(enumerate(trace))
+    results, step, reqs = {}, 0, {}
+    while pending or eng.has_work():
+        still = []
+        for i, (prompt, max_new, at) in pending:
+            if at <= step:
+                reqs[i] = eng.add_request(prompt, max_new_tokens=max_new,
+                                          request_id=i)
+            else:
+                still.append((i, (prompt, max_new, at)))
+        pending = still
+        eng.step()
+        results.update(eng.collect())
+        step += 1
+    return results, reqs
+
+
+@pytest.fixture(scope="module")
+def models():
+    paddle.seed(0)
+    cfg_j = jax_tiny_config(num_hidden_layers=2)
+    jm = JaxLlama(cfg_j)
+    jm.eval()
+    state = {k: np.asarray(v) for k, v in extract_state(jm).items()}
+    tm = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=2),
+                          device="cpu")
+    load_reference_state(tm, state)
+    return jm, tm, state
+
+
+@pytest.fixture(scope="module")
+def runs(models):
+    """Both engines over one seeded trace, with every unified step's
+    logits captured (the JAX engine's through its jitted program)."""
+    jm, tm, _ = models
+    trace = _serving_trace(jm.config.vocab_size)
+
+    jeng = JaxEngine(jm, megafront=False, megadecode=False,
+                     enable_prefix_cache=False, **ENGINE_KW)
+    jax_logits = []
+    program = jeng._jit_unified
+
+    def capture(*args):
+        out = program(*args)
+        jax_logits.append(np.asarray(out[0]))
+        return out
+
+    jeng._jit_unified = capture
+    jres, _ = _drive(jeng, trace)
+
+    ops.reset_counts()
+    teng = ServingEngine(tm, device="cpu", **ENGINE_KW)
+    torch_logits = []
+    body = teng._body
+
+    def capture_t(*args):
+        out = body(*args)
+        torch_logits.append(out[0].numpy().copy())
+        return out
+
+    teng._body = capture_t
+    tres, treqs = _drive(teng, trace)
+    counts = ops.launch_counts()
+    return dict(jres=jres, tres=tres, treqs=treqs, jax_logits=jax_logits,
+                torch_logits=torch_logits, counts=counts, teng=teng,
+                jeng=jeng, trace=trace)
+
+
+class TestWeightCarryOver:
+    def test_state_keys_and_rope_tables(self, models):
+        jm, tm, state = models
+        assert set(tm.state_dict()) == set(state)
+        for k, v in tm.state_dict().items():
+            np.testing.assert_array_equal(v.numpy(), state[k])
+        # rope tables are recomputed on both sides (non-persistable):
+        # PyTorch's and XLA's f32 cos/sin agree to one f32 ulp at 1.0
+        for name in ("rope_cos", "rope_sin"):
+            ref = np.asarray(getattr(jm.llama, name)._data)
+            got = getattr(tm.llama, name).numpy()
+            assert got.dtype == np.float32 and got.shape == ref.shape
+            np.testing.assert_allclose(got, ref, rtol=0, atol=2 ** -23)
+
+    def test_missing_key_raises(self, models):
+        _, tm, state = models
+        bad = dict(state)
+        bad.pop("lm_head.weight")
+        with pytest.raises(KeyError, match="missing"):
+            load_reference_state(tm, bad)
+
+    def test_extra_key_raises(self, models):
+        _, tm, state = models
+        bad = dict(state)
+        bad["llama.rope_cos"] = np.zeros((1,), np.float32)
+        with pytest.raises(KeyError, match="extra"):
+            load_reference_state(tm, bad)
+
+    def test_shape_mismatch_raises_before_writing(self, models):
+        _, tm, state = models
+        bad = dict(state)
+        bad["llama.norm.weight"] = np.zeros((7,), np.float32)
+        before = tm.llama.embed_tokens.weight.detach().clone()
+        bad["llama.embed_tokens.weight"] = np.zeros_like(
+            state["llama.embed_tokens.weight"])
+        with pytest.raises(ValueError, match="llama.norm.weight"):
+            load_reference_state(tm, bad)
+        torch.testing.assert_close(tm.llama.embed_tokens.weight.detach(),
+                                   before)
+
+    def test_forward_names_its_roadmap_item(self, models):
+        _, tm, _ = models
+        with pytest.raises(NotImplementedError, match="queue A item 2"):
+            tm(torch.zeros(1, 4, dtype=torch.long))
+
+
+class TestEngineAgainstJax:
+    def test_greedy_tokens_identical(self, runs):
+        assert set(runs["tres"]) == set(runs["jres"]) == \
+            set(range(len(runs["trace"])))
+        for rid, ref in runs["jres"].items():
+            np.testing.assert_array_equal(runs["tres"][rid], ref)
+
+    def test_every_step_logits_within_1e4(self, runs):
+        jl, tl = runs["jax_logits"], runs["torch_logits"]
+        assert len(jl) == len(tl) > 0
+        for a, b in zip(jl, tl):
+            np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
+
+    def test_prefix_sharing_forked_and_copied(self, runs):
+        # requests 1 and 2 rode a live donor's pages, and the partially
+        # shared page was copied on first write
+        assert runs["treqs"][1].shared_tokens == 6
+        assert runs["treqs"][2].shared_tokens == 5
+        assert runs["teng"].allocator.cow_copies > 0
+
+    def test_route_counts_per_layer(self, runs):
+        steps = runs["teng"].launches
+        layers = 2
+        assert steps == len(runs["torch_logits"])
+        c = runs["counts"]
+        assert c["fused_rms_norm"] == {"launches": 0,
+                                       "plain_calls": (2 * layers + 1)
+                                       * steps}
+        assert c["fused_rope_append"] == {"launches": 0,
+                                          "plain_calls": layers * steps}
+        assert c["ragged_paged_attention"] == {"launches": 0,
+                                               "plain_calls": layers * steps}
+
+    def test_pool_returned_to_allocator(self, runs):
+        st = runs["teng"].allocator.stats()
+        assert st["sequences"] == 0 and st["pages_used"] == 0
+
+
+class TestLayersAgainstJax:
+    """Linear, Embedding and RMSNorm: same weights (carried by name),
+    same outputs as the JAX package's layers, f32 at 2e-5."""
+
+    def test_forward(self):
+        from paddle_tpu import nn as jnn
+        from paddle_tpu_torch import nn as tnn
+        paddle.seed(1)
+        x = np.random.RandomState(0).randn(3, 5, 16).astype(np.float32)
+        ids = np.asarray([[1, 7, 3]], np.int64)
+        pairs = [(jnn.Linear(16, 8), tnn.Linear(16, 8, device="cpu"), x),
+                 (jnn.Linear(16, 8, bias_attr=False),
+                  tnn.Linear(16, 8, bias_attr=False, device="cpu"), x),
+                 (jnn.RMSNorm(16, 1e-5), tnn.RMSNorm(16, 1e-5, device="cpu"),
+                  x),
+                 (jnn.Embedding(10, 4), tnn.Embedding(10, 4, device="cpu"),
+                  ids)]
+        for jl, tl, inp in pairs:
+            state = {k: np.asarray(v) for k, v in extract_state(jl).items()}
+            if isinstance(tl, tnn.RMSNorm):   # ones on both sides: vary it
+                state["weight"] = state["weight"] * np.linspace(
+                    0.5, 2, 16, dtype=np.float32)
+                jl.weight._data = jl.weight._data * np.linspace(
+                    0.5, 2, 16, dtype=np.float32)
+            load_reference_state(tl, state)
+            want = np.asarray(jl(paddle.to_tensor(inp))._data)
+            got = tl(torch.from_numpy(inp)).detach().numpy()
+            np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+class TestEngineOptions:
+    def test_bf16_engine_on_cpu(self, models):
+        # the model dtype reaches the pools, the kernels' plain versions
+        # and the argmax; every request completes
+        _, tm, state = models
+        m16 = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=2),
+                               device="cpu", dtype=torch.bfloat16)
+        load_reference_state(m16, state)
+        eng = ServingEngine(m16, device="cpu", **ENGINE_KW)
+        assert eng._pools[0][0].dtype == torch.bfloat16
+        for i in range(3):
+            eng.add_request(np.arange(3 + i) + 5 * i, max_new_tokens=4,
+                            request_id=i)
+        out = eng.run_to_completion()
+        assert sorted(out) == [0, 1, 2]
+        assert all(v.shape == (4,) for v in out.values())
+        assert eng.last_logits.dtype == torch.bfloat16
+
+    def test_run_to_completion_matches_stepping(self, models, runs):
+        _, tm, _ = models
+        eng = ServingEngine(tm, device="cpu", **ENGINE_KW)
+        for i, (prompt, max_new, _) in enumerate(runs["trace"][:3]):
+            eng.add_request(prompt, max_new_tokens=max_new, request_id=i)
+        out = eng.run_to_completion()
+        for i in range(3):
+            np.testing.assert_array_equal(out[i], runs["jres"][i])
+
+    @pytest.mark.parametrize("kw,item", [
+        (dict(megafront=True), 1), (dict(megadecode=True), 1),
+        (dict(ragged=False), 3), (dict(weight_only_int8=True), 4),
+        (dict(weight_only_quant="int4"), 4),
+        (dict(enable_prefix_cache=True), 6), (dict(spec_decode=2), 6),
+        (dict(preemption=True), 6), (dict(role="prefill"), 6),
+        (dict(slo_targets={"ttft_p90": 1.0}), 6),
+    ])
+    def test_unported_features_name_their_item(self, models, kw, item):
+        _, tm, _ = models
+        with pytest.raises(NotImplementedError,
+                           match=f"queue A item {item}"):
+            ServingEngine(tm, device="cpu", **kw)
+
+    def test_other_families_name_their_item(self):
+        # a gpt/moe/mla model has no `llama` backbone: refused, not served
+        other = SimpleNamespace(config=llama_tiny_config(), gpt=object(),
+                                lm_head=None)
+        with pytest.raises(NotImplementedError, match="queue A item 5"):
+            ServingEngine(other, device="cpu")
+
+    def test_eos_and_max_context(self, models):
+        _, tm, _ = models
+        eng = ServingEngine(tm, device="cpu", max_context=32, **ENGINE_KW)
+        with pytest.raises(ValueError, match="max_context"):
+            eng.add_request(np.arange(30), max_new_tokens=5)
+        probe = ServingEngine(tm, device="cpu", **ENGINE_KW)
+        probe.add_request(np.arange(5), max_new_tokens=3, request_id=0)
+        first = int(probe.run_to_completion()[0][0])
+        eng.add_request(np.arange(5), max_new_tokens=6, eos_token_id=first,
+                        pad_token_id=-1, request_id=1)
+        out = eng.run_to_completion()[1]
+        assert out[0] == first and (out[1:] == -1).all()
+
+
+class TestHostLogicAgainstJax:
+    """The port's allocator and scheduler against the JAX package's on
+    the same seeded operation sequences: same outcomes, page tables,
+    copy-on-write copies, slots and queues after every operation."""
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_allocator(self, seed):
+        from paddle_tpu.serving.block_allocator import \
+            PageBlockAllocator as JaxAllocator
+        from paddle_tpu_torch.serving import PageBlockAllocator
+        rng = np.random.RandomState(seed)
+        pair = (JaxAllocator(24, 4, 6), PageBlockAllocator(24, 4, 6))
+        live = []
+
+        def both(name, *args):
+            outs = []
+            for alloc in pair:
+                try:
+                    outs.append(("ok", getattr(alloc, name)(*args)))
+                except (ValueError, RuntimeError) as e:  # Overloaded too
+                    outs.append((type(e).__name__, None))
+            assert outs[0] == outs[1], (name, args)
+            return outs[0][0] == "ok"
+
+        for step in range(150):
+            op = rng.randint(4)
+            if op == 0 or not live:
+                total = int(rng.randint(1, 25))
+                if live and rng.rand() < 0.5:
+                    parent = live[rng.randint(len(live))]
+                    share = int(rng.randint(0, pair[1].seq_length(parent)
+                                            + 1))
+                    ok = both("fork", parent, step, share, max(total, share))
+                else:
+                    ok = both("allocate", step, total)
+                if ok:
+                    live.append(step)
+            elif op == 1:
+                both("extend", live[rng.randint(len(live))],
+                     int(rng.randint(1, 5)))
+            elif op == 2:
+                sid = live[rng.randint(len(live))]
+                both("shrink", sid,
+                     int(rng.randint(0, pair[1].seq_length(sid) + 1)))
+            else:
+                both("free", live.pop(rng.randint(len(live))))
+            assert pair[0].available_pages == pair[1].available_pages
+            assert pair[0].free_pages == pair[1].free_pages
+            for sid in live:
+                np.testing.assert_array_equal(pair[0].table(sid),
+                                              pair[1].table(sid))
+                assert pair[0].seq_length(sid) == pair[1].seq_length(sid)
+
+    def test_scheduler(self):
+        from paddle_tpu.serving.scheduler import Request as JaxRequest
+        from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
+        from paddle_tpu_torch.serving import Request, Scheduler
+        rng = np.random.RandomState(3)
+        budgets = {"a": 40}
+        pair = (JaxScheduler(3, tenant_budgets=budgets),
+                Scheduler(3, tenant_budgets=budgets))
+        kinds = (JaxRequest, Request)
+        reqs = ({}, {})
+        for step in range(150):
+            op = rng.randint(3)
+            if op == 0:
+                prompt = rng.randint(0, 50, rng.randint(1, 20))
+                kw = dict(max_new_tokens=int(rng.randint(1, 20)),
+                          request_id=step, priority=int(rng.randint(3)),
+                          tenant=(None, "a", "b")[rng.randint(3)])
+                for s, kind, rs in zip(pair, kinds, reqs):
+                    rs[step] = s.submit(kind(prompt, **kw))
+            elif op == 1:
+                picks = [s.next_admittable() for s in pair]
+                assert [getattr(r, "request_id", None) for r in picks] == \
+                    [getattr(picks[0], "request_id", None)] * 2
+                if picks[0] is not None:
+                    slots = [s.admit(r) for s, r in zip(pair, picks)]
+                    assert slots[0] == slots[1]
+            else:
+                active = pair[1].active()
+                if active:
+                    rid = active[rng.randint(len(active))][1].request_id
+                    for s, rs in zip(pair, reqs):
+                        s.release(rs[rid])
+            for attr in ("slots", "waiting"):
+                ids = [[getattr(r, "request_id", None)
+                        for r in getattr(s, attr)] for s in pair]
+                assert ids[0] == ids[1]
+            assert pair[0]._tenant_tokens == pair[1]._tenant_tokens
+
+    def test_admission_and_deadline_policy(self, models):
+        from paddle_tpu_torch import resilience
+        _, tm, _ = models
+        gate = SimpleNamespace(_admission=(1, 0.0))
+        eng = ServingEngine(tm, device="cpu", config=gate, **ENGINE_KW)
+        eng.add_request(np.arange(5), max_new_tokens=2)
+        with pytest.raises(resilience.Overloaded):
+            eng.add_request(np.arange(5), max_new_tokens=2)
+        late = SimpleNamespace(_deadline_s=1e-9)
+        eng = ServingEngine(tm, device="cpu", config=late, **ENGINE_KW)
+        misses = resilience.deadline_misses()
+        eng.add_request(np.arange(5), max_new_tokens=2, request_id=7)
+        res = eng.run_to_completion()[7]
+        assert isinstance(res, resilience.TimeoutResult) and not res
+        assert resilience.deadline_misses() == misses + 1
+        assert eng.allocator.stats()["sequences"] == 0
