@@ -9,18 +9,31 @@ Phases, one line each on stdout:
    torch and CUDA versions; every kernel of ``paddle_tpu_torch/ops/csrc``
    is built from the checkout (one nvcc per source, in parallel);
 2. kernels against their plain PyTorch versions at the Llama-3-8B
-   serving shapes (H 4096, 32/8 heads x 128, page_size 16, T = 4 slots +
-   a 128-token prefill chunk, a mixed batch with an idle slot and a -1
-   table entry), in bf16 and f32, each timed with CUDA events (median of
-   25 reps, L2 scrubbed before each) beside its plain version, its
-   bound on the H100 and, for rms_norm, torch.nn.functional.rms_norm;
+   serving shapes (H 4096, 32/8 heads x 128, FFN 14336, page_size 16,
+   T = 4 slots + a 128-token prefill chunk, a mixed batch with an idle
+   slot and a -1 table entry), in bf16 and f32, each timed with CUDA
+   events (median of 25 reps, L2 scrubbed before each) beside its plain
+   version, its bound on the H100 (bytes at the HBM rate or operations
+   at the working type's peak), for rms_norm
+   torch.nn.functional.rms_norm and, for the three megakernels, the
+   split-chain calls that compute the same function (``split_ms``);
 3. a tiny f32 Llama served on the CPU (plain versions) and on the card
-   (kernels) over one seeded join/leave trace: identical greedy tokens;
+   (kernels) over one seeded join/leave trace, on the fused and on the
+   split chain: identical greedy tokens;
 4. Llama-3-8B at full width (32 layers, vocab 128256, bf16 weights drawn
    on the card from a seeded generator) serving 8 seeded requests
-   (prompts 64-512 tokens, 32 new tokens each) through ServingEngine;
-   every kernel's launch count must be the split chain's per step;
-5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   (prompts 64-512 tokens, 32 new tokens each) through ServingEngine's
+   default fused chain; every kernel's launch count must be that
+   chain's per step (layers + 1 rms_norm, layers each of
+   qkv_rope_append, ragged attention, oproj_norm and ffn), with no
+   plain-version call;
+5. the same model and trace on the split chain (megafront=False,
+   megadecode=False), full depth, its counts read alone; it reports the
+   share of greedy tokens identical to the fused chain's (bf16 ties may
+   break differently, so it is not asserted);
+6. the ``{"kernels": [...]}`` line (launches from the run of the path
+   that uses each kernel: the fused chain, or the split chain for
+   rope_append), then the ``{"ok": true, ...}`` line.
 
 It imports neither JAX nor paddle_tpu. Any failure raises and exits
 nonzero; without a CUDA device it exits nonzero before printing a result.
@@ -46,7 +59,9 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.serving import ServingEngine
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
-F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+#: H100 SXM dense peaks of the working type (data sheet): bf16 on the
+#: tensor cores, f32 outside them
+PEAK_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 REPS = 25
 SCRUB_BYTES = 1 << 30          # >> the 50 MB L2: each timed rep starts cold
 
@@ -55,7 +70,7 @@ SCRUB_BYTES = 1 << 30          # >> the 50 MB L2: each timed rep starts cold
 DEV = "cuda"
 
 # the slice's 8B serving geometry
-H, HQ, KV, D, PSZ = 4096, 32, 8, 128, 16
+H, HQ, KV, D, PSZ, FFN = 4096, 32, 8, 128, 16, 14336
 SLOTS, CHUNK, MAX_CTX = 4, 128, 1024
 
 
@@ -95,9 +110,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_: float, flops: float = 0.0):
+def bound(bytes_: float, flops: float = 0.0, dtype=torch.bfloat16):
+    """Least time on the card (ms): the bytes at the HBM rate or the
+    operations at the working type's peak, whichever is larger."""
     t_mem = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -239,7 +256,8 @@ def check_kernels(timer: Timer):
                        for kv, n in zip(kvl, nt) if n)
             pairs = sum(kv - n + t + 1 for kv, n in zip(kvl, nt)
                         for t in range(n))
-            b, by = bound(nbytes(qa, o, *tabs) + live, 4 * HQ * D * pairs)
+            b, by = bound(nbytes(qa, o, *tabs) + live, 4 * HQ * D * pairs,
+                          dtype)
             # the same batch with the prefill chunk idle: a decode-only step
             dec = (tabs[0], tabs[1] * (tabs[1] == 1), tabs[2] * (tabs[1] == 1),
                    tabs[3])
@@ -257,7 +275,112 @@ def check_kernels(timer: Timer):
                                                             *dec)),
                      decode_only_bound_ms=bound(nbytes(qa, o, *tabs)
                                                 + dec_live)[0])
+        check_megakernels(timer, mb, cos, sin, rows, dtype, tol[dtype], gc)
     return rows
+
+
+def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
+    """The fused chain's three kernels at the 8B step's shapes, each
+    against its plain version and, in bf16, timed beside the split-chain
+    calls that compute the same function (`split_ms`). Weights are drawn
+    at scale K^-0.5, so activations stay O(1) as in a trained model."""
+    main = dtype == torch.bfloat16
+    tag = "bf16" if main else "f32"
+    T, P = mb["T"], mb["P"]
+    N = (HQ + 2 * KV) * D
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device=DEV, generator=gc)
+                * scale).to(dtype)
+
+    def record(name, err, **timed):
+        r = rows.setdefault(name, {})
+        r[f"max_abs_err_{tag}"] = err
+        if main:
+            r.update(max_abs_err=err, library_ms=None, **timed)
+
+    # qkv projection + rope + paged append, one [H, (HQ + 2 KV) D] slab
+    h, w = rnd(T, H), rnd(H, N, scale=H ** -0.5)
+    kp, vp = rnd(KV, P, PSZ, D), rnd(KV, P, PSZ, D)
+    kp2, vp2 = kp.clone(), vp.clone()
+    idx = (mb["page_idx"], mb["page_off"])
+    kw = dict(heads=HQ, kv_heads=KV, head_dim=D)
+    n0 = ops.fused_qkv_rope_append.launches
+    q, okp, ovp = ops.fused_qkv_rope_append(h, w, None, None, cos, sin, kp,
+                                            vp, *idx, **kw)
+    torch.cuda.synchronize()
+    assert ops.fused_qkv_rope_append.launches == n0 + 1
+    assert okp is kp and ovp is vp
+    ref = ops.qkv_rope_append_reference(h, w, None, None, cos, sin, kp2,
+                                        vp2, *idx, **kw)
+    for a, b in zip((q, okp, ovp), ref):     # one idle row: pools whole
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+    err = max(max_err(a, b) for a, b in zip((q, okp, ovp), ref))
+    if main:
+        wq, wk, wv = (w[:, :HQ * D].contiguous(),
+                      w[:, HQ * D:(HQ + KV) * D].contiguous(),
+                      w[:, (HQ + KV) * D:].contiguous())
+        b_, by = bound(nbytes(h, w, cos, sin, *idx, q)
+                       + 2 * T * KV * D * isz, 2 * T * H * N, dtype)
+        timed = dict(
+            bound_ms=b_, bound_by=by,
+            ms=timer.ms(lambda: ops.fused_qkv_rope_append(
+                h, w, None, None, cos, sin, kp, vp, *idx, **kw)),
+            plain_ms=timer.ms(lambda: ops.qkv_rope_append_reference(
+                h, w, None, None, cos, sin, kp2, vp2, *idx, **kw)),
+            split_ms=timer.ms(lambda: ops.fused_rope_append(
+                (h @ wq).view(T, HQ, D), (h @ wk).view(T, KV, D),
+                (h @ wv).view(T, KV, D), cos, sin, kp2, vp2, *idx)))
+    record("fused_qkv_rope_append", err, **(timed if main else {}))
+
+    # o-proj + residual + rms norm
+    o, x = rnd(T, HQ * D), rnd(T, H)
+    wo, nw = rnd(HQ * D, H, scale=(HQ * D) ** -0.5), rnd(H)
+    n0 = ops.fused_oproj_norm.launches
+    got = ops.fused_oproj_norm(o, x, wo, None, None, nw, eps=1e-5)
+    torch.cuda.synchronize()
+    assert ops.fused_oproj_norm.launches == n0 + 1
+    ref = ops.oproj_norm_reference(o, x, wo, None, None, nw, eps=1e-5)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+    err = max(max_err(a, b) for a, b in zip(got, ref))
+    if main:
+        b_, by = bound(nbytes(o, x, wo, nw) + 2 * nbytes(x),
+                       2 * T * HQ * D * H, dtype)
+        timed = dict(
+            bound_ms=b_, bound_by=by,
+            ms=timer.ms(lambda: ops.fused_oproj_norm(
+                o, x, wo, None, None, nw, eps=1e-5)),
+            plain_ms=timer.ms(lambda: ops.oproj_norm_reference(
+                o, x, wo, None, None, nw, eps=1e-5)),
+            split_ms=timer.ms(lambda: ops.fused_rms_norm(x + o @ wo, nw,
+                                                         1e-5)))
+    record("fused_oproj_norm", err, **(timed if main else {}))
+
+    # gate/up + swiglu + down + residual
+    hh = rnd(T, H)
+    wg, wu = rnd(H, FFN, scale=H ** -0.5), rnd(H, FFN, scale=H ** -0.5)
+    wd = rnd(FFN, H, scale=FFN ** -0.5)
+    n0 = ops.fused_ffn.launches
+    got = ops.fused_ffn(hh, x, wg, None, wu, None, wd, None)
+    torch.cuda.synchronize()
+    assert ops.fused_ffn.launches == n0 + 1
+    ref = ops.megadecode_ffn_reference(hh, x, wg, None, wu, None, wd, None)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    err = max_err(got, ref)
+    if main:
+        silu = torch.nn.functional.silu
+        b_, by = bound(nbytes(hh, x, wg, wu, wd) + nbytes(x),
+                       3 * 2 * T * H * FFN, dtype)
+        timed = dict(
+            bound_ms=b_, bound_by=by,
+            ms=timer.ms(lambda: ops.fused_ffn(hh, x, wg, None, wu, None, wd,
+                                              None)),
+            plain_ms=timer.ms(lambda: ops.megadecode_ffn_reference(
+                hh, x, wg, None, wu, None, wd, None)),
+            split_ms=timer.ms(lambda: x + (silu(hh @ wg) * (hh @ wu)) @ wd))
+    record("fused_ffn", err, **(timed if main else {}))
 
 
 # ------------------------------------------------------------- phase 3/4
@@ -294,39 +417,63 @@ def drive(eng, reqs, on_step=None):
     return results, handles, steps
 
 
+#: the two chains of the engine, and the kernels each launches per step
+#: (per layer, plus the final norm's rms_norm)
+SPLIT = dict(megafront=False, megadecode=False)
+FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_qkv_rope_append": (1, 0),
+                  "ragged_paged_attention": (1, 0),
+                  "fused_oproj_norm": (1, 0), "fused_ffn": (1, 0),
+                  "fused_rope_append": (0, 0)}
+SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_rope_append": (1, 0),
+                  "ragged_paged_attention": (1, 0),
+                  "fused_qkv_rope_append": (0, 0),
+                  "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0)}
+
+
 def tiny_engine_parity():
+    """Both chains: the tiny f32 engine's greedy tokens, CPU (plain
+    versions) vs card (kernels)."""
     cfg = llama_tiny_config(num_hidden_layers=2)
     cpu_model = LlamaForCausalLM(cfg, device="cpu",
                                  generator=torch.Generator().manual_seed(0))
     gpu_model = copy.deepcopy(cpu_model).to(DEV)
     reqs = trace(np.random.RandomState(1), cfg.vocab_size, 6, 2, 12, 2, 8, 4)
     kw = dict(max_slots=2, page_size=4, prefill_chunk=4)
-    cpu_out, _, _ = drive(ServingEngine(cpu_model, device="cpu", **kw), reqs)
-    n0 = ops.launch_counts()
-    gpu_out, _, _ = drive(ServingEngine(gpu_model, device=DEV, **kw), reqs)
-    n1 = ops.launch_counts()
-    assert set(cpu_out) == set(gpu_out) == set(range(len(reqs)))
-    for rid in cpu_out:
-        np.testing.assert_array_equal(gpu_out[rid], cpu_out[rid])
-    for name in n1:
-        assert n1[name]["launches"] > n0[name]["launches"], name
-    return {"requests": len(reqs),
-            "tokens": int(sum(len(v) for v in cpu_out.values())),
-            "identical": True}
+    out = {"requests": len(reqs)}
+    for chain, per_step in (("fused", FUSED_PER_STEP),
+                            ("split", SPLIT_PER_STEP)):
+        ckw = dict(kw, **(SPLIT if chain == "split" else {}))
+        cpu_out, _, _ = drive(ServingEngine(cpu_model, device="cpu", **ckw),
+                              reqs)
+        n0 = ops.launch_counts()
+        gpu_out, _, _ = drive(ServingEngine(gpu_model, device=DEV, **ckw),
+                              reqs)
+        n1 = ops.launch_counts()
+        assert set(cpu_out) == set(gpu_out) == set(range(len(reqs)))
+        for rid in cpu_out:
+            np.testing.assert_array_equal(gpu_out[rid], cpu_out[rid])
+        for name, (per_layer, _) in per_step.items():
+            ran = n1[name]["launches"] > n0[name]["launches"]
+            assert ran == bool(per_layer), (chain, name)
+        out[chain] = {"tokens": int(sum(len(v) for v in cpu_out.values())),
+                      "identical": True}
+    return out
 
 
-def serve_8b(counts_out: dict):
-    cfg = llama3_8b_config()
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
-                             generator=torch.Generator(DEV).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+def serve_8b(model, chain: str, counts_out: dict):
+    """Serve the seeded 8B trace through one chain of ServingEngine;
+    every kernel's launches must be that chain's per step."""
+    cfg = model.config
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
+    per_step = FUSED_PER_STEP if chain == "fused" else SPLIT_PER_STEP
     eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
-                        prefill_chunk=CHUNK, max_context=MAX_CTX, device=DEV)
+                        prefill_chunk=CHUNK, max_context=MAX_CTX, device=DEV,
+                        **(SPLIT if chain == "split" else {}))
+    assert eng.megafront == eng.megadecode == (chain == "fused")
     pool_bytes = sum(nbytes(k, v) for k, v in eng._pools)
+    slab_bytes = sum(nbytes(L["wqkv"]) for L in eng._p["layers"]
+                     if "wqkv" in L)
     rng = np.random.RandomState(0)
     # warm-up (cuBLAS handles, allocator): one short request, then the
     # counts start at 0 for the measured run
@@ -356,19 +503,20 @@ def serve_8b(counts_out: dict):
         assert isinstance(toks, np.ndarray) and toks.shape == (32,), rid
         assert len(handles[rid][0].tokens) == 32
     assert all(finite) and len(finite) == len(steps)
-    expect = {"fused_rms_norm": (2 * layers + 1) * n_steps,
-              "fused_rope_append": layers * n_steps,
-              "ragged_paged_attention": layers * n_steps}
+    expect = {name: (a * layers + b) * n_steps
+              for name, (a, b) in per_step.items()}
     for name, n in expect.items():
         assert counts[name]["launches"] == n, (name, counts[name], n)
         assert counts[name]["plain_calls"] == 0, name
-    counts_out.update({k: v["launches"] for k, v in counts.items()})
+    counts_out.update({k: v["launches"] for k, v in counts.items()
+                       if expect[k]})
     decode_ms = [ms for ms, o in steps
                  if o["prefill_tokens"] == 0 and o["decoded"] > 0]
     mixed_ms = [ms for ms, o in steps if o["prefill_tokens"] > 0]
     gen = sum(len(h[0].tokens) for h in handles.values())
     ttft = sorted(first_tok.values())
-    return {
+    return out, {
+        "chain": chain, "layers": layers,
         "requests": len(reqs), "steps": n_steps, "generated_tokens": gen,
         "prompt_tokens": int(sum(p.size for p, _, _ in reqs)),
         "wall_s": wall, "tokens_per_s": gen / wall,
@@ -376,11 +524,11 @@ def serve_8b(counts_out: dict):
         "decode_step_ms_median": statistics.median(decode_ms),
         "decode_steps": len(decode_ms),
         "mixed_step_ms_median": statistics.median(mixed_ms),
-        "weight_bytes": weight_bytes, "page_pool_bytes": pool_bytes,
+        "weight_bytes": weight_bytes, "qkv_slab_bytes": slab_bytes,
+        "page_pool_bytes": pool_bytes,
         "decode_step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "model_init_s": init_s, "launches_per_step": {
-            k: v // n_steps for k, v in expect.items()},
+        "launches_per_step": {k: v // n_steps for k, v in expect.items()},
     }
 
 
@@ -392,6 +540,12 @@ SOURCES = {
     "ragged_paged_attention": ("paddle_tpu_torch/ops/csrc/"
                                "ragged_attention.cu",
                                "paddle_tpu/ops/pallas_ragged.py:139"),
+    "fused_qkv_rope_append": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+                              "paddle_tpu/ops/pallas_megafront.py:356"),
+    "fused_oproj_norm": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+                         "paddle_tpu/ops/pallas_megadecode.py:182"),
+    "fused_ffn": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+                  "paddle_tpu/ops/pallas_megadecode.py:341"),
 }
 
 
@@ -415,19 +569,40 @@ def main() -> int:
 
     emit("3 tiny engine cpu vs card", **tiny_engine_parity())
 
-    launches: dict = {}
-    emit("4 llama3-8b serving", card=card["nvidia_smi"],
-         **serve_8b(launches))
+    # the main path: Llama-3-8B on the default fused chain; then the
+    # split chain on the same weights, each with its counts read alone
+    cfg = llama3_8b_config()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
+                             generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fused_launches: dict = {}
+    fused_out, res = serve_8b(model, "fused", fused_launches)
+    emit("4 llama3-8b serving, fused chain", card=card["nvidia_smi"],
+         model_init_s=init_s, **res)
+    torch.cuda.empty_cache()
+    split_launches: dict = {}
+    split_out, res = serve_8b(model, "split", split_launches)
+    toks = [(fused_out[r], split_out[r]) for r in fused_out]
+    same = sum(int((a == b).sum()) for a, b in toks)
+    emit("5 llama3-8b serving, split chain", card=card["nvidia_smi"],
+         identical_token_share_vs_fused=same / sum(a.size for a, _ in toks),
+         **res)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
+        path = "fused" if name in fused_launches else "split"
+        launches = (fused_launches if path == "fused"
+                    else split_launches)[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches, "path": path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "split_ms": r.get("split_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

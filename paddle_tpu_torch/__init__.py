@@ -12,7 +12,9 @@ when CUDA is absent. On CPU tensors each kernel wrapper runs its plain
 PyTorch version instead, which is what the CPU tests exercise.
 
 Ported so far (ROADMAP.md): Llama-family serving through
-``serving.ServingEngine``'s unified ragged step on the split chain.
+``serving.ServingEngine``'s unified ragged step, on the fused chain by
+default (the megafront / megadecode kernels) and on the split chain on
+request.
 """
 
 from .device import card_report, resolve_device

@@ -2,9 +2,13 @@
 paddle_tpu/generation.py that the serving engine reads).
 
 Ported: `_llama_decode_params` (fp layout), `_llama_weights`, `_mm_w`
-(fp branch) and `_ffn_apply` (dense SwiGLU). The weight-only int8/int4
-layouts are ROADMAP.md queue A item 4 and raise here; the batch
-``generate`` / ``generate_cached`` APIs are queue A item 3.
+(fp branch) and `_ffn_apply` (dense SwiGLU). The serving engine's fused
+chain (its default) reads the same weight tree through the kernels of
+``ops/megafront.py`` and ``ops/megadecode.py``; `_mm_w` and `_ffn_apply`
+serve its split chain (``megafront=False, megadecode=False``). The
+weight-only int8/int4 layouts are ROADMAP.md queue A item 4 and raise
+here; the batch ``generate`` / ``generate_cached`` APIs are queue A
+item 3.
 """
 
 from __future__ import annotations

@@ -7,13 +7,20 @@ from typing import Dict
 
 from .fused import (fused_rms_norm, fused_rope_append, rms_norm_reference,
                     rope_append_reference)
+from .megadecode import (fused_ffn, fused_oproj_norm, megadecode_eligible,
+                         megadecode_ffn_reference, oproj_norm_reference)
+from .megafront import (fused_qkv_rope_append, megafront_eligible,
+                        qkv_rope_append_reference)
 from .oracles import oracles
 from .ragged import ragged_attention_reference, ragged_paged_attention
 
 __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
            "rope_append_reference", "ragged_paged_attention",
-           "ragged_attention_reference", "oracles", "launch_counts",
-           "reset_counts"]
+           "ragged_attention_reference", "fused_qkv_rope_append",
+           "qkv_rope_append_reference", "megafront_eligible",
+           "fused_oproj_norm", "oproj_norm_reference", "fused_ffn",
+           "megadecode_ffn_reference", "megadecode_eligible", "oracles",
+           "launch_counts", "reset_counts"]
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:

@@ -30,12 +30,12 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["library", "kernel", "check", "dtype_code", "stream",
-           "require_cuda", "index32",
+           "require_cuda", "require_aligned", "index32", "ptr", "split_k",
            "build_seconds", "build_log", "CSRC", "BUILD_ROOT", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -180,6 +180,32 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     return dev
+
+
+def require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the
+    kernels copy rows in 16-byte pieces)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel takes 16-byte aligned "
+                             f"tensors")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer, or None (NULL) for an absent one."""
+    return None if t is None else t.data_ptr()
+
+
+def split_k(M: int, N: int, K: int, t: torch.Tensor) -> Tuple[int, int]:
+    """(K chunks per slice, slices) that the megakernels' GEMM core takes
+    for an [M, K] x [K, N] product of `t`'s dtype on `t`'s card (the
+    tiling lives in csrc/megakernels.cu; the wrappers size their f32
+    partials from this)."""
+    out = (ctypes.c_int * 2)()
+    fn = kernel("ptt_mega_split_k", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    check("ptt_mega_split_k", fn(M, N, K, dtype_code(t), t.device.index or 0,
+                                 ctypes.addressof(out)))
+    return out[0], out[1]
 
 
 def index32(name: str, t: torch.Tensor, device: torch.device):

@@ -1,0 +1,250 @@
+"""o-proj -> residual -> rms norm, and the whole SwiGLU FFN, one wrapper
+call each (counterpart of paddle_tpu/ops/pallas_megadecode.py, fp
+layout).
+
+``fused_oproj_norm`` and ``fused_ffn`` launch the hand-written CUDA
+kernels of ``csrc/megakernels.cu`` on CUDA tensors and run their plain
+PyTorch versions ``oproj_norm_reference`` / ``megadecode_ffn_reference``
+(from paddle_tpu/ops/references.py) on CPU tensors. A CUDA tensor
+launches the kernels or raises; nothing falls back. Each wrapper counts
+``.launches`` once per call, although a call issues more than one CUDA
+kernel: ``fused_oproj_norm`` two (a split-K tensor-core GEMM into f32
+partials, then one block per row for residual + norm), ``fused_ffn``
+three (gate/up GEMM with the swiglu epilogue, split-K down GEMM, then
+the residual add). The wrappers allocate the workspaces and pick the
+split of K (``_build.split_k``).
+
+The int8 / packed-int4 weight sites are ROADMAP.md queue A item 4; layer
+norm and gelu (the gpt family) are item 5; both raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .oracles import register_oracle
+
+__all__ = ["fused_oproj_norm", "oproj_norm_reference", "fused_ffn",
+           "megadecode_ffn_reference", "megadecode_eligible"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _refuse(name, algo, kind=None, what=None) -> None:
+    if algo is not None:
+        raise NotImplementedError(
+            f"{name}: the {algo} weight site is not ported yet (ROADMAP.md "
+            f"queue A item 4)")
+    if kind is not None:
+        raise NotImplementedError(
+            f"{name}: {what} {kind!r} (the gpt family) is not ported yet "
+            f"(ROADMAP.md queue A item 5)")
+
+
+def _f32(t, n: int, dev):
+    """An optional [n] vector as contiguous f32 on `dev` (exact upcast)."""
+    return None if t is None else t.reshape(n).to(dev, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# o-proj + residual + norm
+# ---------------------------------------------------------------------------
+
+def oproj_norm_reference(o, x, w, scale=None, bias=None, norm_weight=None,
+                         norm_bias=None, *, eps: float = 1e-6,
+                         norm: str = "rms", algo: Optional[str] = None):
+    """Plain version: f32 o-proj (+ bias) + residual, rms norm of the f32
+    sum; returns (x_new, h) in x's dtype."""
+    _refuse("fused_oproj_norm", algo, None if norm == "rms" else norm,
+            "norm")
+    shape = x.shape
+    H = shape[-1]
+    x2 = x.reshape(-1, H).float()
+    o2 = o.reshape(x2.shape[0], -1).float()
+    p = o2 @ w.float()
+    if bias is not None:
+        p = p + bias.reshape(1, H).float()
+    xn = x2 + p
+    var = (xn * xn).mean(-1, keepdim=True)
+    y = xn * torch.rsqrt(var + eps)
+    if norm_weight is not None:
+        y = y * norm_weight.reshape(1, H).float()
+    if norm_bias is not None:
+        y = y + norm_bias.reshape(1, H).float()
+    return xn.to(x.dtype).reshape(shape), y.to(x.dtype).reshape(shape)
+
+
+def fused_oproj_norm(o, x, w, scale=None, bias=None, norm_weight=None,
+                     norm_bias=None, *, eps: float = 1e-6, norm: str = "rms",
+                     algo: Optional[str] = None):
+    """o-proj -> (+bias) -> residual add -> rms norm.
+
+    ``o`` [..., Ko] is the attention output, ``x`` [..., H] the residual
+    stream, ``w`` the fp o-proj weight [Ko, H] (``scale`` ignored, as in
+    the JAX package); bias / norm_weight / norm_bias [H] or None.
+    Returns ``(x_new, h)``, both shaped like ``x``: the post-residual
+    stream and its normed copy (the FFN input), the norm taken on the
+    f32 sum, not on the rounded x_new."""
+    name = "fused_oproj_norm"
+    _refuse(name, algo, None if norm == "rms" else norm, "norm")
+    if x.device.type == "cpu":
+        fused_oproj_norm.plain_calls += 1
+        return oproj_norm_reference(o, x, w, scale, bias, norm_weight,
+                                    norm_bias, eps=eps)
+    shape = x.shape
+    H = shape[-1]
+    x2 = x.reshape(-1, H)
+    T = x2.shape[0]
+    o2 = o.reshape(T, -1)
+    Ko = o2.shape[1]
+    dev = _build.require_cuda(name, o2, x2, w)
+    if w.shape != (Ko, H):
+        raise ValueError(f"{name}: o {tuple(o.shape)}, x {tuple(shape)}, "
+                         f"w {tuple(w.shape)}")
+    if not megadecode_eligible(H, 8, Ko, dtype_bytes=x.element_size()):
+        raise ValueError(f"{name}: the kernel takes Ko and H multiples of "
+                         f"8; got Ko {Ko}, H {H}")
+    if len({o.dtype, x.dtype, w.dtype}) != 1:
+        raise TypeError(f"{name}: o, x and w share one dtype")
+    _build.require_aligned(name, o2, w)
+    per, splits = _build.split_k(T, H, Ko, x)
+    partial = torch.empty(splits, T, H, dtype=torch.float32, device=dev)
+    x_new, h = torch.empty_like(x2), torch.empty_like(x2)
+    # f32 copies held until the launch is enqueued (a temporary freed
+    # earlier would hand its memory to the next one)
+    b, nw, nb = (_f32(v, H, dev) for v in (bias, norm_weight, norm_bias))
+    fn = _build.kernel("ptt_oproj_norm",
+                       [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P])
+    err = fn(o2.data_ptr(), x2.data_ptr(), w.data_ptr(), _build.ptr(b),
+             _build.ptr(nw), _build.ptr(nb), partial.data_ptr(),
+             x_new.data_ptr(), h.data_ptr(), T, Ko, H, per, splits,
+             float(eps), _build.dtype_code(x), dev.index or 0,
+             _build.stream(x))
+    _build.check(name, err)
+    fused_oproj_norm.launches += 1
+    return x_new.reshape(shape), h.reshape(shape)
+
+
+fused_oproj_norm.launches = 0
+fused_oproj_norm.plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# gate/up + swiglu + down + residual
+# ---------------------------------------------------------------------------
+
+def _fp_only(sg, su, sd) -> None:
+    if sg is not None or su is not None or sd is not None:
+        raise NotImplementedError(
+            "fused_ffn: per-channel weight scales ride the int8/int4 "
+            "layouts, not ported yet (ROADMAP.md queue A item 4)")
+
+
+def megadecode_ffn_reference(h, x, wg, sg=None, wu=None, su=None, wd=None,
+                             sd=None, b1=None, b2=None, *,
+                             act: str = "swiglu",
+                             algo: Optional[str] = None):
+    """Plain version: gate/up, g * sigmoid(g) * u, down and the residual,
+    all in f32; returns x's dtype and shape."""
+    _refuse("fused_ffn", algo, None if act == "swiglu" else act,
+            "activation")
+    _fp_only(sg, su, sd)
+    shape = x.shape
+    H = shape[-1]
+    x2 = x.reshape(-1, H).float()
+    h2 = h.reshape(-1, H).float()
+    g = h2 @ wg.float()
+    if b1 is not None:
+        g = g + b1.reshape(1, -1).float()
+    u = h2 @ wu.float()
+    t = g * torch.sigmoid(g) * u
+    d = t @ wd.float()
+    if b2 is not None:
+        d = d + b2.reshape(1, H).float()
+    return (x2 + d).to(x.dtype).reshape(shape)
+
+
+def fused_ffn(h, x, wg, sg=None, wu=None, su=None, wd=None, sd=None,
+              b1=None, b2=None, *, act: str = "swiglu",
+              algo: Optional[str] = None):
+    """Gate/up matmul -> swiglu -> down-proj -> residual add.
+
+    ``h`` [..., H] is the normed FFN input (fused_oproj_norm's second
+    output), ``x`` [..., H] the residual stream (its first); fp weights
+    wg/wu [H, I], wd [I, H]; b1 [I] / b2 [H] or None. Returns
+    x + down(silu(h @ wg + b1) * (h @ wu)) + b2, shaped like ``x``."""
+    name = "fused_ffn"
+    _refuse(name, algo, None if act == "swiglu" else act, "activation")
+    _fp_only(sg, su, sd)
+    if x.device.type == "cpu":
+        fused_ffn.plain_calls += 1
+        return megadecode_ffn_reference(h, x, wg, None, wu, None, wd, None,
+                                        b1, b2)
+    shape = x.shape
+    H = shape[-1]
+    x2 = x.reshape(-1, H)
+    h2 = h.reshape(-1, H)
+    T = x2.shape[0]
+    I = wg.shape[-1]
+    dev = _build.require_cuda(name, h2, x2, wg, wu, wd)
+    if (h2.shape != x2.shape or wg.shape != (H, I) or wu.shape != (H, I)
+            or wd.shape != (I, H)):
+        raise ValueError(f"{name}: h {tuple(h.shape)}, x {tuple(shape)}, "
+                         f"wg {tuple(wg.shape)}, wu {tuple(wu.shape)}, "
+                         f"wd {tuple(wd.shape)}")
+    if not megadecode_eligible(H, I, 8, dtype_bytes=x.element_size()):
+        raise ValueError(f"{name}: the kernel takes H and I multiples of "
+                         f"8; got H {H}, I {I}")
+    if len({h.dtype, x.dtype, wg.dtype, wu.dtype, wd.dtype}) != 1:
+        raise TypeError(f"{name}: h, x and the weights share one dtype")
+    _build.require_aligned(name, h2, wg, wu, wd)
+    work = torch.empty(T, I, dtype=x.dtype, device=dev)   # swiglu(h)
+    per, splits = _build.split_k(T, H, I, x)
+    partial = torch.empty(splits, T, H, dtype=torch.float32, device=dev)
+    out = torch.empty_like(x2)
+    fb1, fb2 = _f32(b1, I, dev), _f32(b2, H, dev)
+    fn = _build.kernel("ptt_ffn", [_P] * 10 + [_I] * 7 + [_P])
+    err = fn(h2.data_ptr(), x2.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+             wd.data_ptr(), _build.ptr(fb1), _build.ptr(fb2), work.data_ptr(),
+             partial.data_ptr(), out.data_ptr(), T, H, I, per, splits,
+             _build.dtype_code(x), dev.index or 0, _build.stream(x))
+    _build.check(name, err)
+    fused_ffn.launches += 1
+    return out.reshape(shape)
+
+
+fused_ffn.launches = 0
+fused_ffn.plain_calls = 0
+
+
+def megadecode_eligible(hidden: int, intermediate: int, o_width: int, *,
+                        int4: bool = False, dtype_bytes: int = 2,
+                        device=None) -> bool:
+    """True when the kernels take this geometry (the engine's gate for
+    the fused back half, a pure function of shapes). On the CPU the
+    plain versions take any geometry: True. On the card, from what the
+    kernels need: 16-byte copies of every operand row (hidden,
+    intermediate and o_width multiples of 8, which covers bf16 and f32)
+    and an fp weight of 2 or 4 bytes (packed int4 is queue A item 4). No
+    size limit: the weights stream through shared memory and the
+    activation goes through a workspace (the TPU's VMEM rule does not
+    apply)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return True
+    return (not int4 and dtype_bytes in (2, 4)
+            and min(hidden, intermediate, o_width) > 0
+            and hidden % 8 == 0 and intermediate % 8 == 0
+            and o_width % 8 == 0)
+
+
+register_oracle(
+    "fused_oproj_norm", kernel=fused_oproj_norm,
+    reference=oproj_norm_reference,
+    parity_test="tests/test_torch_megakernels.py::TestOprojNormParity")
+register_oracle(
+    "fused_ffn", kernel=fused_ffn, reference=megadecode_ffn_reference,
+    parity_test="tests/test_torch_megakernels.py::TestFfnParity")

@@ -4,18 +4,27 @@
 `ServingEngine.add_request/step/collect` runs ONE unified step per
 engine step: every decode slot's pending token and one chunk of the
 oldest prefilling request ride a single flat token buffer through the
-per-layer body of the split chain
+per-layer body. By default (``megafront`` and ``megadecode`` on, as in
+the JAX engine) that body is the fused chain
+
+    fused_rms_norm -> fused_qkv_rope_append -> ragged_paged_attention
+    -> fused_oproj_norm -> fused_ffn
+
+five kernel-wrapper calls per layer and no matmul inside a layer, plus
+a final fused_rms_norm before the LM head (layers + 1 rms_norm and
+layers each of the other four per step). ``megafront=False`` and
+``megadecode=False`` keep the split chain
 
     fused_rms_norm -> q/k/v matmuls -> fused_rope_append
     -> ragged_paged_attention -> o-proj matmul + residual
     -> fused_rms_norm -> SwiGLU FFN matmuls + residual
 
-and a final fused_rms_norm before the LM head: three hand-written CUDA
-kernels (2 * layers + 1 rms_norm, layers rope_append and layers ragged
-launches per step) with the projections and the FFN left to
-``torch.matmul``, as the JAX package leaves them to XLA on this chain.
-Requests join mid-decode (chunked prefill) and leave the instant they
-hit EOS/max-tokens; their pages return to the pool immediately.
+with the projections and the FFN left to ``torch.matmul``, as the JAX
+package leaves them to XLA on that chain. The fused front half reads one
+concatenated [H, (Hq + 2 KV) * D] qkv slab per layer, built at init (a
+copy beside the model's own q/k/v weights). Requests join mid-decode
+(chunked prefill) and leave the instant they hit EOS/max-tokens; their
+pages return to the pool immediately.
 
 Per-sequence row tables (seq_start / num_tokens / kv_lengths / page
 tables) make joins and leaves pure data changes. Inactive slots point
@@ -24,15 +33,17 @@ length/num_tokens 0: they write their (garbage) K/V into the trash page
 and their logits are ignored on the host.
 
 The page pools are persistent device tensors, one (K, V) pair per layer.
-``fused_rope_append`` writes each step's K/V rows into them IN PLACE
-(the JAX kernel aliased them through input_output_aliases and returned
-new arrays), and copy-on-write page copies are in-place page copies.
+``fused_qkv_rope_append`` (or ``fused_rope_append``) writes each step's
+K/V rows into them IN PLACE (the JAX kernels aliased them through
+input_output_aliases and returned new arrays), and copy-on-write page
+copies are in-place page copies.
 
 PyTorch runs eagerly: the body is a plain Python function over tensors,
 built once per engine (CUDA graphs are ROADMAP.md queue A item 6).
 
 Greedy decoding only: engine tokens equal the JAX engine's tokens per
-request on the same weights and trace (tests/test_torch_llama_serving.py).
+request on the same weights and trace, on either chain
+(tests/test_torch_llama_serving.py).
 """
 
 from __future__ import annotations
@@ -47,6 +58,9 @@ from ..device import DeviceLike, resolve_device
 from ..generation import _ffn_apply, _llama_decode_params, _llama_weights, \
     _mm_w
 from ..ops.fused import fused_rms_norm, fused_rope_append
+from ..ops.megadecode import (fused_ffn, fused_oproj_norm,
+                              megadecode_eligible)
+from ..ops.megafront import fused_qkv_rope_append, megafront_eligible
 from ..ops.ragged import ragged_paged_attention
 from .block_allocator import PageBlockAllocator
 from .scheduler import DECODE, PREFILL, Request, Scheduler
@@ -80,11 +94,13 @@ class ServingEngine:
 
     ``device=None`` resolves to ``"cuda"`` and raises when CUDA is
     absent; the model must live on the engine's device. The defaults
-    are the features this port has: the unified ragged step on the split
-    chain (``megafront=False, megadecode=False``), live-donor prefix
-    sharing, no radix prefix cache, no preemption, no speculative
-    decoding. Asking for one of the unported features raises
-    NotImplementedError naming its ROADMAP item.
+    are the features this port has: the unified ragged step on the
+    fused chain (``megafront`` / ``megadecode`` None: on wherever the
+    kernels take the model's geometry, ``megafront_eligible`` /
+    ``megadecode_eligible``; False keeps the split chain), live-donor
+    prefix sharing, no radix prefix cache, no preemption, no
+    speculative decoding. Asking for one of the unported features
+    raises NotImplementedError naming its ROADMAP item.
 
     ``config`` is duck-typed like the JAX package's inference.Config:
     ``_admission = (max_inflight, queue_timeout_s)`` bounds in-flight
@@ -105,16 +121,14 @@ class ServingEngine:
                  spec_decode: int = 0,
                  preemption: bool = False,
                  tenant_budgets: Optional[dict] = None,
-                 megadecode: bool = False,
-                 megafront: bool = False,
+                 megadecode: Optional[bool] = None,
+                 megafront: Optional[bool] = None,
                  role: str = "colocated",
                  slo_targets=None,
                  device: DeviceLike = None):
         if role not in ("prefill", "decode", "colocated"):
             raise ValueError(
                 f"role must be prefill/decode/colocated, got {role!r}")
-        if megafront or megadecode:
-            raise _unported("the megafront/megadecode kernels", 1)
         if ragged is False:
             raise _unported("the split prefill/decode path (ragged=False)",
                             3)
@@ -172,6 +186,27 @@ class ServingEngine:
         self._pools = [(torch.zeros(shape, dtype=dt, device=self.device),
                         torch.zeros(shape, dtype=dt, device=self.device))
                        for _ in p["layers"]]
+        # the fused halves, on by default where the kernels take the
+        # geometry (the gates are pure functions of shapes); False keeps
+        # the split chain exactly
+        hq, isz = cfg.num_attention_heads, p["embed"].element_size()
+        self.megadecode = bool(
+            (megadecode is None or megadecode)
+            and megadecode_eligible(cfg.hidden_size, cfg.intermediate_size,
+                                    hq * d, dtype_bytes=isz,
+                                    device=self.device))
+        #: kernel-wrapper calls after attention, per layer per step
+        #: (2 fused vs the 6-stage split chain, as the JAX engine counts)
+        self.back_half_launches = 2 if self.megadecode else 6
+        self.megafront = bool(
+            (megafront is None or megafront)
+            and megafront_eligible(cfg.hidden_size, (hq + 2 * kv) * d, d,
+                                   dtype_bytes=isz, device=self.device))
+        if self.megafront:
+            self._concat_qkv_weights()
+        #: kernel-wrapper calls before attention, per layer per step
+        #: (norm + fused, vs norm + q/k/v matmuls + rope_append)
+        self.front_half_launches = 2 if self.megafront else 5
         self._body = self._llama_unified_body()
         self.launches = 0      # unified steps run by THIS engine
         #: logits [max_slots + 1, vocab] of the last unified step (row s
@@ -390,17 +425,35 @@ class ServingEngine:
             kp[:, dst] = kp[:, src]
             vp[:, dst] = vp[:, src]
 
+    def _concat_qkv_weights(self) -> None:
+        """The fused front half's layout: each layer's wq | wk | wv
+        become ONE [H, (Hq + 2 KV) * D] slab (``wqkv``), the columns in
+        q | k | v order (every output column depends only on its own
+        weight column, so the math is the three products'). The slab is
+        a copy made once here; the model keeps its own q/k/v weights,
+        so the engine holds both (1.61 GB more at Llama-3-8B in bf16).
+        The per-projection entries leave the engine's weight tree: a
+        megafront engine never runs the split front."""
+        layers = []
+        for L in self._p["layers"]:
+            L = dict(L)
+            L["wqkv"] = torch.cat([L.pop("wq"), L.pop("wk"), L.pop("wv")],
+                                  dim=-1)
+            layers.append(L)
+        self._p = dict(self._p, layers=layers)
+        self._w = dict(self._w, layers=layers)
+
     # ------------------------------------------------------ unified body
     def _llama_unified_body(self):
         """The per-step function over tensors (the JAX engine's jitted
-        body on its split-chain branch). T = max_slots + prefill_chunk
-        flat token rows, S = max_slots + 1 sequences with FIXED
-        seq_start [0..B-1, B]: decode slot i owns row i; the prefill
-        chunk owns rows B..B+n-1."""
+        body). T = max_slots + prefill_chunk flat token rows, S =
+        max_slots + 1 sequences with FIXED seq_start [0..B-1, B]: decode
+        slot i owns row i; the prefill chunk owns rows B..B+n-1."""
         cfg = self._p["cfg"]
         Hh, KV, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
         eps = cfg.rms_norm_eps
+        mega, megafront = self.megadecode, self.megafront
         B, C = self.max_slots, self.prefill_chunk
         T = B + C
         seq_start = torch.arange(B + 1, dtype=torch.int32,
@@ -413,17 +466,31 @@ class ServingEngine:
             s = w["sin"][positions.long()]
             for L, (kp, vp) in zip(w["layers"], pools):
                 h = fused_rms_norm(x, L["ln1"], eps)
-                q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
-                           _mm_w(h, L, "wv"))
-                q, kp, vp = fused_rope_append(
-                    q.reshape(T, Hh, D), k.reshape(T, KV, D),
-                    v.reshape(T, KV, D), c, s, kp, vp, tok_page, tok_off)
+                if megafront:
+                    q, kp, vp = fused_qkv_rope_append(
+                        h[0], L["wqkv"], None, None, c, s, kp, vp,
+                        tok_page, tok_off, heads=Hh, kv_heads=KV,
+                        head_dim=D)
+                else:
+                    q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
+                               _mm_w(h, L, "wv"))
+                    q, kp, vp = fused_rope_append(
+                        q.reshape(T, Hh, D), k.reshape(T, KV, D),
+                        v.reshape(T, KV, D), c, s, kp, vp, tok_page,
+                        tok_off)
                 o = ragged_paged_attention(q, kp, vp, seq_start,
                                            num_tokens, kv_lengths, tables,
                                            scale=D ** -0.5)
-                x = x + _mm_w(o.reshape(1, T, Hh * D), L, "wo")
-                h2 = fused_rms_norm(x, L["ln2"], eps)
-                x = x + _ffn_apply(L, h2)
+                if mega:
+                    xn, h2 = fused_oproj_norm(o.reshape(T, Hh * D), x[0],
+                                              L["wo"], None, None,
+                                              L["ln2"], None, eps=eps)
+                    x = fused_ffn(h2, xn, L["wg"], None, L["wu"], None,
+                                  L["wd"], None)[None]
+                else:
+                    x = x + _mm_w(o.reshape(1, T, Hh * D), L, "wo")
+                    h2 = fused_rms_norm(x, L["ln2"], eps)
+                    x = x + _ffn_apply(L, h2)
             x = fused_rms_norm(x, w["norm"], eps)
             # each sequence's logits come from its LAST flat row; idle
             # slots (num_tokens 0) index garbage the host ignores

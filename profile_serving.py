@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Where one serving step's time goes, on the card.
 
-    python3 profile_serving.py [--out serving_trace.json]
+    python3 profile_serving.py [--out serving_trace.json] [--chain split]
 
 Serves the same Llama-3-8B configuration and seeded traffic as
 chip_smoke.py's phase 4 (bf16, 4 slots, page_size 16, 128-token prefill
-chunks) and records a window of decode-only steps and a window of mixed
-(prefill + decode) steps under torch.profiler. Prints one JSON line per
-window: host wall ms per step, device busy ms per step (the union of
-kernel intervals in the trace), the device's idle share, device time by
-kernel group (the port's three kernels, GEMMs, everything else) and the
-ten kernels with the most device time. Needs one CUDA card; the trace
-of the last window goes to ``--out``.
+chunks), on the engine's default fused chain or, with ``--chain split``,
+on the split chain, and records a window of decode-only steps and a
+window of mixed (prefill + decode) steps under torch.profiler. Prints
+one JSON line per window: host wall ms per step, device busy ms per step
+(the union of kernel intervals in the trace), the device's idle share,
+device time by kernel group (the port's kernels, cuBLAS GEMMs,
+everything else) and the ten kernels with the most device time. Needs
+one CUDA card; the trace of the last window goes to ``--out``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ from paddle_tpu_torch.serving import ServingEngine
 STEPS = 6                          # engine steps per profiled window
 #: kernel-name fragments of the port's own kernels (ops/csrc)
 PORT_KERNELS = ("rms_norm_kernel", "rope_append_kernel",
-                "ragged_attention_kernel")
+                "ragged_attention_kernel", "mega::gemm_kernel",
+                "qkv_finalize_kernel", "oproj_norm_finalize_kernel",
+                "residual_finalize_kernel")
 
 
 def group(name: str) -> str:
@@ -111,6 +114,7 @@ def summarize(kind, steps, kernels):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="serving_trace.json")
+    ap.add_argument("--chain", choices=("fused", "split"), default="fused")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving.py: no CUDA device", file=sys.stderr)
@@ -122,8 +126,10 @@ def main() -> int:
     cfg = llama3_8b_config()
     model = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
                              generator=torch.Generator("cuda").manual_seed(0))
+    chain = {} if args.chain == "fused" else dict(megafront=False,
+                                                  megadecode=False)
     eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
-                        prefill_chunk=CHUNK, max_context=MAX_CTX)
+                        prefill_chunk=CHUNK, max_context=MAX_CTX, **chain)
     rng = np.random.RandomState(0)
     # warm-up request, then chip_smoke.py's phase-4 prompts, all at once
     eng.add_request(rng.randint(0, cfg.vocab_size, 64), max_new_tokens=2)
@@ -138,7 +144,8 @@ def main() -> int:
     results.append(summarize("decode", *window(eng, STEPS, out)))
     eng.run_to_completion()
     for r in results:
-        print(json.dumps({"card": card["nvidia_smi"], **r}), flush=True)
+        print(json.dumps({"card": card["nvidia_smi"], "chain": args.chain,
+                          **r}), flush=True)
     return 0
 
 

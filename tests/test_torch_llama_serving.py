@@ -2,13 +2,20 @@
 
 A seeded JAX LlamaForCausalLM (tiny config) carries its weights into
 paddle_tpu_torch's LlamaForCausalLM (extract_state -> numpy ->
-load_reference_state); the JAX ServingEngine on its split chain
-(megafront=False, megadecode=False) and the port's ServingEngine then run
-the same seeded join/leave trace. Every request's greedy tokens must be
-identical, every unified step's logits equal within 1e-4 (f32; the two
-frameworks sum in different orders), and the per-layer kernel route
-counts must be the split chain's: 2 * layers + 1 rms_norm, one
-rope_append and one ragged attention per layer per step."""
+load_reference_state); a JAX ServingEngine and the port's ServingEngine
+then run the same seeded join/leave trace, on each of the two chains:
+
+- the fused chain, both engines at their defaults (megafront and
+  megadecode on; the JAX megakernels in interpret mode): route counts
+  per step of layers + 1 rms_norm and layers each of qkv_rope_append,
+  ragged attention, oproj_norm and ffn, no rope_append;
+- the split chain (megafront=False, megadecode=False on both): 2 * layers
+  + 1 rms_norm, one rope_append and one ragged attention per layer per
+  step.
+
+Every request's greedy tokens must be identical and every unified step's
+logits equal within 1e-4 (f32; the two frameworks sum in different
+orders)."""
 
 from types import SimpleNamespace
 
@@ -85,15 +92,13 @@ def models():
     return jm, tm, state
 
 
-@pytest.fixture(scope="module")
-def runs(models):
+def _run_both(models, **chain):
     """Both engines over one seeded trace, with every unified step's
     logits captured (the JAX engine's through its jitted program)."""
     jm, tm, _ = models
     trace = _serving_trace(jm.config.vocab_size)
 
-    jeng = JaxEngine(jm, megafront=False, megadecode=False,
-                     enable_prefix_cache=False, **ENGINE_KW)
+    jeng = JaxEngine(jm, enable_prefix_cache=False, **chain, **ENGINE_KW)
     jax_logits = []
     program = jeng._jit_unified
 
@@ -106,7 +111,7 @@ def runs(models):
     jres, _ = _drive(jeng, trace)
 
     ops.reset_counts()
-    teng = ServingEngine(tm, device="cpu", **ENGINE_KW)
+    teng = ServingEngine(tm, device="cpu", **chain, **ENGINE_KW)
     torch_logits = []
     body = teng._body
 
@@ -121,6 +126,18 @@ def runs(models):
     return dict(jres=jres, tres=tres, treqs=treqs, jax_logits=jax_logits,
                 torch_logits=torch_logits, counts=counts, teng=teng,
                 jeng=jeng, trace=trace)
+
+
+@pytest.fixture(scope="module")
+def runs(models):
+    """The split chain, asked for on both engines."""
+    return _run_both(models, megafront=False, megadecode=False)
+
+
+@pytest.fixture(scope="module")
+def fused_runs(models):
+    """The fused chain: both engines at their defaults."""
+    return _run_both(models)
 
 
 class TestWeightCarryOver:
@@ -207,6 +224,56 @@ class TestEngineAgainstJax:
         assert st["sequences"] == 0 and st["pages_used"] == 0
 
 
+class TestFusedEngineAgainstJax:
+    """The default engines: fused_rms_norm -> fused_qkv_rope_append ->
+    ragged_paged_attention -> fused_oproj_norm -> fused_ffn per layer."""
+
+    def test_both_default_to_the_fused_chain(self, models, fused_runs):
+        for eng in (fused_runs["jeng"], fused_runs["teng"]):
+            assert eng.megafront and eng.megadecode
+            assert eng.front_half_launches == 2
+            assert eng.back_half_launches == 2
+        split = ServingEngine(models[1], device="cpu", megafront=False,
+                              megadecode=False, **ENGINE_KW)
+        assert split.front_half_launches == 5
+        assert split.back_half_launches == 6
+
+    def test_greedy_tokens_identical(self, fused_runs):
+        assert set(fused_runs["tres"]) == set(fused_runs["jres"]) == \
+            set(range(len(fused_runs["trace"])))
+        for rid, ref in fused_runs["jres"].items():
+            np.testing.assert_array_equal(fused_runs["tres"][rid], ref)
+
+    def test_every_step_logits_within_1e4(self, fused_runs):
+        jl, tl = fused_runs["jax_logits"], fused_runs["torch_logits"]
+        assert len(jl) == len(tl) > 0
+        for a, b in zip(jl, tl):
+            np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
+
+    def test_route_counts_per_layer(self, fused_runs):
+        steps = fused_runs["teng"].launches
+        layers = 2
+        assert steps == len(fused_runs["torch_logits"])
+        c = fused_runs["counts"]
+        want = {"fused_rms_norm": layers + 1, "fused_qkv_rope_append": layers,
+                "ragged_paged_attention": layers,
+                "fused_oproj_norm": layers, "fused_ffn": layers,
+                "fused_rope_append": 0}
+        for name, per_step in want.items():
+            assert c[name] == {"launches": 0,
+                               "plain_calls": per_step * steps}, name
+
+    def test_qkv_slab_is_the_three_projections(self, models, fused_runs):
+        _, tm, _ = models
+        L = fused_runs["teng"]._p["layers"][0]
+        a = tm.llama.layers[0].self_attn
+        assert "wq" not in L and "wk" not in L and "wv" not in L
+        torch.testing.assert_close(
+            L["wqkv"], torch.cat([a.q_proj.weight, a.k_proj.weight,
+                                  a.v_proj.weight], dim=-1),
+            rtol=0, atol=0)
+
+
 class TestLayersAgainstJax:
     """Linear, Embedding and RMSNorm: same weights (carried by name),
     same outputs as the JAX package's layers, f32 at 2e-5."""
@@ -265,7 +332,6 @@ class TestEngineOptions:
             np.testing.assert_array_equal(out[i], runs["jres"][i])
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(megafront=True), 1), (dict(megadecode=True), 1),
         (dict(ragged=False), 3), (dict(weight_only_int8=True), 4),
         (dict(weight_only_quant="int4"), 4),
         (dict(enable_prefix_cache=True), 6), (dict(spec_decode=2), 6),

@@ -50,6 +50,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     # every module of the slice was imported
     for mod in ("paddle_tpu_torch.serving.engine",
                 "paddle_tpu_torch.ops.ragged", "paddle_tpu_torch.ops.fused",
+                "paddle_tpu_torch.ops.megafront",
+                "paddle_tpu_torch.ops.megadecode",
                 "paddle_tpu_torch.ops._build", "paddle_tpu_torch.convert",
                 "paddle_tpu_torch.models.llama", "paddle_tpu_torch.device",
                 "paddle_tpu_torch.resilience"):
@@ -86,12 +88,15 @@ def test_engine_refuses_a_model_on_another_device():
 
 def test_registry_names_the_ported_kernels():
     import paddle_tpu.ops.fused  # noqa: F401  (registers its kernels)
+    import paddle_tpu.ops.pallas_megadecode  # noqa: F401
+    import paddle_tpu.ops.pallas_megafront  # noqa: F401
     import paddle_tpu.ops.pallas_ragged  # noqa: F401
     from paddle_tpu.ops.oracles import oracles as jax_oracles
     from paddle_tpu_torch.ops import oracles
     ported = oracles()
     assert set(ported) == {"fused_rms_norm", "fused_rope_append",
-                           "ragged_paged_attention"}
+                           "ragged_paged_attention", "fused_qkv_rope_append",
+                           "fused_oproj_norm", "fused_ffn"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
@@ -105,7 +110,7 @@ def test_registry_names_the_ported_kernels():
 def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["fused.cu", "ragged_attention.cu"]
+    assert names == ["fused.cu", "megakernels.cu", "ragged_attention.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     for p in _build.CSRC.glob("*.cu"):
