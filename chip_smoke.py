@@ -31,9 +31,32 @@ Phases, one line each on stdout:
    megadecode=False), full depth, its counts read alone; it reports the
    share of greedy tokens identical to the fused chain's (bf16 ties may
    break differently, so it is not asserted);
-6. the ``{"kernels": [...]}`` line (launches from the run of the path
-   that uses each kernel: the fused chain, or the split chain for
-   rope_append), then the ``{"ok": true, ...}`` line.
+6. a tiny Llama (head_dim 64, GQA) takes 3 pretraining steps on the
+   CPU (plain versions) and on the card (kernels), in f32 and in bf16
+   compute: losses and grad norms agree within TINY_TRAIN_LIMITS;
+7. pretraining at Llama-3-8B width (hidden 4096, 32/8 heads x 128, FFN
+   14336, vocab 128256; depth cut from 32 to 4 layers), batch 1 x 8192
+   tokens, bf16 compute over f32 master weights and f32 AdamW moments
+   (lr 3e-4, weight decay 0.1, clip 1.0, 4 CE chunks, no recompute),
+   weights drawn on the card from a seeded generator: 2 warm-up and 5
+   timed steps on one seeded batch; median step ms, tokens/s, train_mfu
+   (and its hardware-FLOPs variant), peak memory and the loss
+   trajectory; the loss must be finite and fall, and every timed step
+   must launch the flash forward and backward once per layer with no
+   plain-version call and no attention off the flash route;
+8. the ``{"kernels": [...]}`` line (launches from the run of the path
+   that uses each kernel: the fused chain, the split chain for
+   rope_append, the 8B training run for flash attention), then the
+   ``{"ok": true, ...}`` line.
+
+Phase 2 also holds flash attention (forward, and the dq + dkv backward)
+against its plain version at the training shape (B 1, S 8192, 32 heads
+x 128, causal) in bf16, by relative errors over each tensor and over
+each 64-position tile of a head (`flash_rel_errors`), and at S 2048 in
+f32, where the dense plain version's f32 scores would not fit at S 8192
+beside the rest; the plain version runs 4 heads at a time. `library_ms` is
+torch.nn.functional.scaled_dot_product_attention (is_causal=True) and
+its autograd backward on the same tensors, timed as a yardstick only.
 
 It imports neither JAX nor paddle_tpu. Any failure raises and exits
 nonzero; without a CUDA device it exits nonzero before printing a result.
@@ -42,6 +65,7 @@ nonzero; without a CUDA device it exits nonzero before printing a result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import statistics
 import sys
@@ -56,7 +80,12 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama_tiny_config,
                                            precompute_rope)
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import flash_attention as attn_routes
+from paddle_tpu_torch.ops.flash import _launch_fwd
 from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.trainer import (PretrainConfig,
+                                      build_llama_pretrain_step,
+                                      flops_per_token, flops_per_token_hw)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 #: H100 SXM dense peaks of the working type (data sheet): bf16 on the
@@ -72,6 +101,9 @@ DEV = "cuda"
 # the slice's 8B serving geometry
 H, HQ, KV, D, PSZ, FFN = 4096, 32, 8, 128, 16, 14336
 SLOTS, CHUNK, MAX_CTX = 4, 128, 1024
+# the slice's training geometry: Llama-3-8B width, depth cut to 4 layers
+TRAIN_LAYERS, TRAIN_SEQ, WARMUP_STEPS, TIMED_STEPS = 4, 8192, 2, 5
+F32_FLASH_SEQ = 2048
 
 
 def emit(phase: str, **fields) -> None:
@@ -120,6 +152,49 @@ def bound(bytes_: float, flops: float = 0.0, dtype=torch.bfloat16):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+#: the bf16 flash kernels round p and ds to bf16 before their products
+#: (the plain version keeps f32), so o, dq, dk and dv are held by relative
+#: errors, not by one absolute bar: causal, row i of o averages about i
+#: values, so late rows (and, in dk / dv, late keys) are ~i^-1/2 the size
+#: of the first ones, and a bar scaled to the tensor's largest value would
+#: pass a kernel that is wrong on most of them. Limits set from readings of
+#: the sound kernel and of planted faults (flash_limits.py, PERF.md).
+FLASH_BF16_TENSOR_LIMIT = 1e-2
+FLASH_BF16_TILE_LIMIT = 3e-2
+FLASH_TILE = 64     # positions of one head: the kernels' q and k tiles
+
+
+def flash_rel_errors(got, want):
+    """(tensor, tile) relative errors of `got` against `want` [B, S, H, D]:
+    ||got - want|| / ||want|| over the whole tensor, and the largest of
+    the same over its tiles (FLASH_TILE consecutive positions of one
+    head), each tile's norm floored at 1% of the median tile norm, so
+    that a tile whose true value is zero (rows that see no key) is held
+    to that floor. A tile, not a row: dq of a row whose softmax is nearly
+    saturated is a difference of nearly equal terms, and its bf16
+    rounding there is of the size of the row itself."""
+    B, S, H, D = want.shape
+    w = want.detach().float()
+    d = got.detach().float() - w
+    tensor = float(d.norm() / w.norm())
+    pad = (0, 0, 0, 0, 0, (-S) % FLASH_TILE)
+    w = torch.nn.functional.pad(w, pad).reshape(B, -1, FLASH_TILE, H, D)
+    d = torch.nn.functional.pad(d, pad).reshape(B, -1, FLASH_TILE, H, D)
+    wn, dn = w.norm(dim=(2, 4)), d.norm(dim=(2, 4))
+    floor = 1e-2 * float(wn.median())
+    return tensor, float((dn / wn.clamp_min(floor)).max())
+
+
+def assert_flash_bf16(name: str, got, want):
+    """Hold a bf16 flash output to its plain version; returns the
+    readings."""
+    assert torch.isfinite(got).all(), name
+    tensor, tile = flash_rel_errors(got, want)
+    assert tensor <= FLASH_BF16_TENSOR_LIMIT, (name, "tensor", tensor)
+    assert tile <= FLASH_BF16_TILE_LIMIT, (name, "tile", tile)
+    return tensor, tile
 
 
 # ------------------------------------------------------------------ inputs
@@ -276,6 +351,7 @@ def check_kernels(timer: Timer):
                      decode_only_bound_ms=bound(nbytes(qa, o, *tabs)
                                                 + dec_live)[0])
         check_megakernels(timer, mb, cos, sin, rows, dtype, tol[dtype], gc)
+    check_flash(timer, rows)
     return rows
 
 
@@ -383,6 +459,105 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
     record("fused_ffn", err, **(timed if main else {}))
 
 
+def causal_pairs(Sq: int, Sk: int) -> int:
+    """(row, key) pairs a causal, bottom-right aligned mask leaves
+    visible: row i sees min(Sk, i + Sk - Sq + 1) keys."""
+    return sum(max(0, min(Sk, i + Sk - Sq + 1)) for i in range(Sq))
+
+
+def by_heads(fn, *ts, heads=4):
+    """`fn` over `heads` heads at a time, concatenated back along the
+    head axis (heads are independent; the dense plain version's f32
+    scores for all 32 heads at S 8192 would take 8.6 GB a copy)."""
+    parts = [fn(*(t[:, :, h:h + heads] for t in ts))
+             for h in range(0, ts[0].shape[2], heads)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+    return torch.cat(parts, dim=2)
+
+
+def check_flash(timer: Timer, rows: dict):
+    """flash_sdpa forward and backward (dq + dkv) at the training shape
+    (B 1, S 8192, 32 heads x 128 after the GQA repeat, causal) in bf16
+    and at S 2048 in f32, against the plain version: o and the three
+    gradients; in bf16 timed beside the plain version, the bound and
+    PyTorch's SDPA (library_ms, a yardstick the port never calls)."""
+    gc_ = torch.Generator(DEV).manual_seed(1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_ref = lambda q, k, v: ops.flash_sdpa_reference(  # noqa: E731
+        q, k, v, causal=True)
+    bwd_ref = lambda q, k, v, do: ops.flash_sdpa_bwd_reference(  # noqa: E731
+        q, k, v, do, causal=True)
+    for dtype, S in ((torch.bfloat16, TRAIN_SEQ),
+                     (torch.float32, F32_FLASH_SEQ)):
+        main = dtype == torch.bfloat16
+        tag = "bf16" if main else "f32"
+        q, k, v, do = (torch.randn(1, S, HQ, D, device=DEV,
+                                   generator=gc_).to(dtype)
+                       for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n_f, n_b = ops.flash_sdpa.launches, ops.flash_sdpa_bwd.launches
+        o = ops.flash_sdpa(*leaves, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        assert ops.flash_sdpa.launches == n_f + 1
+        assert ops.flash_sdpa_bwd.launches == n_b + 1
+        grads = [t.grad for t in leaves]
+        with torch.no_grad():
+            ref_o = by_heads(fwd_ref, q, k, v)
+        ref_g = by_heads(bwd_ref, q, k, v, do)
+        outs = {"o": (o, ref_o), **{n: (a, b) for n, a, b in
+                                    zip(("dq", "dk", "dv"), grads, ref_g)}}
+        rel = {}
+        for n, (got, want) in outs.items():
+            if main:
+                rel[n] = assert_flash_bf16(n, got, want)
+            else:
+                assert torch.isfinite(got).all(), n
+                tol = dict(atol=2e-5, rtol=2e-5) if n == "o" \
+                    else dict(atol=1e-4, rtol=1e-4)
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+        errs = {"flash_sdpa": (max_err(o.detach(), ref_o), ["o"]),
+                "flash_sdpa_bwd": (max(max_err(a, b)
+                                       for a, b in zip(grads, ref_g)),
+                                   ["dq", "dk", "dv"])}
+        for name, (err, names) in errs.items():
+            r = rows.setdefault(name, {"seq": S})
+            r[f"max_abs_err_{tag}"] = err
+            if main:
+                r["max_abs_err"] = err
+                r["rel_err_bf16"] = {n: {"tensor": rel[n][0],
+                                         "tile": rel[n][1]} for n in names}
+        if not main:
+            continue
+        del leaves, grads, ref_o, ref_g, o
+        pairs = causal_pairs(S, S)
+        lse_bytes = 1 * HQ * S * 4
+        flops1 = 2 * 1 * HQ * D * pairs         # one product over the pairs
+        o, lse = _launch_fwd(q, k, v, None, None, True, D ** -0.5)
+        b_, by = bound(nbytes(q, k, v, o) + lse_bytes, 2 * flops1, dtype)
+        lq, lk, lv = (t.transpose(1, 2) for t in (q, k, v))
+        rows["flash_sdpa"].update(
+            bound_ms=b_, bound_by=by, causal_pairs=pairs,
+            ms=timer.ms(lambda: ops.flash_sdpa(q, k, v, causal=True)),
+            plain_ms=timer.ms(lambda: by_heads(fwd_ref, q, k, v)),
+            library_ms=timer.ms(lambda: sdpa(lq, lk, lv, is_causal=True)))
+        b_, by = bound(nbytes(q, k, v, o, do) + lse_bytes + 3 * nbytes(q),
+                       5 * flops1, dtype)
+        ll = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        lo = sdpa(*ll, is_causal=True)
+        ldo = do.transpose(1, 2)
+        rows["flash_sdpa_bwd"].update(
+            bound_ms=b_, bound_by=by, causal_pairs=pairs,
+            ms=timer.ms(lambda: ops.flash_sdpa_bwd(q, k, v, o, lse, do,
+                                                   causal=True)),
+            # the plain backward is autograd of the dense version, which
+            # runs that version's forward first
+            plain_ms=timer.ms(lambda: by_heads(bwd_ref, q, k, v, do)),
+            library_ms=timer.ms(lambda: torch.autograd.grad(
+                lo, ll, ldo, retain_graph=True)))
+
+
 # ------------------------------------------------------------- phase 3/4
 def trace(rng, V, n, smin, smax, new_min, new_max, spread):
     """Seeded (prompt, max_new, join_step) requests."""
@@ -420,14 +595,16 @@ def drive(eng, reqs, on_step=None):
 #: the two chains of the engine, and the kernels each launches per step
 #: (per layer, plus the final norm's rms_norm)
 SPLIT = dict(megafront=False, megadecode=False)
+NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0)}
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_qkv_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_oproj_norm": (1, 0), "fused_ffn": (1, 0),
-                  "fused_rope_append": (0, 0)}
+                  "fused_rope_append": (0, 0), **NO_TRAINING}
 SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_qkv_rope_append": (0, 0),
-                  "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0)}
+                  "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0),
+                  **NO_TRAINING}
 
 
 def tiny_engine_parity():
@@ -532,6 +709,154 @@ def serve_8b(model, chain: str, counts_out: dict):
     }
 
 
+# ------------------------------------------------------------- phase 6/7
+TINY_TRAIN = dict(num_hidden_layers=2, num_attention_heads=2,
+                  num_key_value_heads=1, max_position_embeddings=64)
+
+
+def train_run(pcfg, model, batches):
+    """Pretraining steps over `batches`; (losses, grad norms, launch
+    counts of the run)."""
+    state, step, _ = build_llama_pretrain_step(pcfg, model=model)
+    n0 = ops.launch_counts()
+    losses, norms = [], []
+    for ids, labels in batches:
+        state, m = step(state, ids, labels)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    n1 = ops.launch_counts()
+    delta = {k: {f: n1[k][f] - n0[k][f] for f in n1[k]} for k in n1}
+    return losses, norms, delta
+
+
+#: phase 6's limits on the card's losses and grad norms against the
+#: CPU's, relative: in f32 the kernels and cuBLAS sum in other orders
+#: than the CPU; in bf16 they also round p, ds and the products at other
+#: places than the CPU's plain versions. Set from readings of the sound
+#: kernels and of planted faults (flash_limits.py, PERF.md).
+TINY_TRAIN_LIMITS = {"float32": {"loss": 1e-4, "grad_norm": 1e-4},
+                     "bfloat16": {"loss": 2e-3, "grad_norm": 2e-2}}
+
+
+def tiny_train_readings(param_dtype: str):
+    """A tiny Llama (head_dim 64, 2 query heads on 1 KV head), 3
+    pretraining steps in `param_dtype` compute on the CPU (plain
+    versions) and on the card (kernels) from the same weights: both
+    trajectories and their largest relative distances."""
+    cfg = llama_tiny_config(**TINY_TRAIN)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    pcfg = PretrainConfig(cfg, global_batch=2, seq_len=48,
+                          param_dtype=param_dtype, remat="none")
+    rng = np.random.RandomState(2)
+    batches = []
+    for _ in range(3):
+        ids = rng.randint(0, cfg.vocab_size, (2, 48))
+        batches.append((ids, np.roll(ids, -1, axis=1)))
+    cpu = train_run(pcfg, cpu_model, batches)
+    card = train_run(pcfg, gpu_model, batches)
+    L, n = cfg.num_hidden_layers, len(batches)
+    for name in ("flash_sdpa", "flash_sdpa_bwd"):
+        assert card[2][name] == {"launches": L * n, "plain_calls": 0}, name
+        assert cpu[2][name]["launches"] == 0
+    assert cpu[2]["flash_sdpa"]["plain_calls"] == L * n
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))
+
+    return {"steps": n, "losses_cpu": cpu[0], "losses_card": card[0],
+            "grad_norms_cpu": cpu[1], "grad_norms_card": card[1],
+            "loss_rel": rel(card[0], cpu[0]),
+            "grad_norm_rel": rel(card[1], cpu[1])}
+
+
+def tiny_train_parity():
+    """Phase 6 in f32 and in bf16: the card's losses and grad norms
+    within TINY_TRAIN_LIMITS of the CPU's."""
+    out = {}
+    for dt, lim in TINY_TRAIN_LIMITS.items():
+        r = tiny_train_readings(dt)
+        assert r["loss_rel"] <= lim["loss"], (dt, r)
+        assert r["grad_norm_rel"] <= lim["grad_norm"], (dt, r)
+        out[dt] = dict(r, limits=lim)
+    return out
+
+
+def train_8b(card):
+    """Pretraining at Llama-3-8B width, depth cut to TRAIN_LAYERS: every
+    timed step must launch the flash forward and backward once a layer,
+    no plain version, and take no attention route but flash."""
+    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS,
+                           max_position_embeddings=TRAIN_SEQ)
+    pcfg = PretrainConfig(cfg, global_batch=1, seq_len=TRAIN_SEQ, lr=3e-4,
+                          weight_decay=0.1, grad_clip=1.0, ce_chunks=4,
+                          remat="none", param_dtype="bfloat16",
+                          moment_dtype="float32")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                             generator=torch.Generator(DEV).manual_seed(0))
+    state, step, _ = build_llama_pretrain_step(pcfg, device=DEV,
+                                               model=model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(DEV).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device=DEV,
+                        generator=g)
+    labels = torch.roll(ids, -1, dims=1)
+    losses, norms, times = [], [], []
+
+    def one_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, ids, labels)
+        losses.append(float(m["loss"]))         # waits for the step
+        times.append((time.perf_counter() - t) * 1e3)
+        norms.append(float(m["grad_norm"]))
+
+    for _ in range(WARMUP_STEPS):
+        one_step()
+    ops.reset_counts()
+    attn_routes.reset_route_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TIMED_STEPS):
+        one_step()
+    counts = ops.launch_counts()
+    routes = dict(attn_routes.route_counts)
+    L, n = TRAIN_LAYERS, TIMED_STEPS
+    for name, c in counts.items():
+        want = L * n if name.startswith("flash_sdpa") else 0
+        assert c == {"launches": want, "plain_calls": 0}, (name, c)
+    assert routes == {"flash": L * n, "flash_segmented": 0,
+                      "composite": 0}, routes
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms))
+    assert losses[-1] < losses[0], losses
+    step_ms = statistics.median(times[WARMUP_STEPS:])
+    tok_s = TRAIN_SEQ / (step_ms / 1e3)
+    n_params = sum(p.numel() for p in state.master.values())
+    # bf16 compute + f32 master + 2 f32 moments + bf16 and f32 grads
+    reckoned = n_params * (2 + 4 + 8 + 2 + 4)
+    return {
+        "card": card["nvidia_smi"], "layers": L, "layers_published": 32,
+        "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
+        "kv_heads": cfg.num_key_value_heads, "ffn": cfg.intermediate_size,
+        "vocab": cfg.vocab_size, "batch": 1, "seq": TRAIN_SEQ,
+        "params": n_params, "model_init_s": init_s,
+        "warmup_steps": WARMUP_STEPS, "timed_steps": n,
+        "step_ms_median": step_ms, "step_ms": times,
+        "tokens_per_s": tok_s,
+        "train_mfu": tok_s * flops_per_token(cfg) / PEAK_FLOPS_PER_S[
+            torch.bfloat16],
+        "train_mfu_hw": tok_s * flops_per_token_hw(cfg, TRAIN_SEQ)
+        / PEAK_FLOPS_PER_S[torch.bfloat16],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "state_bytes_reckoned": reckoned,
+        "losses": losses, "grad_norms": norms,
+        "launches_per_step": {"flash_sdpa": L, "flash_sdpa_bwd": L},
+    }, {k: v["launches"] for k, v in counts.items() if v["launches"]}
+
+
 SOURCES = {
     "fused_rms_norm": ("paddle_tpu_torch/ops/csrc/fused.cu",
                        "paddle_tpu/ops/fused.py:100"),
@@ -546,6 +871,10 @@ SOURCES = {
                          "paddle_tpu/ops/pallas_megadecode.py:182"),
     "fused_ffn": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
                   "paddle_tpu/ops/pallas_megadecode.py:341"),
+    "flash_sdpa": ("paddle_tpu_torch/ops/csrc/flash_attention.cu",
+                   "paddle_tpu/ops/pallas_flash.py:335"),
+    "flash_sdpa_bwd": ("paddle_tpu_torch/ops/csrc/flash_attention.cu",
+                       "paddle_tpu/ops/pallas_flash.py:335"),
 }
 
 
@@ -589,13 +918,20 @@ def main() -> int:
     emit("5 llama3-8b serving, split chain", card=card["nvidia_smi"],
          identical_token_share_vs_fused=same / sum(a.size for a, _ in toks),
          **res)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit("6 tiny training cpu vs card", **tiny_train_parity())
+    res, train_launches = train_8b(card)
+    emit("7 llama3-8b-width pretraining, 4 of 32 layers", **res)
 
     kernels = []
+    paths = (("fused", fused_launches), ("split", split_launches),
+             ("train", train_launches))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
-        path = "fused" if name in fused_launches else "split"
-        launches = (fused_launches if path == "fused"
-                    else split_launches)[name]
+        path, launches = next((p, c[name]) for p, c in paths if name in c)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, "path": path,

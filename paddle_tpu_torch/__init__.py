@@ -14,7 +14,9 @@ PyTorch version instead, which is what the CPU tests exercise.
 Ported so far (ROADMAP.md): Llama-family serving through
 ``serving.ServingEngine``'s unified ragged step, on the fused chain by
 default (the megafront / megadecode kernels) and on the split chain on
-request.
+request; and single-device Llama pretraining through
+``trainer.build_llama_pretrain_step`` (flash attention forward and
+backward as kernels; ``device="cpu"`` runs the plain versions).
 """
 
 from .device import card_report, resolve_device

@@ -6,14 +6,16 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops.fused import fused_rms_norm
+from .functional import rms_norm
 
 __all__ = ["RMSNorm"]
 
 
 class RMSNorm(nn.Module):
-    """weight ``[hidden_size]`` starting at ones; forward runs the
-    ``fused_rms_norm`` kernel (its plain version on the CPU)."""
+    """weight ``[hidden_size]`` starting at ones; forward is
+    ``functional.rms_norm`` (the JAX layer's op order, differentiable).
+    The serving engine reads the weight and calls the
+    ``ops.fused_rms_norm`` kernel itself; that kernel has no backward."""
 
     def __init__(self, hidden_size: int, epsilon: float = 1e-6, *,
                  device: DeviceLike = None,
@@ -25,4 +27,4 @@ class RMSNorm(nn.Module):
             hidden_size, device=resolve_device(device), dtype=dtype))
 
     def forward(self, x):
-        return fused_rms_norm(x, self.weight, self.epsilon)
+        return rms_norm(x, self.weight, self.epsilon)

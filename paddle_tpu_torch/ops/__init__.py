@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .flash import (flash_kernel_eligible, flash_sdpa, flash_sdpa_bwd,
+                    flash_sdpa_bwd_reference, flash_sdpa_reference)
 from .fused import (fused_rms_norm, fused_rope_append, rms_norm_reference,
                     rope_append_reference)
 from .megadecode import (fused_ffn, fused_oproj_norm, megadecode_eligible,
@@ -19,20 +21,30 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
            "ragged_attention_reference", "fused_qkv_rope_append",
            "qkv_rope_append_reference", "megafront_eligible",
            "fused_oproj_norm", "oproj_norm_reference", "fused_ffn",
-           "megadecode_ffn_reference", "megadecode_eligible", "oracles",
+           "megadecode_ffn_reference", "megadecode_eligible",
+           "flash_sdpa", "flash_sdpa_reference", "flash_sdpa_bwd",
+           "flash_sdpa_bwd_reference", "flash_kernel_eligible", "oracles",
            "launch_counts", "reset_counts"]
+
+
+def _counted():
+    """(name, wrapper) of every counted wrapper: each registered kernel,
+    and ``<name>_bwd`` for a kernel's backward wrapper."""
+    for name, e in oracles().items():
+        yield name, e.kernel
+        if e.backward is not None:
+            yield name + "_bwd", e.backward
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:
     """{kernel name: {"launches": kernel launches, "plain_calls": plain
-    version calls}} for every registered kernel."""
-    return {name: {"launches": e.kernel.launches,
-                   "plain_calls": e.kernel.plain_calls}
-            for name, e in oracles().items()}
+    version calls}} for every registered kernel and backward wrapper."""
+    return {name: {"launches": fn.launches, "plain_calls": fn.plain_calls}
+            for name, fn in _counted()}
 
 
 def reset_counts() -> None:
     """Set every kernel's launch and plain-call counts to 0."""
-    for e in oracles().values():
-        e.kernel.launches = 0
-        e.kernel.plain_calls = 0
+    for _, fn in _counted():
+        fn.launches = 0
+        fn.plain_calls = 0

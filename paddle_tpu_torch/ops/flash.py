@@ -1,0 +1,278 @@
+"""Flash attention, forward and backward (counterpart of
+paddle_tpu/ops/pallas_flash.py).
+
+`flash_sdpa` takes ``[B, S, H, D]`` q / k / v, optional causal masking
+(bottom-right aligned: key j is visible to row i iff
+``j <= i + (Sk - Sq)``) and optional ``[B, S]`` segment ids (rows and keys
+of different segments do not see each other). On CUDA tensors it runs the
+hand-written kernels of ``csrc/flash_attention.cu`` through
+`torch.autograd.Function`: the forward kernel writes ``o`` and an f32
+logsumexp, and `flash_sdpa_bwd` launches the di pre-pass and the dq and
+dkv kernels. On CPU tensors it runs the plain version
+`flash_sdpa_reference`, which autograd differentiates. A CUDA tensor
+launches the kernels or raises; nothing falls back.
+
+A row that sees no key comes out as zeros (lse = +1e30), where a dense
+softmax would average v; its gradients are zero, never NaN.
+
+Counts: ``flash_sdpa.launches`` counts forward kernels,
+``flash_sdpa_bwd.launches`` backward calls (each the di pre-pass, dq and
+dkv: three CUDA kernels); ``.plain_calls`` the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .oracles import register_oracle
+
+__all__ = ["flash_sdpa", "flash_sdpa_bwd", "flash_sdpa_reference",
+           "flash_sdpa_bwd_reference", "flash_kernel_eligible"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_NEG = -1e30
+#: head dims the kernels are built for
+HEAD_DIMS = (64, 128)
+
+
+def flash_kernel_eligible(Sq: int, Sk: int, D: int, block_q: int = 128,
+                          block_k: int = 128) -> bool:
+    """Shapes the Hopper kernels take: head_dim 64 or 128 and at least one
+    row and one key. The kernels mask their ragged tiles, so no length
+    needs to divide a block; `block_q` / `block_k` are the TPU's tiling and
+    are accepted for the JAX signature only."""
+    return Sq >= 1 and Sk >= 1 and D in HEAD_DIMS
+
+
+def _segments(B, Sq, Sk, segment_ids_q, segment_ids_kv, device):
+    """(seg_q, seg_kv) as int32 [B, Sq] / [B, Sk], or (None, None) without
+    segments; a missing side is all ones (the JAX wrapper's default)."""
+    if segment_ids_q is None and segment_ids_kv is None:
+        return None, None
+    ones = lambda n: torch.ones(B, n, dtype=torch.int32,  # noqa: E731
+                                device=device)
+    sq = ones(Sq) if segment_ids_q is None else segment_ids_q
+    skv = ones(Sk) if segment_ids_kv is None else segment_ids_kv
+    return (sq.to(device, torch.int32).contiguous(),
+            skv.to(device, torch.int32).contiguous())
+
+
+def _hidden(B, Sq, Sk, causal, seg_q, seg_kv, device):
+    """[B, 1, Sq, Sk] bool: key hidden from row."""
+    hid = torch.zeros(1, 1, Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        rows = torch.arange(Sq, device=device)[:, None]
+        cols = torch.arange(Sk, device=device)[None, :]
+        hid = hid | (cols > rows + (Sk - Sq))
+    if seg_q is not None:
+        hid = hid | (seg_q[:, None, :, None] != seg_kv[:, None, None, :])
+    return hid.expand(B, 1, Sq, Sk)
+
+
+def _reference_fwd(q, k, v, causal=False, segment_ids_q=None,
+                   segment_ids_kv=None, scale=None):
+    """(o, lse [B, H, Sq] f32) of the plain version."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    seg_q, seg_kv = _segments(B, Sq, Sk, segment_ids_q, segment_ids_kv,
+                              q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    hid = _hidden(B, Sq, Sk, causal, seg_q, seg_kv, q.device)
+    s = torch.where(hid, torch.full_like(s, _NEG), s)
+    # the max only steadies exp; the result does not depend on it
+    m = s.amax(-1, keepdim=True).detach()
+    p = torch.where(hid, torch.zeros_like(s), torch.exp(s - m))
+    l = p.sum(-1, keepdim=True)
+    empty = l == 0.0
+    l_safe = torch.where(empty, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bkhd->bqhd", p / l_safe, v.float())
+    lse = torch.where(empty, torch.full_like(l, -_NEG), m + torch.log(l_safe))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def flash_sdpa_reference(q, k, v, causal: bool = False, segment_ids_q=None,
+                         segment_ids_kv=None, scale: Optional[float] = None,
+                         block_q: int = 512, block_k: int = 512):
+    """Plain version of `flash_sdpa`: a dense f32 softmax with the same
+    masking and the same zero rows, differentiable by autograd."""
+    return _reference_fwd(q, k, v, causal, segment_ids_q, segment_ids_kv,
+                          scale)[0]
+
+
+def flash_sdpa_bwd_reference(q, k, v, do, causal: bool = False,
+                             segment_ids_q=None, segment_ids_kv=None,
+                             scale: Optional[float] = None):
+    """Plain version of the backward: (dq, dk, dv) of
+    `flash_sdpa_reference` for the output gradient `do`, by autograd."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = flash_sdpa_reference(qq, kk, vv, causal, segment_ids_q,
+                                 segment_ids_kv, scale)
+        return torch.autograd.grad(o, (qq, kk, vv), do)
+
+
+def _strides(*ts):
+    """The (batch, seq, head) element strides of q, k, v as int64[9]
+    (the caller keeps it alive across the call that reads it)."""
+    vals = [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return (ctypes.c_longlong * 9)(*vals)
+
+
+def _kernel_operand(t):
+    """`t` as the kernels read it: unit stride along D, rows on 16-byte
+    boundaries (the tiles are copied in 16-byte pieces); a copy if not."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s % vec for s in t.stride()[:3])):
+        t = t.contiguous()
+    return t
+
+
+def _check(q, k, v, seg_q, seg_kv):
+    name = "flash_sdpa"
+    dev = q.device
+    for t in (k, v):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; expected [B, S, H, D]")
+    B, Sq, H, D = q.shape
+    if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in B, H or D")
+    if not flash_kernel_eligible(Sq, k.shape[1], D):
+        raise ValueError(f"{name}: Sq={Sq}, Sk={k.shape[1]}, D={D}; the "
+                         f"kernels take head_dim {HEAD_DIMS} and S >= 1 "
+                         f"(see flash_kernel_eligible)")
+    if len({q.dtype, k.dtype, v.dtype}) != 1:
+        raise TypeError(f"{name}: q, k and v share one dtype")
+    _build.dtype_code(q)
+    if seg_q is not None and (seg_q.shape != (B, Sq)
+                              or seg_kv.shape != (B, k.shape[1])):
+        raise ValueError(f"{name}: segment ids {tuple(seg_q.shape)} / "
+                         f"{tuple(seg_kv.shape)} for B={B}, Sq={Sq}, "
+                         f"Sk={k.shape[1]}")
+
+
+def _launch_fwd(q, k, v, seg_q, seg_kv, causal, scale):
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    fn = _build.kernel("ptt_flash_fwd", [_P] * 7 + [_I] * 5 + [_P, _I, _F]
+                       + [_I, _I, _P])
+    strides = _strides(q, k, v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(seg_q),
+             _build.ptr(seg_kv), out.data_ptr(), lse.data_ptr(), B, H, Sq,
+             Sk, D, ctypes.addressof(strides), int(causal),
+             float(scale), _build.dtype_code(q), q.device.index or 0,
+             _build.stream(q))
+    _build.check("flash_sdpa", err)
+    flash_sdpa.launches += 1
+    return out, lse
+
+
+def flash_sdpa_bwd(q, k, v, o, lse, do, causal: bool = False,
+                   segment_ids_q=None, segment_ids_kv=None,
+                   scale: Optional[float] = None):
+    """(dq, dk, dv) of `flash_sdpa` for the output gradient `do`, given
+    the forward's output `o` and its f32 logsumexp `lse` [B, H, Sq]. On
+    CUDA: one call launches the di pre-pass, the dq kernel and the dkv
+    kernel; on CPU tensors the plain version (autograd of
+    `flash_sdpa_reference`; `o` and `lse` unused)."""
+    if q.device.type == "cpu":
+        flash_sdpa_bwd.plain_calls += 1
+        return flash_sdpa_bwd_reference(q, k, v, do, causal, segment_ids_q,
+                                        segment_ids_kv, scale)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    seg_q, seg_kv = _segments(B, Sq, Sk, segment_ids_q, segment_ids_kv,
+                              q.device)
+    _check(q, k, v, seg_q, seg_kv)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    o = o.contiguous()
+    do = do.to(q.dtype).contiguous()
+    if o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError("flash_sdpa_bwd: o / do must be [B, Sq, H, D] and "
+                         "lse f32 [B, H, Sq]")
+    lse = lse.contiguous()
+    di = torch.empty_like(lse)
+    dq = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
+    dk = torch.empty(B, Sk, H, D, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    fn = _build.kernel("ptt_flash_bwd", [_P] * 12 + [_I] * 5
+                       + [_P, _I, _F, _I, _I, _P])
+    strides = _strides(q, k, v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(seg_q),
+             _build.ptr(seg_kv), o.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), B, H, Sq, Sk, D,
+             ctypes.addressof(strides), int(causal), float(scale),
+             _build.dtype_code(q), q.device.index or 0, _build.stream(q))
+    _build.check("flash_sdpa_bwd", err)
+    flash_sdpa_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """The kernels' forward and backward (the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal, scale):
+        o, lse = _launch_fwd(q, k, v, seg_q, seg_kv, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
+        dq, dk, dv = flash_sdpa_bwd(q, k, v, o, lse, do, ctx.causal, seg_q,
+                                    seg_kv, ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_sdpa(q, k, v, causal: bool = False, segment_ids_q=None,
+               segment_ids_kv=None, scale: Optional[float] = None,
+               block_q: int = 512, block_k: int = 512):
+    """[B, S, H, D] flash attention; differentiable. Causal is bottom-right
+    aligned for Sq != Sk. `block_q` / `block_k` are the TPU kernel's
+    tiling and do not steer the Hopper tiles (64 x 64, fixed in the
+    source). On CUDA, a shape `flash_kernel_eligible` refuses raises
+    ValueError."""
+    if q.device.type == "cpu":
+        flash_sdpa.plain_calls += 1
+        return flash_sdpa_reference(q, k, v, causal, segment_ids_q,
+                                    segment_ids_kv, scale)
+    B, Sq, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    seg_q, seg_kv = _segments(B, Sq, k.shape[1], segment_ids_q,
+                              segment_ids_kv, q.device)
+    _check(q, k, v, seg_q, seg_kv)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    return _FlashFn.apply(q, k, v, seg_q, seg_kv, bool(causal), float(scale))
+
+
+flash_sdpa.launches = 0
+flash_sdpa.plain_calls = 0
+flash_sdpa_bwd.launches = 0
+flash_sdpa_bwd.plain_calls = 0
+
+
+register_oracle(
+    "flash_sdpa", kernel=flash_sdpa, reference=flash_sdpa_reference,
+    backward=flash_sdpa_bwd,
+    parity_test="tests/test_torch_flash.py::TestFlashParity")

@@ -1,0 +1,163 @@
+"""Attention routing (counterpart of paddle_tpu/ops/flash_attention.py).
+
+`sdpa` routes ``[B, S, H, D]`` scaled-dot-product attention to the flash
+kernel (`flash.flash_sdpa`) where its gate holds, a boolean key-padding
+mask through the same kernel's segment ids, and everything else to the
+dense composite `sdpa_reference`, as the JAX package routes. The gate is
+Hopper's (`flash.flash_kernel_eligible`: head_dim 64 or 128, any length)
+in place of the TPU's (a TPU backend and 128-divisible lengths), and it
+holds on the CPU too: there the flash wrapper runs its plain version.
+Where some key is visible to a row the routes agree; a row that sees no
+key is zero on the flash routes and the mean of v on the composite.
+
+``route_counts`` counts the routes taken, so a run can show which one
+its attention went through.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .flash import flash_kernel_eligible, flash_sdpa
+
+__all__ = ["sdpa_reference", "sdpa", "sdpa_path", "sdpa_segmented",
+           "flash_attention", "route_counts", "reset_route_counts"]
+
+_NEG = -1e30
+
+#: calls of `sdpa` / `sdpa_segmented` by route
+route_counts: Dict[str, int] = {"flash": 0, "flash_segmented": 0,
+                                "composite": 0}
+
+
+def reset_route_counts() -> None:
+    for k in route_counts:
+        route_counts[k] = 0
+
+
+def sdpa_reference(q, k, v, mask=None, causal: bool = False,
+                   dropout_p: float = 0.0, scale: Optional[float] = None):
+    """[B, S, H, D] attention in the JAX composite's op order: logits in
+    the input dtype, then an f32 softmax, probabilities cast back to the
+    input dtype before the product with v. A bool mask keeps the entries
+    where it is True ([B, Sk] bool is key padding); a float mask adds."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    logits = logits.float()
+    if causal:
+        cm = torch.ones(Sq, Sk, dtype=torch.bool,
+                        device=q.device).tril(Sk - Sq)
+        logits = torch.where(cm, logits, torch.full_like(logits, _NEG))
+    if mask is not None:
+        m = torch.as_tensor(mask, device=q.device)
+        # only a BOOL [B, Sk] mask is key padding; a float [Sq, Sk]
+        # additive mask with B == Sq keeps its broadcast meaning
+        if m.dim() == 2 and tuple(m.shape) == (B, Sk) and \
+                m.dtype == torch.bool:
+            m = m[:, None, None, :]
+        if m.dtype == torch.bool:
+            logits = torch.where(m, logits, torch.full_like(logits, _NEG))
+        else:
+            logits = logits + m.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        keep = torch.rand_like(probs, dtype=torch.float32) >= dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros_like(probs))
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _flash_eligible(q, k, causal: bool = False) -> bool:
+    """Hopper's gate: a dtype the kernels take and a shape
+    `flash_kernel_eligible` accepts."""
+    return (q.dtype in (torch.float32, torch.bfloat16)
+            and flash_kernel_eligible(q.shape[1], k.shape[1], q.shape[-1]))
+
+
+def _as_key_padding(mask, B, Sq, Sk):
+    """A boolean KEY mask ([B, Sk], [B, 1, Sk] or [B, 1, 1, Sk]) as
+    [B, Sk] bool; anything else None."""
+    m = torch.as_tensor(mask)
+    if m.dtype != torch.bool:
+        return None
+    if tuple(m.shape) == (B, Sk):
+        return m
+    if tuple(m.shape) in ((B, 1, Sk), (B, 1, 1, Sk)):
+        return m.reshape(B, Sk)
+    return None
+
+
+def sdpa_path(q, k, mask=None, causal: bool = False,
+              dropout_p: float = 0.0) -> str:
+    """The route `sdpa` takes for this call: "flash",
+    "flash_segmented" or "composite"."""
+    B, Sq = q.shape[0], q.shape[1]
+    Sk = k.shape[1]
+    if dropout_p != 0.0 or not _flash_eligible(q, k, causal):
+        return "composite"
+    if mask is None:
+        return "flash"
+    if _as_key_padding(mask, B, Sq, Sk) is not None:
+        return "flash_segmented"
+    return "composite"
+
+
+def sdpa(q, k, v, mask=None, causal: bool = False, dropout_p: float = 0.0,
+         scale: Optional[float] = None):
+    """Routing SDPA on [B, S, H, D] tensors. A boolean key-padding mask
+    goes through the flash kernel's segment ids: masked keys get segment
+    0, every query row segment 1, so masked keys are excluded for every
+    row, as in the composite."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    path = sdpa_path(q, k, mask=mask, causal=causal, dropout_p=dropout_p)
+    if path == "flash":
+        route_counts["flash"] += 1
+        return flash_sdpa(q, k, v, causal=causal, scale=scale)
+    if path == "flash_segmented":
+        pad = _as_key_padding(mask, B, Sq, Sk).to(q.device)
+        seg_q = torch.ones(B, Sq, dtype=torch.int32, device=q.device)
+        return sdpa_segmented(q, k, v, seg_q, kv_segment_ids=pad.int(),
+                              causal=causal, scale=scale)
+    route_counts["composite"] += 1
+    if mask is not None:
+        pad = _as_key_padding(mask, B, Sq, Sk)
+        if pad is not None:
+            mask = pad[:, None, None, :]
+    return sdpa_reference(q, k, v, mask=mask, causal=causal,
+                          dropout_p=dropout_p, scale=scale)
+
+
+def sdpa_segmented(q, k, v, segment_ids, kv_segment_ids=None, causal=True,
+                   scale=None, dropout_p: float = 0.0):
+    """[B, S, H, D] with [B, S] int segment ids: rows attend only within
+    their segment (kv_segment_ids defaults to segment_ids). The flash
+    kernel where its gate holds, else the masked composite."""
+    D = q.shape[-1]
+    if scale is None:
+        scale = D ** -0.5
+    seg_q = segment_ids.to(torch.int32)
+    seg_kv = seg_q if kv_segment_ids is None \
+        else kv_segment_ids.to(torch.int32)
+    if dropout_p == 0.0 and _flash_eligible(q, k, causal):
+        route_counts["flash_segmented"] += 1
+        return flash_sdpa(q, k, v, causal=causal, scale=scale,
+                          segment_ids_q=seg_q, segment_ids_kv=seg_kv)
+    route_counts["composite"] += 1
+    same = seg_q[:, :, None] == seg_kv[:, None, :]
+    return sdpa_reference(q, k, v, mask=same[:, None], causal=causal,
+                          scale=scale, dropout_p=dropout_p)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, name=None):
+    """paddle.nn.functional.flash_attention.flash_attention: returns
+    (out, None); the softmax is never materialized."""
+    return sdpa(query, key, value, causal=causal, dropout_p=dropout), None

@@ -5,7 +5,9 @@ as in the JAX package's registry, the pair that certifies it: the kernel
 wrapper (which launches the hand-written CUDA kernel on CUDA tensors)
 and its plain PyTorch version with the same signature (which the wrapper
 runs for CPU tensors, and which the CPU tests and ``chip_smoke.py`` hold
-the kernel against). ``parity_test`` names the pytest node that compares
+the kernel against). A kernel with a gradient of its own names its
+backward wrapper as ``backward`` (with its own ``.launches`` and
+``.plain_calls``). ``parity_test`` names the pytest node that compares
 the plain version with the JAX kernel and reference.
 
 The names registered here are the port's progress through the JAX
@@ -15,7 +17,7 @@ registry; ``tests/test_torch_port_rules.py`` reads both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 __all__ = ["OracleEntry", "register_oracle", "oracles"]
 
@@ -26,15 +28,17 @@ class OracleEntry:
     kernel: Callable
     reference: Callable
     parity_test: str                    # pytest node id (file::name)
+    backward: Optional[Callable] = None  # backward wrapper, if any
 
 
 _REGISTRY: Dict[str, OracleEntry] = {}
 
 
 def register_oracle(name: str, kernel: Callable, reference: Callable, *,
-                    parity_test: str) -> OracleEntry:
+                    parity_test: str,
+                    backward: Optional[Callable] = None) -> OracleEntry:
     entry = OracleEntry(name=name, kernel=kernel, reference=reference,
-                        parity_test=parity_test)
+                        parity_test=parity_test, backward=backward)
     _REGISTRY[name] = entry
     return entry
 

@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Where one pretraining step's time goes, on the card.
+
+    python3 profile_training.py [--out training_trace.json] [--steps 2]
+
+Builds chip_smoke.py's phase-7 configuration (Llama-3-8B width, 4 of its
+32 layers, batch 1 x 8192 tokens, bf16 compute over f32 master weights,
+f32 AdamW moments, no recompute, 4 CE chunks), takes 2 unprofiled
+warm-up steps on one seeded batch, then records ``--steps`` steps under
+torch.profiler. Prints one JSON line: host wall ms per step, device busy
+ms per step (the union of kernel intervals), the device's idle share,
+device ms per step by kernel group (the flash kernels one by one, cuBLAS
+GEMMs, and the rest), device ms per step of the optimizer update (the
+kernels launched inside ``FunctionalAdamW.update``, marked here with a
+``record_function`` range) and of everything before it, and the ten
+kernels with the most device time.
+Needs one CUDA card; the trace goes to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from chip_smoke import TRAIN_LAYERS, TRAIN_SEQ
+from paddle_tpu_torch import card_report
+from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b_config
+from paddle_tpu_torch.optimizer import FunctionalAdamW
+from paddle_tpu_torch.trainer import (PretrainConfig,
+                                      build_llama_pretrain_step)
+from profile_serving import busy_ms
+
+#: kernel-name fragments of the flash kernels (ops/csrc/flash_attention.cu)
+FLASH = ("fwd_bf16", "dq_bf16", "dkv_bf16", "di_pass")
+
+
+def group(name: str) -> str:
+    if "flash::" in name:
+        for k in FLASH:
+            if k in name:
+                return "flash " + k
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass",
+                              "splitkreduce")):
+        return "gemm"
+    if "embedding" in low:
+        return "embedding"
+    if "softmax" in low or "logsumexp" in low or "reduce" in low:
+        return "reductions"
+    return "elementwise and other"
+
+
+def in_ranges(events, name: str):
+    """Kernels whose launch (the runtime call with the same correlation
+    id) lies inside a ``record_function(name)`` range."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == name]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})
+                and any(a <= e["ts"] <= b for a, b in spans)}
+    return [e for e in events if e.get("cat") == "kernel"
+            and e.get("args", {}).get("correlation") in launched]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="training_trace.json")
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_training.py: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    card = card_report()
+    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS,
+                           max_position_embeddings=TRAIN_SEQ)
+    pcfg = PretrainConfig(cfg, global_batch=1, seq_len=TRAIN_SEQ, lr=3e-4,
+                          weight_decay=0.1, grad_clip=1.0, ce_chunks=4,
+                          remat="none", param_dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, dtype=torch.float32,
+                             generator=torch.Generator("cuda").manual_seed(0))
+    state, step, _ = build_llama_pretrain_step(pcfg, model=model)
+    update = FunctionalAdamW.update
+
+    def marked_update(self, *a, **kw):
+        with torch.profiler.record_function("optimizer_update"):
+            return update(self, *a, **kw)
+
+    FunctionalAdamW.update = marked_update
+    g = torch.Generator("cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device="cuda",
+                        generator=g)
+    labels = torch.roll(ids, -1, dims=1)
+    for _ in range(2):
+        state, m = step(state, ids, labels)
+    torch.cuda.synchronize()
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            state, m = step(state, ids, labels)
+            float(m["loss"])
+            walls.append((time.perf_counter() - t0) * 1e3)
+    prof.export_chrome_trace(str(out))
+    events = json.loads(out.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    n = args.steps
+    by_group, by_name = defaultdict(float), defaultdict(float)
+    for k in kernels:
+        by_group[group(k["name"])] += k["dur"] / 1e3 / n
+        by_name[k["name"]] += k["dur"] / 1e3 / n
+    busy = busy_ms(kernels) / n if kernels else None
+    opt_ms = sum(k["dur"] for k in in_ranges(events, "optimizer_update"))
+    opt_ms /= 1e3 * n
+    wall = sum(walls) / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(json.dumps({
+        "card": card["nvidia_smi"], "layers": TRAIN_LAYERS,
+        "seq": TRAIN_SEQ, "steps": n, "wall_ms_per_step": wall,
+        # None: the profiler recorded no device activity (not measured)
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": None if busy is None else 1 - busy / wall,
+        "kernels_per_step": len(kernels) / n,
+        "device_ms_per_step_by_group": dict(by_group),
+        "optimizer_update_device_ms_per_step": opt_ms,
+        "rest_device_ms_per_step": sum(by_group.values()) - opt_ms,
+        "top_kernels_ms_per_step": [(k[:90], v) for k, v in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

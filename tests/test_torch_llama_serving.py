@@ -181,9 +181,13 @@ class TestWeightCarryOver:
                                    before)
 
     def test_forward_names_its_roadmap_item(self, models):
-        _, tm, _ = models
-        with pytest.raises(NotImplementedError, match="queue A item 2"):
-            tm(torch.zeros(1, 4, dtype=torch.long))
+        # its roadmap item (queue A item 2, the training forward) is done:
+        # the carried-over model's forward gives the JAX model's logits
+        jm, tm, _ = models
+        ids = np.arange(8, dtype=np.int32)[None] * 7
+        got = tm(torch.from_numpy(ids).long()).detach().numpy()
+        want = np.asarray(jm(paddle.to_tensor(ids))._data)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 class TestEngineAgainstJax:

@@ -1,7 +1,8 @@
 """The port's standing rules, checked on the CPU.
 
-- paddle_tpu_torch and chip_smoke.py import neither JAX nor anything of
-  paddle_tpu (the machine with the card has no JAX);
+- paddle_tpu_torch and the card scripts (chip_smoke.py, flash_limits.py,
+  profile_*.py) import neither JAX nor anything of paddle_tpu (the
+  machine with the card has no JAX);
 - entry points run on the card unless the caller asks for the CPU: with
   no device and no CUDA they raise instead of running on the CPU;
 - the kernel registry lists exactly the ported kernels, under the JAX
@@ -26,7 +27,8 @@ names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                                "paddle_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-import chip_smoke, profile_serving  # imports only: both run under __main__
+# imports only: the scripts run under __main__
+import chip_smoke, flash_limits, profile_serving, profile_training
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -54,7 +56,14 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.ops.megadecode",
                 "paddle_tpu_torch.ops._build", "paddle_tpu_torch.convert",
                 "paddle_tpu_torch.models.llama", "paddle_tpu_torch.device",
-                "paddle_tpu_torch.resilience"):
+                "paddle_tpu_torch.resilience", "paddle_tpu_torch.ops.flash",
+                "paddle_tpu_torch.ops.flash_attention",
+                "paddle_tpu_torch.nn.functional",
+                "paddle_tpu_torch.trainer.pretrain",
+                "paddle_tpu_torch.optimizer.functional",
+                "paddle_tpu_torch.amp",
+                "paddle_tpu_torch.distributed.recompute",
+                "paddle_tpu_torch.distributed.parallel_layers"):
         assert mod in res["modules"]
 
 
@@ -69,6 +78,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
+    from paddle_tpu_torch.trainer import (PretrainConfig,
+                                          build_llama_pretrain_step)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_llama_pretrain_step(PretrainConfig(cfg, global_batch=1,
+                                                 seq_len=8))
     # the explicit request still runs on the CPU
     ServingEngine(model, device="cpu")
 
@@ -88,15 +102,16 @@ def test_engine_refuses_a_model_on_another_device():
 
 def test_registry_names_the_ported_kernels():
     import paddle_tpu.ops.fused  # noqa: F401  (registers its kernels)
+    import paddle_tpu.ops.pallas_flash  # noqa: F401
     import paddle_tpu.ops.pallas_megadecode  # noqa: F401
     import paddle_tpu.ops.pallas_megafront  # noqa: F401
     import paddle_tpu.ops.pallas_ragged  # noqa: F401
     from paddle_tpu.ops.oracles import oracles as jax_oracles
-    from paddle_tpu_torch.ops import oracles
+    from paddle_tpu_torch.ops import launch_counts, oracles
     ported = oracles()
     assert set(ported) == {"fused_rms_norm", "fused_rope_append",
                            "ragged_paged_attention", "fused_qkv_rope_append",
-                           "fused_oproj_norm", "fused_ffn"}
+                           "fused_oproj_norm", "fused_ffn", "flash_sdpa"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
@@ -105,12 +120,18 @@ def test_registry_names_the_ported_kernels():
         path, _, cls = entry.parity_test.partition("::")
         assert (ROOT / path).is_file()
         assert f"class {cls}" in (ROOT / path).read_text()
+    # a backward wrapper is counted beside its forward
+    bwd = ported["flash_sdpa"].backward
+    assert bwd.__name__ == "flash_sdpa_bwd"
+    counts = launch_counts()
+    assert set(counts) == set(ported) | {"flash_sdpa_bwd"}
 
 
 def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["fused.cu", "megakernels.cu", "ragged_attention.cu"]
+    assert names == ["flash_attention.cu", "fused.cu", "megakernels.cu",
+                     "ragged_attention.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     for p in _build.CSRC.glob("*.cu"):
