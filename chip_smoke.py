@@ -7,7 +7,8 @@ Phases, one line each on stdout:
 
 1. card and build: the card's ``nvidia-smi`` name and power limit, the
    torch and CUDA versions; every kernel of ``paddle_tpu_torch/ops/csrc``
-   is built from the checkout (one nvcc per source, in parallel);
+   is built from the checkout (one nvcc per source, in parallel); the
+   registers ptxas reports, and every entry function that spills;
 2. kernels against their plain PyTorch versions at the Llama-3-8B
    serving shapes (H 4096, 32/8 heads x 128, FFN 14336, page_size 16,
    T = 4 slots + a 128-token prefill chunk, a mixed batch with an idle
@@ -16,10 +17,20 @@ Phases, one line each on stdout:
    version, its bound on the H100 (bytes at the HBM rate or operations
    at the working type's peak), for rms_norm
    torch.nn.functional.rms_norm and, for the three megakernels, the
-   split-chain calls that compute the same function (``split_ms``);
+   split-chain calls that compute the same function (``split_ms``); the
+   two paged decode kernels (v1, v2) at the alternating decode step's
+   shapes (4 slots at 300 / 1024 / 517 tokens and an idle slot of length
+   1 on the trash page, 64-page tables with a -1 entry) in bf16 and f32,
+   and at a long-context shape (8 sequences, tables of 8192 tokens,
+   seeded lengths including 1 and 8192) in bf16; bf16 outputs are held
+   by relative errors (`paged_rel_errors`), f32 at 2e-5;
 3. a tiny f32 Llama served on the CPU (plain versions) and on the card
    (kernels) over one seeded join/leave trace, on the fused and on the
-   split chain: identical greedy tokens;
+   split chain and on the alternating path (ragged=False) under
+   FLAGS_paged_impl "intree" (v2) and "intree_v1" (v1): identical greedy
+   tokens, and on the alternating path exact launch counts; then tiny
+   generate and generate_cached (greedy, f32) CPU vs card: identical
+   tokens, scores within 1e-5;
 4. Llama-3-8B at full width (32 layers, vocab 128256, bf16 weights drawn
    on the card from a seeded generator) serving 8 seeded requests
    (prompts 64-512 tokens, 32 new tokens each) through ServingEngine's
@@ -31,10 +42,22 @@ Phases, one line each on stdout:
    megadecode=False), full depth, its counts read alone; it reports the
    share of greedy tokens identical to the fused chain's (bf16 ties may
    break differently, so it is not asserted);
-6. a tiny Llama (head_dim 64, GQA) takes 3 pretraining steps on the
+6. the same model and trace on the alternating path (ragged=False),
+   twice, each run's counts read alone: under FLAGS_paged_impl "intree"
+   and under "intree_v1". A prefill-chunk launch and a decode-step launch
+   per engine step; per decode launch exactly layers of that impl's paged
+   kernel (v2, resp. v1) and 2 * layers + 1 rms_norm, per prefill launch
+   2 * layers + 1 rms_norm, nothing else, no plain-version call and no
+   other paged route; each launch is also timed alone; the
+   identical-token share against the fused chain (and v1's against v2's);
+7. generate_cached on the same model: 4 seeded prompts of 512 tokens,
+   32 greedy new tokens; the prefill runs the flash kernel once a layer
+   and nothing else launches; prefill ms, median decode-token ms,
+   tokens/s and peak memory;
+8. a tiny Llama (head_dim 64, GQA) takes 3 pretraining steps on the
    CPU (plain versions) and on the card (kernels), in f32 and in bf16
    compute: losses and grad norms agree within TINY_TRAIN_LIMITS;
-7. pretraining at Llama-3-8B width (hidden 4096, 32/8 heads x 128, FFN
+9. pretraining at Llama-3-8B width (hidden 4096, 32/8 heads x 128, FFN
    14336, vocab 128256; depth cut from 32 to 4 layers), batch 1 x 8192
    tokens, bf16 compute over f32 master weights and f32 AdamW moments
    (lr 3e-4, weight decay 0.1, clip 1.0, 4 CE chunks, no recompute),
@@ -44,10 +67,10 @@ Phases, one line each on stdout:
    trajectory; the loss must be finite and fall, and every timed step
    must launch the flash forward and backward once per layer with no
    plain-version call and no attention off the flash route;
-8. the ``{"kernels": [...]}`` line (launches from the run of the path
+10. the ``{"kernels": [...]}`` line (launches from the run of the path
    that uses each kernel: the fused chain, the split chain for
-   rope_append, the 8B training run for flash attention), then the
-   ``{"ok": true, ...}`` line.
+   rope_append, phase 6's two runs for paged v2 and v1, the 8B training
+   run for flash attention), then the ``{"ok": true, ...}`` line.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
 against its plain version at the training shape (B 1, S 8192, 32 heads
@@ -67,20 +90,26 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch import card_report, ops
+from paddle_tpu_torch import card_report, generation, ops
+from paddle_tpu_torch.flags import flags_guard
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama3_8b_config,
                                            llama_tiny_config,
                                            precompute_rope)
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as attn_routes
+from paddle_tpu_torch.ops import paged
+from paddle_tpu_torch.ops import paged_attention as paged_routes
 from paddle_tpu_torch.ops.flash import _launch_fwd
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.trainer import (PretrainConfig,
@@ -104,6 +133,11 @@ SLOTS, CHUNK, MAX_CTX = 4, 128, 1024
 # the slice's training geometry: Llama-3-8B width, depth cut to 4 layers
 TRAIN_LAYERS, TRAIN_SEQ, WARMUP_STEPS, TIMED_STEPS = 4, 8192, 2, 5
 F32_FLASH_SEQ = 2048
+# the paged decode kernels' long-context shape: 8 sequences with page
+# tables for Llama-3-8B's max_position_embeddings
+LONG_SEQS, LONG_CTX = 8, 8192
+# generate_cached at 8B: 4 prompts of 512 tokens, 32 greedy new tokens
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -148,6 +182,32 @@ def bound(bytes_: float, flops: float = 0.0, dtype=torch.bfloat16):
     t_mem = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def ptxas_spills(log: str):
+    """The build's entry functions whose registers spill, from ptxas -v:
+    [{"source", "entry", "stores", "loads"}] (bytes), the entry names
+    demangled by c++filt where the machine has it."""
+    out, src, entry = [], None, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        elif "Function properties for" in ln:
+            entry = ln.rsplit(" for ", 1)[1].strip()
+        elif "spill stores" in ln:
+            st, ld = (int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", ln))
+            if st or ld:
+                out.append({"source": src, "entry": entry, "stores": st,
+                            "loads": ld})
+    filt = shutil.which("c++filt")
+    if out and filt:
+        names = subprocess.run([filt], input="\n".join(
+            e["entry"] for e in out), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+        for e, n in zip(out, names):
+            e["entry"] = n
+    return out
 
 
 def max_err(a, b) -> float:
@@ -195,6 +255,40 @@ def assert_flash_bf16(name: str, got, want):
     assert tensor <= FLASH_BF16_TENSOR_LIMIT, (name, "tensor", tensor)
     assert tile <= FLASH_BF16_TILE_LIMIT, (name, "tile", tile)
     return tensor, tile
+
+
+#: the bf16 paged decode kernels are held the same way: a typical output
+#: value is about (e / length)^1/2, 0.05-0.1 at the 8B step and 0.02-0.04
+#: at long context, so an absolute bar of 2e-2 is the size of the values
+#: and passes a kernel that drops a page. Over the whole [B, H, D] output
+#: and over each (sequence, head)'s D values; limits set from readings of
+#: the sound kernels and of planted faults (paged_limits.py, PERF.md).
+PAGED_BF16_TENSOR_LIMIT = 5e-3
+PAGED_BF16_HEAD_LIMIT = 1e-2
+
+
+def paged_rel_errors(got, want):
+    """(tensor, head) relative errors of `got` against `want` [B, H, D]:
+    ||got - want|| / ||want|| over the whole output, and the largest of
+    the same over each (sequence, head), its norm floored at 1% of the
+    root-mean-square head norm (a length-0 row's zeros are held to that
+    floor; a median would be 0 where half the rows are empty)."""
+    w = want.float()
+    d = got.float() - w
+    wn, dn = w.norm(dim=-1), d.norm(dim=-1)
+    floor = 1e-2 * float(w.norm()) / wn.numel() ** 0.5
+    return (float(d.norm() / w.norm()),
+            float((dn / wn.clamp_min(floor)).max()))
+
+
+def assert_paged_bf16(name: str, got, want):
+    """Hold a bf16 paged decode output to its plain version; returns the
+    readings."""
+    assert torch.isfinite(got).all(), name
+    tensor, head = paged_rel_errors(got, want)
+    assert tensor <= PAGED_BF16_TENSOR_LIMIT, (name, "tensor", tensor)
+    assert head <= PAGED_BF16_HEAD_LIMIT, (name, "head", head)
+    return tensor, head
 
 
 # ------------------------------------------------------------------ inputs
@@ -351,8 +445,98 @@ def check_kernels(timer: Timer):
                      decode_only_bound_ms=bound(nbytes(qa, o, *tabs)
                                                 + dec_live)[0])
         check_megakernels(timer, mb, cos, sin, rows, dtype, tol[dtype], gc)
+        check_paged(timer, rows, dtype, gc, *decode_batch(
+            g, SLOTS, MAX_CTX // PSZ, [300, 1024, 517, 1], idle=3))
+    check_paged(timer, rows, torch.bfloat16, gc, *long_context_batch(g),
+                tag="long")
     check_flash(timer, rows)
     return rows
+
+
+def decode_batch(g, B, nj, lengths, idle=None):
+    """Page tables of one alternating decode step: sequence b's lengths[b]
+    rows on its own random pages of a pool of B * nj + 1 pages; row
+    `idle` is an idle slot (all of its table on the trash page 0, length
+    1, as the engine sends it); a -1 past sequence 0's live pages."""
+    P = B * nj + 1
+    perm = 1 + torch.randperm(P - 1, generator=g)
+    tables = torch.zeros(B, nj, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        if b == idle:
+            continue
+        k = -(-n // PSZ)
+        tables[b, :k] = perm[used:used + k].to(torch.int32)
+        used += k
+    if lengths[0] <= (nj - 1) * PSZ:
+        tables[0, -1] = -1
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return P, lens.to(DEV), tables.to(DEV)
+
+
+def long_context_batch(g):
+    """LONG_SEQS sequences with tables of LONG_CTX tokens; seeded lengths
+    that include 1 and LONG_CTX."""
+    rng = np.random.RandomState(5)
+    lengths = [1, LONG_CTX] + [int(n) for n in
+                               rng.randint(1, LONG_CTX + 1, LONG_SEQS - 2)]
+    return decode_batch(g, LONG_SEQS, LONG_CTX // PSZ, lengths)
+
+
+def paged_batch(gc, dtype, P, lens, tables):
+    """(q, k_pages, v_pages, lengths, tables) of one paged decode batch
+    at the 8B heads, drawn from `gc`."""
+    B = lens.shape[0]
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEV, generator=gc).to(dtype)
+
+    return rnd(B, HQ, D), rnd(KV, P, PSZ, D), rnd(KV, P, PSZ, D), lens, \
+        tables
+
+
+def check_paged(timer, rows, dtype, gc, P, lens, tables, tag=None):
+    """Both paged decode kernels at one batch against their plain
+    version (f32 at 2e-5, bf16 by `assert_paged_bf16`); in bf16 timed
+    beside it and the bytes bound (the live K/V rows, q, o and the
+    tables; no single PyTorch call reads a paged cache, so library_ms is
+    None). `tag` prefixes the keys of a second shape."""
+    main = dtype == torch.bfloat16
+    dt = "bf16" if main else "f32"
+    args = paged_batch(gc, dtype, P, lens, tables)
+    q = args[0]
+    ref = ops.paged_decode_reference(*args)
+    live = int(lens.sum()) * KV * D * 2 * q.element_size()
+    for fn in (ops.paged_decode_attention, ops.paged_decode_attention_v2):
+        name = fn.__name__
+        n0 = fn.launches
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        r = rows.setdefault(name, {})
+        pre = f"{tag}_" if tag else ""
+        if main:
+            r[f"{pre}rel_err_bf16"] = dict(zip(
+                ("tensor", "head"), assert_paged_bf16(name, out, ref)))
+        else:
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+        err = max_err(out, ref)
+        r[f"{pre}max_abs_err_{dt}"] = err
+        if not main:
+            continue
+        b_, by = bound(live + nbytes(q, out, lens, tables))
+        timed = {"max_abs_err": err, "bound_ms": b_, "bound_by": by,
+                 "ms": timer.ms(lambda: fn(*args)),
+                 "plain_ms": timer.ms(
+                     lambda: ops.paged_decode_reference(*args)),
+                 "library_ms": None, "live_kv_bytes": live,
+                 "lengths": lens.tolist()}
+        if name == "paged_decode_attention_v2":
+            timed["pages_per_group"] = min(
+                ops.default_pages_per_group(tables.shape[1], PSZ, D,
+                                            q.element_size()),
+                paged.max_pages_per_group(PSZ, D, HQ // KV, q.dtype))
+        r.update({pre + k: v for k, v in timed.items()})
 
 
 def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
@@ -592,19 +776,44 @@ def drive(eng, reqs, on_step=None):
     return results, handles, steps
 
 
-#: the two chains of the engine, and the kernels each launches per step
-#: (per layer, plus the final norm's rms_norm)
+#: the two chains of the engine's unified step, and the kernels each
+#: launches per step (per layer, plus the final norm's rms_norm)
 SPLIT = dict(megafront=False, megadecode=False)
 NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0)}
+NO_PAGED = {"paged_decode_attention": (0, 0),
+            "paged_decode_attention_v2": (0, 0)}
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_qkv_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_oproj_norm": (1, 0), "fused_ffn": (1, 0),
-                  "fused_rope_append": (0, 0), **NO_TRAINING}
+                  "fused_rope_append": (0, 0), **NO_TRAINING, **NO_PAGED}
 SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_qkv_rope_append": (0, 0),
                   "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0),
-                  **NO_TRAINING}
+                  **NO_TRAINING, **NO_PAGED}
+#: the alternating path (ragged=False) under each FLAGS_paged_impl: its
+#: decode launch's paged kernel and the one it must not launch
+ALTERNATING = {"intree": ("paged_decode_attention_v2",
+                          "paged_decode_attention"),
+               "intree_v1": ("paged_decode_attention",
+                             "paged_decode_attention_v2")}
+
+
+def alternating_launches(steps):
+    """(prefill launches, decode launches) of an alternating-path run:
+    an engine step runs one of each where it has that work."""
+    return (sum(1 for _, o in steps if o["prefill_tokens"] > 0),
+            sum(1 for _, o in steps if o["decoded"] > 0))
+
+
+def expect_alternating(impl, layers, prefill, decode):
+    """Every kernel's launches in an alternating-path run: 2 * layers + 1
+    rms_norm a launch, `layers` of the impl's paged kernel a decode
+    launch, nothing else."""
+    want = {name: 0 for name in ops.launch_counts()}
+    want["fused_rms_norm"] = (2 * layers + 1) * (prefill + decode)
+    want[ALTERNATING[impl][0]] = layers * decode
+    return want
 
 
 def tiny_engine_parity():
@@ -634,20 +843,88 @@ def tiny_engine_parity():
             assert ran == bool(per_layer), (chain, name)
         out[chain] = {"tokens": int(sum(len(v) for v in cpu_out.values())),
                       "identical": True}
+    # the alternating path under both paged impls: counts read alone
+    L = cfg.num_hidden_layers
+    for impl in ALTERNATING:
+        with flags_guard(paged_impl=impl):
+            cpu_out, _, _ = drive(ServingEngine(cpu_model, device="cpu",
+                                                ragged=False, **kw), reqs)
+            eng = ServingEngine(gpu_model, device=DEV, ragged=False, **kw)
+        ops.reset_counts()
+        paged_routes.reset_route_counts()
+        gpu_out, _, steps = drive(eng, reqs)
+        counts = ops.launch_counts()
+        pre, dec = alternating_launches(steps)
+        assert eng.launches == pre + dec and dec > 0
+        for rid in cpu_out:
+            np.testing.assert_array_equal(gpu_out[rid], cpu_out[rid])
+        want = expect_alternating(impl, L, pre, dec)
+        for name, c in counts.items():
+            assert c == {"launches": want[name], "plain_calls": 0}, \
+                (impl, name, c, want[name])
+        route = "paged_" + impl
+        assert paged_routes.route_counts == dict(
+            {k: 0 for k in paged_routes.route_counts}, **{route: L * dec})
+        out["alternating_" + impl] = {
+            "tokens": int(sum(len(v) for v in cpu_out.values())),
+            "identical": True, "prefill_launches": pre,
+            "decode_launches": dec,
+            "launches": {k: v for k, v in want.items() if v}}
+    out["generate"] = tiny_generate_parity()
     return out
 
 
-def serve_8b(model, chain: str, counts_out: dict):
-    """Serve the seeded 8B trace through one chain of ServingEngine;
-    every kernel's launches must be that chain's per step."""
+def tiny_generate_parity():
+    """generate and generate_cached (greedy, f32) on a tiny Llama (head_dim
+    64, 2 query heads on 1 KV head): CPU (plain versions) vs card (the
+    flash kernel for the prompt), identical tokens, scores within 1e-5."""
+    cfg = llama_tiny_config(**TINY_TRAIN)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 7))
+    new, L = 6, cfg.num_hidden_layers
+    out = {}
+    for name, flash_calls in (("generate", new * L), ("generate_cached", L)):
+        fn = getattr(generation, name)
+        kw = dict(max_new_tokens=new, decode_strategy="greedy_search")
+        cpu_tok, cpu_sc = fn(cpu_model, ids, **kw)
+        ops.reset_counts()
+        gpu_tok, gpu_sc = fn(gpu_model, ids, **kw)
+        counts = ops.launch_counts()
+        assert gpu_tok.device.type == torch.device(DEV).type
+        np.testing.assert_array_equal(gpu_tok.cpu().numpy(),
+                                      cpu_tok.numpy())
+        dist = float((gpu_sc.cpu() - cpu_sc).abs().max())
+        assert dist <= 1e-5, (name, dist)
+        assert counts["flash_sdpa"] == {"launches": flash_calls,
+                                        "plain_calls": 0}, counts
+        out[name] = {"tokens": cpu_tok.numpy().tolist(),
+                     "score_max_abs_diff": dist,
+                     "flash_launches": flash_calls}
+    return out
+
+
+def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree"):
+    """Serve the seeded 8B trace through one chain of ServingEngine's
+    unified step ("fused", "split") or through the alternating path
+    ("alternating", ragged=False, with FLAGS_paged_impl `impl` pinned:
+    the v2 paged kernel under "intree", v1 under "intree_v1"); every
+    kernel's launches must be that path's per launch, with no
+    plain-version call (and, alternating, no other paged route)."""
     cfg = model.config
+    layers = cfg.num_hidden_layers
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    per_step = FUSED_PER_STEP if chain == "fused" else SPLIT_PER_STEP
-    eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
-                        prefill_chunk=CHUNK, max_context=MAX_CTX, device=DEV,
-                        **(SPLIT if chain == "split" else {}))
+    alt = chain == "alternating"
+    kw = {"split": SPLIT, "alternating": dict(ragged=False)}.get(chain, {})
+    with flags_guard(paged_impl=impl):
+        eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
+                            prefill_chunk=CHUNK, max_context=MAX_CTX,
+                            device=DEV, **kw)
     assert eng.megafront == eng.megadecode == (chain == "fused")
+    assert eng.ragged == (not alt)
+    assert eng.paged_impl == (impl if alt else None)
     pool_bytes = sum(nbytes(k, v) for k, v in eng._pools)
     slab_bytes = sum(nbytes(L["wqkv"]) for L in eng._p["layers"]
                      if "wqkv" in L)
@@ -658,6 +935,20 @@ def serve_8b(model, chain: str, counts_out: dict):
     reqs = trace(rng, cfg.vocab_size, 8, 64, 512, 32, 32, 1)
     reqs = [(p, 32, i // 2) for i, (p, _, _) in enumerate(reqs)]
     first_tok, finite = {}, []
+    launch_ms = {"prefill": [], "decode": []}
+    if alt:
+        # each launch timed alone: a synchronize on both sides of its body
+        def timed(body, kind):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = body(*args)
+                torch.cuda.synchronize()
+                launch_ms[kind].append((time.perf_counter() - t) * 1e3)
+                return res
+            return run
+        eng._prefill_body = timed(eng._prefill_body, "prefill")
+        eng._decode_body = timed(eng._decode_body, "decode")
 
     def on_step(e, handles):
         finite.append(bool(torch.isfinite(e.last_logits).all()))
@@ -667,6 +958,7 @@ def serve_8b(model, chain: str, counts_out: dict):
                 first_tok[rid] = (now - t_sub) * 1e3
 
     ops.reset_counts()
+    paged_routes.reset_route_counts()
     steps0 = eng.launches
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -674,17 +966,29 @@ def serve_8b(model, chain: str, counts_out: dict):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     n_steps = eng.launches - steps0
-    layers = cfg.num_hidden_layers
     assert len(out) == len(reqs)
     for rid, toks in out.items():
         assert isinstance(toks, np.ndarray) and toks.shape == (32,), rid
         assert len(handles[rid][0].tokens) == 32
     assert all(finite) and len(finite) == len(steps)
-    expect = {name: (a * layers + b) * n_steps
-              for name, (a, b) in per_step.items()}
-    for name, n in expect.items():
-        assert counts[name]["launches"] == n, (name, counts[name], n)
-        assert counts[name]["plain_calls"] == 0, name
+    if alt:
+        pre, dec = alternating_launches(steps)
+        assert n_steps == pre + dec, (n_steps, pre, dec)
+        expect = expect_alternating(impl, layers, pre, dec)
+        assert paged_routes.route_counts == dict(
+            {k: 0 for k in paged_routes.route_counts},
+            **{"paged_" + impl: layers * dec}), paged_routes.route_counts
+        per_launch = {"decode": {ALTERNATING[impl][0]: layers,
+                                 "fused_rms_norm": 2 * layers + 1},
+                      "prefill": {"fused_rms_norm": 2 * layers + 1}}
+    else:
+        per_step = FUSED_PER_STEP if chain == "fused" else SPLIT_PER_STEP
+        expect = {name: (a * layers + b) * n_steps
+                  for name, (a, b) in per_step.items()}
+        per_launch = {k: v // n_steps for k, v in expect.items()}
+    for name, c in counts.items():
+        assert c == {"launches": expect[name], "plain_calls": 0}, \
+            (name, c, expect[name])
     counts_out.update({k: v["launches"] for k, v in counts.items()
                        if expect[k]})
     decode_ms = [ms for ms, o in steps
@@ -692,9 +996,10 @@ def serve_8b(model, chain: str, counts_out: dict):
     mixed_ms = [ms for ms, o in steps if o["prefill_tokens"] > 0]
     gen = sum(len(h[0].tokens) for h in handles.values())
     ttft = sorted(first_tok.values())
-    return out, {
+    res = {
         "chain": chain, "layers": layers,
-        "requests": len(reqs), "steps": n_steps, "generated_tokens": gen,
+        "requests": len(reqs), "launches": n_steps, "steps": len(steps),
+        "generated_tokens": gen,
         "prompt_tokens": int(sum(p.size for p, _, _ in reqs)),
         "wall_s": wall, "tokens_per_s": gen / wall,
         "ttft_ms_p50": statistics.median(ttft), "ttft_ms_max": ttft[-1],
@@ -705,8 +1010,74 @@ def serve_8b(model, chain: str, counts_out: dict):
         "page_pool_bytes": pool_bytes,
         "decode_step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "launches_per_step": {k: v // n_steps for k, v in expect.items()},
+        "launches_per_step" if not alt else "launches_per_launch":
+            per_launch,
     }
+    if alt:
+        res.update(paged_impl=impl, prefill_launches=pre,
+                   decode_launches=dec,
+                   prefill_chunk_ms_median=statistics.median(
+                       launch_ms["prefill"]),
+                   decode_launch_ms_median=statistics.median(
+                       launch_ms["decode"]))
+    return out, res
+
+
+def generate_cached_8b(model):
+    """generate_cached at Llama-3-8B: GEN_BATCH seeded prompts of
+    GEN_PROMPT tokens, GEN_NEW greedy new tokens. Every call of the cached
+    step is timed alone (a synchronize on both sides); the prefill must
+    run the flash kernel once a layer and nothing else may launch."""
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    g = torch.Generator(DEV).manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                        device=DEV, generator=g)
+    kw = dict(decode_strategy="greedy_search")
+    generation.generate_cached(model, ids[:, :64], max_new_tokens=2, **kw)
+    calls = []
+    make = generation._make_cached_step
+
+    def timed_make(p, max_len):
+        call = make(p, max_len)
+
+        def run(ids_, caches, start):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = call(ids_, caches, start)
+            torch.cuda.synchronize()
+            calls.append((ids_.shape[1], (time.perf_counter() - t) * 1e3))
+            return res
+        return run
+
+    generation._make_cached_step = timed_make
+    try:
+        ops.reset_counts()
+        attn_routes.reset_route_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tok, scores = generation.generate_cached(model, ids,
+                                                 max_new_tokens=GEN_NEW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        generation._make_cached_step = make
+    counts = ops.launch_counts()
+    for name, c in counts.items():
+        want = L if name == "flash_sdpa" else 0
+        assert c == {"launches": want, "plain_calls": 0}, (name, c)
+    assert dict(attn_routes.route_counts) == {
+        "flash": L, "flash_segmented": 0, "composite": 0}
+    assert tuple(tok.shape) == (GEN_BATCH, GEN_NEW)
+    assert bool(torch.isfinite(scores).all())
+    assert calls[0][0] == GEN_PROMPT and len(calls) == GEN_NEW
+    decode = [ms for width, ms in calls[1:]]
+    return {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+            "layers": L, "prefill_ms": calls[0][1],
+            "decode_token_ms_median": statistics.median(decode),
+            "wall_s": wall, "tokens_per_s": GEN_BATCH * GEN_NEW / wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "flash_launches": counts["flash_sdpa"]["launches"]}
 
 
 # ------------------------------------------------------------- phase 6/7
@@ -857,6 +1228,13 @@ def train_8b(card):
     }, {k: v["launches"] for k, v in counts.items() if v["launches"]}
 
 
+def same_share(a: dict, b: dict) -> float:
+    """Share of greedy tokens of `b` equal to `a`'s, request by request."""
+    toks = [(a[r], b[r]) for r in a]
+    return sum(int((x == y).sum()) for x, y in toks) \
+        / sum(x.size for x, _ in toks)
+
+
 SOURCES = {
     "fused_rms_norm": ("paddle_tpu_torch/ops/csrc/fused.cu",
                        "paddle_tpu/ops/fused.py:100"),
@@ -875,6 +1253,12 @@ SOURCES = {
                    "paddle_tpu/ops/pallas_flash.py:335"),
     "flash_sdpa_bwd": ("paddle_tpu_torch/ops/csrc/flash_attention.cu",
                        "paddle_tpu/ops/pallas_flash.py:335"),
+    "paged_decode_attention": ("paddle_tpu_torch/ops/csrc/"
+                               "paged_attention.cu",
+                               "paddle_tpu/ops/pallas_paged.py:263"),
+    "paged_decode_attention_v2": ("paddle_tpu_torch/ops/csrc/"
+                                  "paged_attention.cu",
+                                  "paddle_tpu/ops/pallas_paged.py:201"),
 }
 
 
@@ -891,15 +1275,16 @@ def main() -> int:
     regs = [ln.split(":", 1)[1].strip() for ln in _build.build_log()
             .splitlines() if "Used" in ln and "registers" in ln]
     emit("1 card+build", card=card, build_s=_build.build_seconds(),
-         ptxas=regs)
+         ptxas=regs, spills=ptxas_spills(_build.build_log()))
 
     rows = check_kernels(Timer())
     emit("2 kernels", card=card["nvidia_smi"], kernels=rows)
 
-    emit("3 tiny engine cpu vs card", **tiny_engine_parity())
+    emit("3 tiny engine and generation cpu vs card", **tiny_engine_parity())
 
     # the main path: Llama-3-8B on the default fused chain; then the
-    # split chain on the same weights, each with its counts read alone
+    # split chain, the alternating path and generate_cached on the same
+    # weights, each with its counts read alone
     cfg = llama3_8b_config()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
@@ -913,21 +1298,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     split_launches: dict = {}
     split_out, res = serve_8b(model, "split", split_launches)
-    toks = [(fused_out[r], split_out[r]) for r in fused_out]
-    same = sum(int((a == b).sum()) for a, b in toks)
     emit("5 llama3-8b serving, split chain", card=card["nvidia_smi"],
-         identical_token_share_vs_fused=same / sum(a.size for a, _ in toks),
+         identical_token_share_vs_fused=same_share(fused_out, split_out),
          **res)
+    torch.cuda.empty_cache()
+    alt_launches: dict = {}
+    alt_out, res = serve_8b(model, "alternating", alt_launches)
+    emit("6 llama3-8b serving, alternating path", card=card["nvidia_smi"],
+         identical_token_share_vs_fused=same_share(fused_out, alt_out),
+         **res)
+    torch.cuda.empty_cache()
+    v1_launches: dict = {}
+    v1_out, res = serve_8b(model, "alternating", v1_launches, "intree_v1")
+    emit("6 llama3-8b serving, alternating path, intree_v1",
+         card=card["nvidia_smi"],
+         identical_token_share_vs_fused=same_share(fused_out, v1_out),
+         identical_token_share_vs_v2=same_share(alt_out, v1_out), **res)
+    torch.cuda.empty_cache()
+    emit("7 llama3-8b generate_cached", card=card["nvidia_smi"],
+         **generate_cached_8b(model))
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
-    emit("6 tiny training cpu vs card", **tiny_train_parity())
+    emit("8 tiny training cpu vs card", **tiny_train_parity())
     res, train_launches = train_8b(card)
-    emit("7 llama3-8b-width pretraining, 4 of 32 layers", **res)
+    emit("9 llama3-8b-width pretraining, 4 of 32 layers", **res)
 
     kernels = []
     paths = (("fused", fused_launches), ("split", split_launches),
+             ("alternating", alt_launches),
+             ("alternating, intree_v1", v1_launches),
              ("train", train_launches))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

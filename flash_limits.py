@@ -111,34 +111,36 @@ def _worst_row(got, want, q, k, causal, scale):
             "norm_over_median": float(wn[i]) / med, "p_max": p_max}
 
 
-def _plant(name: str, root: Path) -> Path:
+def plant(name: str, root: Path, faults=FAULTS, kernel: str = KERNEL,
+          files=("chip_smoke.py", "flash_limits.py", "pytest.ini",
+                 "tests/test_torch_flash.py")) -> Path:
     """A copy of what the readings run (the package without its build,
-    chip_smoke.py, this script, the card tests) under root/name, with
-    fault `name` planted in its flash kernel source."""
-    _, old, new, which = FAULTS[name]
+    and `files`: the card scripts and tests) under root/name, with fault
+    `name` of `faults` planted in the kernel source `kernel`."""
+    _, old, new, which = faults[name]
     dst = root / name
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(HERE / "paddle_tpu_torch", dst / "paddle_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for f in ("chip_smoke.py", "flash_limits.py", "pytest.ini",
-              "tests/test_torch_flash.py"):
+    for f in files:
         (dst / f).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy2(HERE / f, dst / f)
-    src = dst / KERNEL
+    src = dst / kernel
     text = src.read_text()
     parts = text.split(old)
     if len(parts) < which + 2:
-        raise RuntimeError(f"fault {name}: text not found in {KERNEL}")
+        raise RuntimeError(f"fault {name}: text not found in {kernel}")
     text = old.join(parts[:which + 1]) + new + old.join(parts[which + 1:])
     src.write_text(text)
     return dst
 
 
-def _card_tests(cwd: Path) -> dict:
+def card_tests(cwd: Path, test_file: str = "tests/test_torch_flash.py"):
+    """Pass / fail summary of a card-only test file run in `cwd`."""
     r = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
-         "-p", "no:cacheprovider", "tests/test_torch_flash.py"],
+         "-p", "no:cacheprovider", test_file],
         cwd=cwd, capture_output=True, text=True, timeout=600)
     tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
     return {"rc": r.returncode, "summary": tail}
@@ -241,12 +243,12 @@ def main() -> int:
         print(json.dumps(readings()), flush=True)
         return 0
     lines = []
-    sound = dict(name="sound", **readings(), card_tests=_card_tests(HERE))
+    sound = dict(name="sound", **readings(), card_tests=card_tests(HERE))
     lines.append(sound)
     print(json.dumps(sound), flush=True)
     torch.cuda.empty_cache()
     for name in FAULTS if args.faults else ():
-        cwd = _plant(name, args.faults.resolve())
+        cwd = plant(name, args.faults.resolve())
         r = subprocess.run([sys.executable, "flash_limits.py",
                             "--readings-only"], cwd=cwd, capture_output=True,
                            text=True, timeout=900)
@@ -255,7 +257,7 @@ def main() -> int:
             res.update(json.loads(r.stdout.strip().splitlines()[-1]))
         else:
             res["stderr_tail"] = r.stderr[-2000:]
-        res["card_tests"] = _card_tests(cwd)
+        res["card_tests"] = card_tests(cwd)
         lines.append(res)
         print(json.dumps(res), flush=True)
     if args.out is not None:

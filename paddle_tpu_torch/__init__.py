@@ -14,7 +14,9 @@ PyTorch version instead, which is what the CPU tests exercise.
 Ported so far (ROADMAP.md): Llama-family serving through
 ``serving.ServingEngine``'s unified ragged step, on the fused chain by
 default (the megafront / megadecode kernels) and on the split chain on
-request; and single-device Llama pretraining through
+request, and through its alternating path (``ragged=False``: the paged
+decode kernels); batch generation through ``generation.generate`` and
+``generate_cached``; and single-device Llama pretraining through
 ``trainer.build_llama_pretrain_step`` (flash attention forward and
 backward as kernels; ``device="cpu"`` runs the plain versions).
 """

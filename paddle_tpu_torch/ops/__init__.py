@@ -14,6 +14,12 @@ from .megadecode import (fused_ffn, fused_oproj_norm, megadecode_eligible,
 from .megafront import (fused_qkv_rope_append, megafront_eligible,
                         qkv_rope_append_reference)
 from .oracles import oracles
+from .paged import (default_pages_per_group, paged_decode_attention,
+                    paged_decode_attention_v2, paged_decode_reference,
+                    paged_decode_v2_reference, paged_kernel_eligible)
+# the router `paged_attention` stays in its module: exported here, the
+# function would shadow the submodule ``ops.paged_attention``
+from .paged_attention import append_to_cache, paged_attention_reference
 from .ragged import ragged_attention_reference, ragged_paged_attention
 
 __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
@@ -23,7 +29,11 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
            "fused_oproj_norm", "oproj_norm_reference", "fused_ffn",
            "megadecode_ffn_reference", "megadecode_eligible",
            "flash_sdpa", "flash_sdpa_reference", "flash_sdpa_bwd",
-           "flash_sdpa_bwd_reference", "flash_kernel_eligible", "oracles",
+           "flash_sdpa_bwd_reference", "flash_kernel_eligible",
+           "paged_decode_attention", "paged_decode_attention_v2",
+           "paged_decode_reference", "paged_decode_v2_reference",
+           "paged_kernel_eligible", "default_pages_per_group",
+           "paged_attention_reference", "append_to_cache", "oracles",
            "launch_counts", "reset_counts"]
 
 

@@ -157,10 +157,12 @@ def check(name: str, err: int) -> None:
 
 
 def dtype_code(t) -> int:
-    """The kernels' dtype code of a tensor (ptt::DType in common.cuh)."""
-    code = {torch.float32: 0, torch.bfloat16: 1}.get(t.dtype)
+    """The kernels' dtype code of a tensor or a dtype (ptt::DType in
+    common.cuh)."""
+    dtype = t if isinstance(t, torch.dtype) else t.dtype
+    code = {torch.float32: 0, torch.bfloat16: 1}.get(dtype)
     if code is None:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     return code
 
 

@@ -23,7 +23,8 @@ import torch
 from .flash import flash_kernel_eligible, flash_sdpa
 
 __all__ = ["sdpa_reference", "sdpa", "sdpa_path", "sdpa_segmented",
-           "flash_attention", "route_counts", "reset_route_counts"]
+           "sdpa_prefill", "flash_attention", "route_counts",
+           "reset_route_counts"]
 
 _NEG = -1e30
 
@@ -154,6 +155,20 @@ def sdpa_segmented(q, k, v, segment_ids, kv_segment_ids=None, causal=True,
     same = seg_q[:, :, None] == seg_kv[:, None, :]
     return sdpa_reference(q, k, v, mask=same[:, None], causal=causal,
                           scale=scale, dropout_p=dropout_p)
+
+
+def sdpa_prefill(q, k, v, *, causal: bool = True,
+                 scale: Optional[float] = None,
+                 pad_to_flash_min: int = 1024):
+    """Prefill-shaped SDPA ([B, S, H, D], self-attention, no mask), the
+    JAX package's signature. On the TPU it zero-pads a prompt of at least
+    ``pad_to_flash_min`` tokens to the next multiple of 128 and runs the
+    segment-id flash kernel, only to meet the TPU flash gate; that padding
+    is exact (no real row attends a padded key, padded rows are sliced
+    off), so it changes nothing but the route. The Hopper flash kernel
+    masks ragged tiles itself (any length), so here every prompt goes
+    straight to `sdpa` and ``pad_to_flash_min`` has no counterpart."""
+    return sdpa(q, k, v, causal=causal, scale=scale)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

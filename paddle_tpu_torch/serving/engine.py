@@ -1,10 +1,31 @@
 """Continuous-batching serving engine over the paged KV cache
-(counterpart of paddle_tpu/serving/engine.py, llama family, ragged path).
+(counterpart of paddle_tpu/serving/engine.py, llama family).
 
-`ServingEngine.add_request/step/collect` runs ONE unified step per
-engine step: every decode slot's pending token and one chunk of the
-oldest prefilling request ride a single flat token buffer through the
-per-layer body. By default (``megafront`` and ``megadecode`` on, as in
+Two dispatch paths, as in the JAX engine:
+
+- **unified (the default, ``ragged=None`` or True)**: ONE step per engine
+  step carries every decode slot's pending token and one chunk of the
+  oldest prefilling request in a single flat token buffer through the
+  per-layer body, around ``ragged_paged_attention``;
+- **alternating (``ragged=False``)**: each engine step runs a
+  prefill-chunk launch for the oldest prefilling request, then a
+  decode-step launch for every decode slot (`_prefill_chunk`, `_decode`;
+  ``self.launches`` counts both). Per layer the decode body runs
+  ``fused_rms_norm``, the q/k/v matmuls, rope inline by concatenation in
+  the activation dtype, ``append_to_cache`` and ``paged_attention``
+  (``FLAGS_paged_impl``, pinned when the engine is built: the v2 paged
+  kernel by default, the per-page v1 kernel under "intree_v1"), the
+  o-proj matmul, ``fused_rms_norm`` and the SwiGLU matmuls; the prefill
+  body writes the chunk's K/V into the pools (pad positions to the trash
+  page 0, offset 0) and attends densely over the sequence's gathered
+  pages under a causal mask, with no kernel, as in JAX. Both take
+  2 * layers + 1 ``fused_rms_norm`` calls a launch. The fused chain
+  (``megafront`` / ``megadecode``) belongs to the unified step and
+  resolves to off here, as in JAX. "Alternating path" names
+  ``ragged=False``; "split chain" names the unified step without the
+  megakernels.
+
+On the unified step, by default (``megafront`` and ``megadecode`` on, as in
 the JAX engine) that body is the fused chain
 
     fused_rms_norm -> fused_qkv_rope_append -> ragged_paged_attention
@@ -42,8 +63,9 @@ PyTorch runs eagerly: the body is a plain Python function over tensors,
 built once per engine (CUDA graphs are ROADMAP.md queue A item 6).
 
 Greedy decoding only: engine tokens equal the JAX engine's tokens per
-request on the same weights and trace, on either chain
-(tests/test_torch_llama_serving.py).
+request on the same weights and trace, on either chain and on the
+alternating path, and the solo ``generate_cached`` tokens of each
+request (tests/test_torch_llama_serving.py).
 """
 
 from __future__ import annotations
@@ -55,12 +77,14 @@ import torch
 
 from .. import resilience as _res
 from ..device import DeviceLike, resolve_device
+from ..flags import flag
 from ..generation import _ffn_apply, _llama_decode_params, _llama_weights, \
     _mm_w
 from ..ops.fused import fused_rms_norm, fused_rope_append
 from ..ops.megadecode import (fused_ffn, fused_oproj_norm,
                               megadecode_eligible)
 from ..ops.megafront import fused_qkv_rope_append, megafront_eligible
+from ..ops.paged_attention import append_to_cache, paged_attention
 from ..ops.ragged import ragged_paged_attention
 from .block_allocator import PageBlockAllocator
 from .scheduler import DECODE, PREFILL, Request, Scheduler
@@ -93,7 +117,8 @@ class ServingEngine:
         results = eng.collect()   # {request_id: np.int32[max_new]}
 
     ``device=None`` resolves to ``"cuda"`` and raises when CUDA is
-    absent; the model must live on the engine's device. The defaults
+    absent; the model must live on the engine's device. ``ragged=False``
+    takes the alternating path (module docstring). The defaults
     are the features this port has: the unified ragged step on the
     fused chain (``megafront`` / ``megadecode`` None: on wherever the
     kernels take the model's geometry, ``megafront_eligible`` /
@@ -129,9 +154,6 @@ class ServingEngine:
         if role not in ("prefill", "decode", "colocated"):
             raise ValueError(
                 f"role must be prefill/decode/colocated, got {role!r}")
-        if ragged is False:
-            raise _unported("the split prefill/decode path (ragged=False)",
-                            3)
         if enable_prefix_cache or getattr(config, "_prefix_cache", None):
             raise _unported("the radix prefix cache", 6)
         if spec_decode < 0:
@@ -186,12 +208,15 @@ class ServingEngine:
         self._pools = [(torch.zeros(shape, dtype=dt, device=self.device),
                         torch.zeros(shape, dtype=dt, device=self.device))
                        for _ in p["layers"]]
+        # the dispatch path: the unified step unless ragged=False (the
+        # port has no ragged gate that can fail)
+        self.ragged = ragged is None or bool(ragged)
         # the fused halves, on by default where the kernels take the
         # geometry (the gates are pure functions of shapes); False keeps
-        # the split chain exactly
+        # the split chain exactly; the alternating path never fuses
         hq, isz = cfg.num_attention_heads, p["embed"].element_size()
         self.megadecode = bool(
-            (megadecode is None or megadecode)
+            (megadecode is None or megadecode) and self.ragged
             and megadecode_eligible(cfg.hidden_size, cfg.intermediate_size,
                                     hq * d, dtype_bytes=isz,
                                     device=self.device))
@@ -199,7 +224,7 @@ class ServingEngine:
         #: (2 fused vs the 6-stage split chain, as the JAX engine counts)
         self.back_half_launches = 2 if self.megadecode else 6
         self.megafront = bool(
-            (megafront is None or megafront)
+            (megafront is None or megafront) and self.ragged
             and megafront_eligible(cfg.hidden_size, (hq + 2 * kv) * d, d,
                                    dtype_bytes=isz, device=self.device))
         if self.megafront:
@@ -207,11 +232,21 @@ class ServingEngine:
         #: kernel-wrapper calls before attention, per layer per step
         #: (norm + fused, vs norm + q/k/v matmuls + rope_append)
         self.front_half_launches = 2 if self.megafront else 5
-        self._body = self._llama_unified_body()
-        self.launches = 0      # unified steps run by THIS engine
-        #: logits [max_slots + 1, vocab] of the last unified step (row s
-        #: for decode slot s, the last row for the prefill chunk; idle
-        #: rows hold garbage the host ignores)
+        #: FLAGS_paged_impl of the alternating path, pinned now as the JAX
+        #: engine pins it when it builds its programs (None: unified step)
+        self.paged_impl = None if self.ragged else flag("FLAGS_paged_impl")
+        if self.ragged:
+            self._body = self._llama_unified_body()
+        else:
+            self._decode_body = self._llama_decode_body()
+            self._prefill_body = self._llama_prefill_body()
+        #: device launches run by THIS engine: unified steps, or prefill
+        #: chunks plus decode steps on the alternating path
+        self.launches = 0
+        #: logits of the last launch: [max_slots + 1, vocab] of a unified
+        #: step (row s for decode slot s, the last row for the prefill
+        #: chunk), [max_slots, vocab] of a decode step or [1, vocab] of a
+        #: prefill chunk; idle rows hold garbage the host ignores
         self.last_logits: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------- public
@@ -243,9 +278,10 @@ class ServingEngine:
 
     def step(self) -> Dict[str, int]:
         """One engine iteration: cull expired requests, admit waiting
-        ones into free slots, then run ONE unified ragged step carrying
-        every decode slot's token plus one prefill chunk. Returns counts
-        of the step's work."""
+        ones into free slots, then run the step's device work: ONE
+        unified ragged step carrying every decode slot's token plus one
+        prefill chunk, or on the alternating path a prefill-chunk launch
+        then a decode-step launch. Returns counts of the step's work."""
         out = {"admitted": 0, "prefill_tokens": 0, "decoded": 0,
                "finished": 0}
         # queued requests own no pages yet: expiring them frees nothing
@@ -257,10 +293,16 @@ class ServingEngine:
                 self._finish(req)
                 out["finished"] += 1
         out["admitted"] = self._admit()
-        pf, dec, fin = self._unified_step()
-        out["prefill_tokens"] = pf
-        out["decoded"] = dec
-        out["finished"] += fin
+        if self.ragged:
+            pf, dec, fin = self._unified_step()
+            out["prefill_tokens"] = pf
+            out["decoded"] = dec
+            out["finished"] += fin
+        else:
+            out["prefill_tokens"], fin = self._prefill_chunk()
+            out["finished"] += fin
+            out["decoded"], fin = self._decode()
+            out["finished"] += fin
         return out
 
     def collect(self) -> Dict[object, object]:
@@ -317,6 +359,70 @@ class ServingEngine:
             return False
         req.prefill_pos = req.shared_tokens = share
         return True
+
+    # -------------------------------------------------------- alternating
+    def _prefill_chunk(self) -> Tuple[int, int]:
+        """One chunk of prompt prefill for the OLDEST prefilling request
+        (one launch): bounded work between decode steps, so long prompts
+        never stall the in-flight batch. Returns (prefill_tokens,
+        finished)."""
+        while self._prefill_fifo and \
+                self._prefill_fifo[0].state != PREFILL:
+            self._prefill_fifo.pop(0)
+        if not self._prefill_fifo:
+            return 0, 0
+        req = self._prefill_fifo[0]
+        C = self.prefill_chunk
+        n = min(C, int(req.prompt.size) - req.prefill_pos)
+        start = req.prefill_pos
+        self._apply_copies(self.allocator.extend(req.request_id, n))
+        ids = np.zeros(C, np.int32)
+        ids[:n] = req.prompt[start:start + n]
+        table = self.allocator.table(req.request_id)
+        # one host->device copy for the launch's ids and page table
+        dev = torch.from_numpy(np.concatenate([ids, table])).to(self.device)
+        ids_d, table_d = torch.split(dev, [C, table.size])
+        logits, self._pools = self._prefill_body(
+            self._w, ids_d[None], self._pools, table_d[None], start, n)
+        self.last_logits = logits
+        tok = int(torch.argmax(logits[0]))
+        req.prefill_pos += n
+        self.launches += 1
+        finished = 0
+        if req.prefill_pos == int(req.prompt.size):
+            self._prefill_fifo.pop(0)
+            req.state = DECODE
+            finished += self._emit(req, tok)
+        return n, finished
+
+    def _decode(self) -> Tuple[int, int]:
+        """One decode step (one launch) for every decode slot; idle slots
+        run on the trash page with length 0. Returns (decoded,
+        finished)."""
+        active = self.scheduler.active(DECODE)
+        if not active:
+            return 0, 0
+        B, nj = self.max_slots, self.pages_per_seq
+        tok = np.zeros(B, np.int32)
+        lengths = np.zeros(B, np.int32)
+        tables = np.zeros((B, nj), np.int32)   # idle -> trash page 0
+        for slot, req in active:
+            tok[slot] = req.pending
+            lengths[slot] = self.allocator.seq_length(req.request_id)
+            self._apply_copies(self.allocator.extend(req.request_id, 1))
+            tables[slot] = self.allocator.table(req.request_id)
+        dev = torch.from_numpy(np.concatenate(
+            [tok, lengths, tables.reshape(-1)])).to(self.device)
+        tok_d, lengths_d, tables_d = torch.split(dev, [B, B, B * nj])
+        logits, self._pools = self._decode_body(
+            self._w, tok_d, self._pools, lengths_d, tables_d.view(B, nj))
+        self.last_logits = logits
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()   # [B]
+        self.launches += 1
+        finished = 0
+        for slot, req in active:
+            finished += self._emit(req, int(greedy[slot]))
+        return len(active), finished
 
     # ------------------------------------------------------------ unified
     def _unified_step(self) -> Tuple[int, int, int]:
@@ -499,3 +605,113 @@ class ServingEngine:
             return last @ head, pools
 
         return step
+
+    # ------------------------------------------------- alternating bodies
+    def _llama_decode_body(self):
+        """One decode token per slot, in the JAX body's op order: rms
+        norms through ``fused_rms_norm`` (2 * layers + 1 calls), rope
+        inline in the activation dtype, the new K/V written by
+        ``append_to_cache``, attention through ``paged_attention`` over
+        lengths + 1 rows under the engine's pinned FLAGS_paged_impl."""
+        cfg = self._p["cfg"]
+        Hh, KV, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        eps = cfg.rms_norm_eps
+        paged_impl = self.paged_impl
+
+        def step(w, tok, pools, lengths, tables):
+            B = tok.shape[0]
+            x = w["embed"][tok.long()][:, None]           # [B, 1, H]
+            c = w["cos"][lengths.long()]                  # [B, D/2] f32
+            s = w["sin"][lengths.long()]
+
+            def rope(t):                                  # [B, 1, h, D]
+                d2 = t.shape[-1] // 2
+                t1, t2 = t[..., :d2], t[..., d2:]
+                cc = c[:, None, None, :].to(t.dtype)
+                ss = s[:, None, None, :].to(t.dtype)
+                return torch.cat([t1 * cc - t2 * ss, t2 * cc + t1 * ss], -1)
+
+            for L, (kp, vp) in zip(w["layers"], pools):
+                h = fused_rms_norm(x, L["ln1"], eps)
+                q = rope(_mm_w(h, L, "wq").reshape(B, 1, Hh, D))
+                k = rope(_mm_w(h, L, "wk").reshape(B, 1, KV, D))
+                v = _mm_w(h, L, "wv").reshape(B, 1, KV, D)
+                append_to_cache(kp, vp, k[:, 0], v[:, 0], lengths, tables)
+                o = paged_attention(q[:, 0], kp, vp, lengths + 1, tables,
+                                    scale=D ** -0.5, impl=paged_impl)
+                x = x + _mm_w(o.reshape(B, 1, Hh * D), L, "wo")
+                h2 = fused_rms_norm(x, L["ln2"], eps)
+                x = x + _ffn_apply(L, h2)
+            x = fused_rms_norm(x, w["norm"], eps)
+            head = w["head"] if w["head"] is not None else w["embed"].T
+            return x[:, -1] @ head, pools
+
+        return step
+
+    def _llama_prefill_body(self):
+        """One prefill chunk of C = prefill_chunk rows (the first n_valid
+        real) of one sequence, in the JAX body's op order: rms norms
+        through ``fused_rms_norm``, rope inline, the chunk's K/V written
+        into the pools in place (pad rows to the trash page 0, offset 0),
+        then attention over the sequence's gathered nj * page_size keys
+        with key t visible to row i iff t <= start + i (dense, f32
+        softmax, no kernel, as in JAX)."""
+        cfg = self._p["cfg"]
+        Hh, KV, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        eps = cfg.rms_norm_eps
+        rep = Hh // KV
+        C = self.prefill_chunk
+        ps, nj = self.page_size, self.pages_per_seq
+        T = nj * ps
+        dev = self.device
+        rows = torch.arange(C, device=dev)
+        pos_t = torch.arange(T, device=dev)
+
+        def prefill(w, ids, pools, table, start: int, n_valid: int):
+            x = w["embed"][ids.long()]                    # [1, C, H]
+            pos = start + rows
+            posc = pos.clamp(0, w["cos"].shape[0] - 1)
+            c, s = w["cos"][posc], w["sin"][posc]         # [C, D/2] f32
+
+            def rope(t):                                  # [1, C, h, D]
+                d2 = t.shape[-1] // 2
+                t1, t2 = t[..., :d2], t[..., d2:]
+                cc = c[None, :, None, :].to(t.dtype)
+                ss = s[None, :, None, :].to(t.dtype)
+                return torch.cat([t1 * cc - t2 * ss, t2 * cc + t1 * ss], -1)
+
+            valid = rows < n_valid
+            tab = table[0].long()
+            # pad rows write the trash page 0 at offset 0 (repeated
+            # indices: which one a CUDA index_put_ keeps is unspecified,
+            # harmless on the trash page); real rows this sequence's pages
+            pg = torch.where(valid, tab[(pos // ps).clamp(0, nj - 1)], 0)
+            off = torch.where(valid, pos % ps, 0)
+            vis = pos_t[None, :] <= pos[:, None]          # [C, T]
+            for L, (kp, vp) in zip(w["layers"], pools):
+                h = fused_rms_norm(x, L["ln1"], eps)
+                q = rope(_mm_w(h, L, "wq").reshape(1, C, Hh, D))
+                k = rope(_mm_w(h, L, "wk").reshape(1, C, KV, D))
+                v = _mm_w(h, L, "wv").reshape(1, C, KV, D)
+                kp[:, pg, off] = k[0].transpose(0, 1)
+                vp[:, pg, off] = v[0].transpose(0, 1)
+                ks = kp[:, tab].reshape(KV, T, D)
+                vs = vp[:, tab].reshape(KV, T, D)
+                qg = q.reshape(1, C, KV, rep, D)
+                scores = torch.einsum("bsgrd,gtd->bgrst", qg, ks) \
+                    * (D ** -0.5)
+                scores = torch.where(vis[None, None, None], scores.float(),
+                                     torch.tensor(-1e30, device=dev))
+                aw = torch.softmax(scores, dim=-1).to(vs.dtype)
+                o = torch.einsum("bgrst,gtd->bsgrd", aw, vs).reshape(
+                    1, C, Hh * D)
+                x = x + _mm_w(o, L, "wo")
+                h2 = fused_rms_norm(x, L["ln2"], eps)
+                x = x + _ffn_apply(L, h2)
+            x = fused_rms_norm(x, w["norm"], eps)
+            head = w["head"] if w["head"] is not None else w["embed"].T
+            return x[0, n_valid - 1][None] @ head, pools
+
+        return prefill

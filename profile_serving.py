@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Where one serving step's time goes, on the card.
 
-    python3 profile_serving.py [--out serving_trace.json] [--chain split]
+    python3 profile_serving.py [--out serving_trace.json]
+                               [--chain fused|split|alternating]
 
 Serves the same Llama-3-8B configuration and seeded traffic as
 chip_smoke.py's phase 4 (bf16, 4 slots, page_size 16, 128-token prefill
-chunks), on the engine's default fused chain or, with ``--chain split``,
-on the split chain, and records a window of decode-only steps and a
-window of mixed (prefill + decode) steps under torch.profiler. Prints
-one JSON line per window: host wall ms per step, device busy ms per step
-(the union of kernel intervals in the trace), the device's idle share,
-device time by kernel group (the port's kernels, cuBLAS GEMMs,
-everything else) and the ten kernels with the most device time. Needs
-one CUDA card; the trace of the last window goes to ``--out``.
+chunks), on the engine's default fused chain, with ``--chain split`` on
+the split chain of the unified step, or with ``--chain alternating`` on
+the alternating path (``ragged=False``: a prefill-chunk launch and a
+decode-step launch per engine step, paged decode attention), and records
+a window of decode-only steps and a window of mixed (prefill + decode)
+steps under torch.profiler. Prints one JSON line per window: host wall
+ms per step, device busy ms per step (the union of kernel intervals in
+the trace), the device's idle share, device time by kernel group (the
+port's kernels, cuBLAS GEMMs, PyTorch's gathers / scatters, concatenations
+and other elementwise passes, everything else) and the ten kernels with
+the most device time. Needs one CUDA card; the trace of the last window
+goes to ``--out``.
 """
 
 from __future__ import annotations
@@ -38,7 +43,13 @@ STEPS = 6                          # engine steps per profiled window
 PORT_KERNELS = ("rms_norm_kernel", "rope_append_kernel",
                 "ragged_attention_kernel", "mega::gemm_kernel",
                 "qkv_finalize_kernel", "oproj_norm_finalize_kernel",
-                "residual_finalize_kernel")
+                "residual_finalize_kernel", "paged_v1_kernel",
+                "paged_v2_kernel", "paged_v2_mma_kernel")
+#: name fragments of PyTorch's own passes, in match order: gathers and
+#: scatters (page gathers, append_to_cache's index_put_), concatenations
+#: (the alternating path's inline rope), other elementwise passes
+TORCH_GROUPS = (("index", "index"), ("catarray", "cat"),
+                ("elementwise", "elementwise"), ("reduce", "reduce"))
 
 
 def group(name: str) -> str:
@@ -50,6 +61,9 @@ def group(name: str) -> str:
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass",
                               "splitkreduce")):
         return "gemm"
+    for frag, g in TORCH_GROUPS:
+        if frag in low:
+            return g
     return "other"
 
 
@@ -114,7 +128,8 @@ def summarize(kind, steps, kernels):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="serving_trace.json")
-    ap.add_argument("--chain", choices=("fused", "split"), default="fused")
+    ap.add_argument("--chain", choices=("fused", "split", "alternating"),
+                    default="fused")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving.py: no CUDA device", file=sys.stderr)
@@ -126,8 +141,8 @@ def main() -> int:
     cfg = llama3_8b_config()
     model = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
                              generator=torch.Generator("cuda").manual_seed(0))
-    chain = {} if args.chain == "fused" else dict(megafront=False,
-                                                  megadecode=False)
+    chain = {"fused": {}, "split": dict(megafront=False, megadecode=False),
+             "alternating": dict(ragged=False)}[args.chain]
     eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
                         prefill_chunk=CHUNK, max_context=MAX_CTX, **chain)
     rng = np.random.RandomState(0)

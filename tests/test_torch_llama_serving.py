@@ -15,7 +15,12 @@ then run the same seeded join/leave trace, on each of the two chains:
 
 Every request's greedy tokens must be identical and every unified step's
 logits equal within 1e-4 (f32; the two frameworks sum in different
-orders)."""
+orders).
+
+The alternating path (ragged=False on both engines: a prefill-chunk
+launch and a decode-step launch per step, paged decode attention) is
+held the same way under the port's two paged impls, launch by launch,
+and to the port's own solo generate_cached tokens per request."""
 
 from types import SimpleNamespace
 
@@ -278,6 +283,134 @@ class TestFusedEngineAgainstJax:
             rtol=0, atol=0)
 
 
+def _run_alternating(models, impl):
+    """The JAX alternating engine (ragged=False, its default
+    FLAGS_paged_impl "intree": the v2 Pallas kernel in interpret mode)
+    and the port's under `impl`, over the seeded serving trace, with
+    every launch's logits captured on both sides."""
+    from paddle_tpu_torch.flags import flags_guard
+    from paddle_tpu_torch.ops import paged_attention as routes
+    jm, tm, _ = models
+    trace = _serving_trace(jm.config.vocab_size)
+    jeng = JaxEngine(jm, enable_prefix_cache=False, ragged=False,
+                     **ENGINE_KW)
+    jax_logits = []
+
+    def capture(program):
+        def run(*args):
+            out = program(*args)
+            jax_logits.append(np.asarray(out[0]))
+            return out
+        return run
+
+    jeng._jit_prefill = capture(jeng._jit_prefill)
+    jeng._jit_decode = capture(jeng._jit_decode)
+    jres, _ = _drive(jeng, trace)
+
+    ops.reset_counts()
+    routes.reset_route_counts()
+    with flags_guard(paged_impl=impl):
+        teng = ServingEngine(tm, device="cpu", ragged=False, **ENGINE_KW)
+    torch_logits, decode_steps = [], []
+
+    def capture_t(body, decode):
+        def run(*args):
+            out = body(*args)
+            torch_logits.append(out[0].numpy().copy())
+            decode_steps.append(decode)
+            return out
+        return run
+
+    teng._prefill_body = capture_t(teng._prefill_body, False)
+    teng._decode_body = capture_t(teng._decode_body, True)
+    tres, treqs = _drive(teng, trace)
+    return dict(jres=jres, tres=tres, treqs=treqs, jax_logits=jax_logits,
+                torch_logits=torch_logits, decode_steps=sum(decode_steps),
+                counts=ops.launch_counts(), routes=dict(routes.route_counts),
+                teng=teng, trace=trace)
+
+
+@pytest.fixture(scope="module")
+def alt_runs(models):
+    """The alternating path on both impls of the port."""
+    return {impl: _run_alternating(models, impl)
+            for impl in ("intree", "intree_v1")}
+
+
+class TestAlternatingEngineAgainstJax:
+    """ServingEngine(ragged=False): a prefill-chunk launch then a
+    decode-step launch per engine step; the decode step's attention
+    through paged_attention (v2 under "intree", v1 under "intree_v1")."""
+
+    IMPLS = ("intree", "intree_v1")
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_greedy_tokens_identical(self, alt_runs, impl):
+        run = alt_runs[impl]
+        assert set(run["tres"]) == set(run["jres"]) == \
+            set(range(len(run["trace"])))
+        for rid, ref in run["jres"].items():
+            np.testing.assert_array_equal(run["tres"][rid], ref)
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_every_launch_logits_within_1e4(self, alt_runs, impl):
+        jl, tl = alt_runs[impl]["jax_logits"], alt_runs[impl]["torch_logits"]
+        assert len(jl) == len(tl) == alt_runs[impl]["teng"].launches > 0
+        for a, b in zip(jl, tl):
+            np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("impl,route,kernel,other", [
+        ("intree", "paged_intree", "paged_decode_attention_v2",
+         "paged_decode_attention"),
+        ("intree_v1", "paged_intree_v1", "paged_decode_attention",
+         "paged_decode_attention_v2")])
+    def test_route_counts_per_layer(self, alt_runs, impl, route, kernel,
+                                    other):
+        run = alt_runs[impl]
+        layers, eng = 2, run["teng"]
+        dec, launches = run["decode_steps"], eng.launches
+        assert eng.paged_impl == impl and 0 < dec < launches
+        assert not (eng.ragged or eng.megafront or eng.megadecode)
+        c = run["counts"]
+        assert c["fused_rms_norm"] == {
+            "launches": 0, "plain_calls": (2 * layers + 1) * launches}
+        assert c[kernel] == {"launches": 0, "plain_calls": layers * dec}
+        assert c[other] == {"launches": 0, "plain_calls": 0}
+        assert run["routes"] == dict(
+            {k: 0 for k in run["routes"]}, **{route: layers * dec})
+        for name in ("ragged_paged_attention", "fused_rope_append",
+                     "fused_qkv_rope_append", "fused_oproj_norm",
+                     "fused_ffn"):
+            assert c[name] == {"launches": 0, "plain_calls": 0}, name
+
+    def test_prefix_sharing_forked(self, alt_runs):
+        treqs = alt_runs["intree"]["treqs"]
+        assert treqs[1].shared_tokens == 6 and treqs[2].shared_tokens == 5
+        st = alt_runs["intree"]["teng"].allocator.stats()
+        assert st["sequences"] == 0 and st["pages_used"] == 0
+
+    def test_tokens_equal_solo_generate_cached(self, models, alt_runs):
+        from paddle_tpu_torch.generation import generate_cached
+        _, tm, _ = models
+        run = alt_runs["intree"]
+        for rid, (prompt, max_new, _) in enumerate(run["trace"]):
+            gen, _ = generate_cached(tm, prompt[None], max_new_tokens=max_new,
+                                     decode_strategy="greedy_search")
+            np.testing.assert_array_equal(gen[0].numpy(), run["tres"][rid])
+
+    def test_unified_and_alternating_identical(self, runs, fused_runs,
+                                               alt_runs):
+        # on the CPU both dispatch paths and both chains give one answer,
+        # and the unified step needs strictly fewer launches (a step with
+        # prefill and decode work is two launches on the alternating path)
+        alt = alt_runs["intree"]
+        for rid, toks in alt["tres"].items():
+            np.testing.assert_array_equal(toks, runs["tres"][rid])
+            np.testing.assert_array_equal(toks, fused_runs["tres"][rid])
+        assert runs["teng"].launches < alt["teng"].launches
+        assert fused_runs["teng"].launches < alt["teng"].launches
+
+
 class TestLayersAgainstJax:
     """Linear, Embedding and RMSNorm: same weights (carried by name),
     same outputs as the JAX package's layers, f32 at 2e-5."""
@@ -336,7 +469,7 @@ class TestEngineOptions:
             np.testing.assert_array_equal(out[i], runs["jres"][i])
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(ragged=False), 3), (dict(weight_only_int8=True), 4),
+        (dict(weight_only_int8=True), 4),
         (dict(weight_only_quant="int4"), 4),
         (dict(enable_prefix_cache=True), 6), (dict(spec_decode=2), 6),
         (dict(preemption=True), 6), (dict(role="prefill"), 6),

@@ -1,6 +1,6 @@
 """The port's standing rules, checked on the CPU.
 
-- paddle_tpu_torch and the card scripts (chip_smoke.py, flash_limits.py,
+- paddle_tpu_torch and the card scripts (chip_smoke.py, *_limits.py,
   profile_*.py) import neither JAX nor anything of paddle_tpu (the
   machine with the card has no JAX);
 - entry points run on the card unless the caller asks for the CPU: with
@@ -28,7 +28,7 @@ names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 # imports only: the scripts run under __main__
-import chip_smoke, flash_limits, profile_serving, profile_training
+import chip_smoke, flash_limits, paged_limits, profile_serving, profile_training
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -63,7 +63,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.optimizer.functional",
                 "paddle_tpu_torch.amp",
                 "paddle_tpu_torch.distributed.recompute",
-                "paddle_tpu_torch.distributed.parallel_layers"):
+                "paddle_tpu_torch.distributed.parallel_layers",
+                "paddle_tpu_torch.generation", "paddle_tpu_torch.flags",
+                "paddle_tpu_torch.ops.paged",
+                "paddle_tpu_torch.ops.paged_attention"):
         assert mod in res["modules"]
 
 
@@ -78,13 +81,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, ragged=False)
     from paddle_tpu_torch.trainer import (PretrainConfig,
                                           build_llama_pretrain_step)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_llama_pretrain_step(PretrainConfig(cfg, global_batch=1,
                                                  seq_len=8))
-    # the explicit request still runs on the CPU
+    # the explicit request still runs on the CPU; generate_cached runs
+    # where its model lives
     ServingEngine(model, device="cpu")
+    ServingEngine(model, ragged=False, device="cpu")
+    from paddle_tpu_torch.generation import generate_cached
+    gen, _ = generate_cached(model, [[1, 2, 3]], max_new_tokens=2,
+                             decode_strategy="greedy_search")
+    assert gen.device.type == "cpu"
 
 
 def test_engine_refuses_a_model_on_another_device():
@@ -105,13 +116,16 @@ def test_registry_names_the_ported_kernels():
     import paddle_tpu.ops.pallas_flash  # noqa: F401
     import paddle_tpu.ops.pallas_megadecode  # noqa: F401
     import paddle_tpu.ops.pallas_megafront  # noqa: F401
+    import paddle_tpu.ops.pallas_paged  # noqa: F401
     import paddle_tpu.ops.pallas_ragged  # noqa: F401
     from paddle_tpu.ops.oracles import oracles as jax_oracles
     from paddle_tpu_torch.ops import launch_counts, oracles
     ported = oracles()
     assert set(ported) == {"fused_rms_norm", "fused_rope_append",
                            "ragged_paged_attention", "fused_qkv_rope_append",
-                           "fused_oproj_norm", "fused_ffn", "flash_sdpa"}
+                           "fused_oproj_norm", "fused_ffn", "flash_sdpa",
+                           "paged_decode_attention",
+                           "paged_decode_attention_v2"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
@@ -131,7 +145,7 @@ def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["flash_attention.cu", "fused.cu", "megakernels.cu",
-                     "ragged_attention.cu"]
+                     "paged_attention.cu", "ragged_attention.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     for p in _build.CSRC.glob("*.cu"):
