@@ -23,14 +23,25 @@ Phases, one line each on stdout:
    1 on the trash page, 64-page tables with a -1 entry) in bf16 and f32,
    and at a long-context shape (8 sequences, tables of 8192 tokens,
    seeded lengths including 1 and 8192) in bf16; bf16 outputs are held
-   by relative errors (`paged_rel_errors`), f32 at 2e-5;
+   by relative errors (`paged_rel_errors`), f32 at 2e-5; the int8 and
+   int4 sites of the three megakernels at the same shapes
+   (`check_quantized_megakernels`: bf16 also by `row_rel_errors` within
+   QSITE_BF16_LIMITS; split_ms on the dequantized bf16 weights);
+   weight_only_linear, int8 and int4, at T = 132 x [4096 ->
+   14336], the int4 LM head M = 5 x [4096 -> 128256] and odd M x [4096
+   -> 1000] (`check_weight_only_linear`: bf16 by `row_rel_errors`, split_ms
+   bf16 torch.matmul on the dequantized weight, library_ms
+   torch._weight_int8pack_mm for int8, torch._weight_int4pack_mm for
+   int4);
 3. a tiny f32 Llama served on the CPU (plain versions) and on the card
    (kernels) over one seeded join/leave trace, on the fused and on the
    split chain and on the alternating path (ragged=False) under
    FLAGS_paged_impl "intree" (v2) and "intree_v1" (v1): identical greedy
    tokens, and on the alternating path exact launch counts; then tiny
    generate and generate_cached (greedy, f32) CPU vs card: identical
-   tokens, scores within 1e-5;
+   tokens, scores within 1e-5; then the same with weight-only int8 and
+   int4 weights on all three paths and generate_cached, every card run
+   at its exact launch counts (`tiny_quant_parity`);
 4. Llama-3-8B at full width (32 layers, vocab 128256, bf16 weights drawn
    on the card from a seeded generator) serving 8 seeded requests
    (prompts 64-512 tokens, 32 new tokens each) through ServingEngine's
@@ -54,6 +65,14 @@ Phases, one line each on stdout:
    32 greedy new tokens; the prefill runs the flash kernel once a layer
    and nothing else launches; prefill ms, median decode-token ms,
    tokens/s and peak memory;
+7a-7c. the same model and trace with weight-only int8 weights on the
+   fused chain, int4 on the fused chain and int4 on the split chain, the
+   tree quantized on the card as each engine is built (quantize_s), full
+   depth, each engine freed before the next: the fused chain's counts
+   plus, under int4, one weight_only_linear a step (the LM head); the
+   split chain's plus 7 * layers + 1 weight_only_linear a step; the
+   decode step beside the bytes of the tree it reads, and the
+   identical-token share against the bf16 fused chain (not asserted);
 8. a tiny Llama (head_dim 64, GQA) takes 3 pretraining steps on the
    CPU (plain versions) and on the card (kernels), in f32 and in bf16
    compute: losses and grad norms agree within TINY_TRAIN_LIMITS;
@@ -70,7 +89,9 @@ Phases, one line each on stdout:
 10. the ``{"kernels": [...]}`` line (launches from the run of the path
    that uses each kernel: the fused chain, the split chain for
    rope_append, phase 6's two runs for paged v2 and v1, the 8B training
-   run for flash attention), then the ``{"ok": true, ...}`` line.
+   run for flash attention, phase 7c for weight_only_linear; the three
+   megakernels' rows carry their int8 / int4 readings and launches from
+   phases 7a / 7b), then the ``{"ok": true, ...}`` line.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
 against its plain version at the training shape (B 1, S 8192, 32 heads
@@ -128,7 +149,7 @@ SCRUB_BYTES = 1 << 30          # >> the 50 MB L2: each timed rep starts cold
 DEV = "cuda"
 
 # the slice's 8B serving geometry
-H, HQ, KV, D, PSZ, FFN = 4096, 32, 8, 128, 16, 14336
+H, HQ, KV, D, PSZ, FFN, VOCAB = 4096, 32, 8, 128, 16, 14336, 128256
 SLOTS, CHUNK, MAX_CTX = 4, 128, 1024
 # the slice's training geometry: Llama-3-8B width, depth cut to 4 layers
 TRAIN_LAYERS, TRAIN_SEQ, WARMUP_STEPS, TIMED_STEPS = 4, 8192, 2, 5
@@ -291,6 +312,43 @@ def assert_paged_bf16(name: str, got, want):
     return tensor, head
 
 
+#: bf16 weight_only_linear is held by relative errors over the output
+#: and over each output row: the kernel and the plain version round f32
+#: sums of the same exact products (bf16 x, int values of bf16 weights) to
+#: bf16, so outputs differ by one bf16 step where the two summation orders
+#: straddle a rounding boundary, which is rare. A wrong nibble order or a
+#: lost sign extension moves every output, and so does folding the scale
+#: into a bf16 weight, bf16(q s), by ~2^-9 a weight: the limits sit
+#: between the sound kernel's readings and that fault's
+#: (quant_limits.py, PERF.md).
+WOL_BF16_TENSOR_LIMIT = 3e-4
+WOL_BF16_ROW_LIMIT = 1e-3
+#: the megakernels' int8 / int4 sites in bf16, the same two measures over
+#: each site's outputs (`quant_site_rows`), (tensor, row) limits from the
+#: same readings. fused_ffn reads higher for a sound kernel: it rounds
+#: the swiglu activation to bf16 for the down product, where the plain
+#: version keeps it in f32 (1.8e-3 tensor, up to 2.6e-3 a row at the
+#: card tests' H 256), so its tensor limit sits between that and the
+#: folded scale's 2.6e-3, and its row limit above the sound rows.
+QSITE_BF16_LIMITS = {"fused_qkv_rope_append": (3e-4, 1e-3),
+                     "fused_oproj_norm": (3e-4, 1e-3),
+                     "fused_ffn": (2.2e-3, 3e-3)}
+INT8, INT4 = "weight_only_int8", "weight_only_int4"
+
+
+def row_rel_errors(got, want):
+    """(tensor, row) relative errors of `got` against `want` [M, N]:
+    ||got - want|| / ||want|| over the whole output, and the largest of the
+    same over its rows, each row's norm floored at 1% of the
+    root-mean-square row norm."""
+    w = want.float()
+    d = got.float() - w
+    wn, dn = w.norm(dim=-1), d.norm(dim=-1)
+    floor = 1e-2 * float(w.norm()) / wn.numel() ** 0.5
+    return (float(d.norm() / w.norm()),
+            float((dn / wn.clamp_min(floor)).max()))
+
+
 # ------------------------------------------------------------------ inputs
 def mixed_batch(g):
     """Row tables of one unified step at the 8B geometry: decode slots
@@ -445,11 +503,14 @@ def check_kernels(timer: Timer):
                      decode_only_bound_ms=bound(nbytes(qa, o, *tabs)
                                                 + dec_live)[0])
         check_megakernels(timer, mb, cos, sin, rows, dtype, tol[dtype], gc)
+        check_quantized_megakernels(timer, mb, cos, sin, rows, dtype,
+                                    tol[dtype], gc)
         check_paged(timer, rows, dtype, gc, *decode_batch(
             g, SLOTS, MAX_CTX // PSZ, [300, 1024, 517, 1], idle=3))
     check_paged(timer, rows, torch.bfloat16, gc, *long_context_batch(g),
                 tag="long")
     check_flash(timer, rows)
+    check_weight_only_linear(timer, rows)
     return rows
 
 
@@ -643,6 +704,251 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
     record("fused_ffn", err, **(timed if main else {}))
 
 
+def quant_site_rows(name, outs, idx):
+    """One [T, X] tensor of a megakernel site's outputs (a tuple), a row
+    per token: qkv_rope_append's q and the K / V rows it wrote into the
+    pools at `idx` (page, offset), oproj_norm's x_new and h, fused_ffn's
+    out."""
+    if name == "fused_qkv_rope_append":
+        q, kp, vp = outs
+        T = q.shape[0]
+        pg, off = idx[0].long(), idx[1].long()
+        return torch.cat([q.reshape(T, -1)] + [
+            p_[:, pg, off].transpose(0, 1).reshape(T, -1)
+            for p_ in (kp, vp)], dim=1)
+    return torch.cat(outs, dim=1)
+
+
+def check_quantized_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc,
+                                hold: bool = True):
+    """The int8 and int4 sites of the three megakernels at the 8B step's
+    shapes, each against its plain version at the fp tolerance and, in
+    bf16, by `row_rel_errors` over `quant_site_rows` within
+    QSITE_BF16_LIMITS; in bf16 (with a `timer`) timed beside it, the
+    bound (the quantized weight's bytes and the activations at the HBM
+    rate, or the bf16 operations) and `split_ms`: the split chain's calls
+    on the dequantized bf16 weights, what quantizing has to beat.
+    Readings go under rows[name]["int8" / "int4"]; `hold` False only
+    reads (quant_limits.py on planted faults)."""
+    bf16 = dtype == torch.bfloat16
+    main = bf16 and timer is not None
+    tag = "bf16" if bf16 else "f32"
+    T, P = mb["T"], mb["P"]
+    N = (HQ + 2 * KV) * D
+    isz = torch.tensor([], dtype=dtype).element_size()
+    idx = (mb["page_idx"], mb["page_off"])
+    silu = torch.nn.functional.silu
+
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(*shape, device=DEV, generator=gc)
+                * scale).to(dt)
+
+    for algo in (INT8, INT4):
+        def quantized(k, n):
+            return ops.weight_quantize(rnd(k, n, scale=k ** -0.5,
+                                           dt=torch.float32), algo)
+
+        def dq(w, s_):
+            return ops.weight_dequantize(w, s_, algo).to(dtype)
+
+        def record(name, got, ref):
+            got, ref = ((got, ref) if isinstance(got, tuple)
+                        else ((got,), (ref,)))
+            if hold:
+                for a, b in zip(got, ref):
+                    torch.testing.assert_close(a.float(), b.float(), **tol)
+            err = max(max_err(a, b) for a, b in zip(got, ref))
+            r = rows.setdefault(name, {}).setdefault(algo[12:], {})
+            r[f"max_abs_err_{tag}"] = err
+            if bf16:
+                tensor, row = row_rel_errors(quant_site_rows(name, got, idx),
+                                             quant_site_rows(name, ref, idx))
+                r["rel_err_bf16"] = {"tensor": tensor, "row": row}
+                lt, lr = QSITE_BF16_LIMITS[name]
+                assert not hold or tensor <= lt, (name, algo, tensor)
+                assert not hold or row <= lr, (name, algo, row)
+            if main:
+                r.update(max_abs_err=err, library_ms=None)
+            return r
+
+        # qkv + rope + paged append
+        h = rnd(T, H)
+        qw, sw = quantized(H, N)
+        kp, vp = rnd(KV, P, PSZ, D), rnd(KV, P, PSZ, D)
+        kp2, vp2 = kp.clone(), vp.clone()
+        kw = dict(heads=HQ, kv_heads=KV, head_dim=D, algo=algo)
+        n0 = ops.fused_qkv_rope_append.launches
+        got = ops.fused_qkv_rope_append(h, qw, sw, None, cos, sin, kp, vp,
+                                        *idx, **kw)
+        torch.cuda.synchronize()
+        assert ops.fused_qkv_rope_append.launches == n0 + 1
+        ref = ops.qkv_rope_append_reference(h, qw, sw, None, cos, sin, kp2,
+                                            vp2, *idx, **kw)
+        # held before the timed calls write the pools again
+        r = record("fused_qkv_rope_append", got, ref)
+        if main:
+            w_ = dq(qw, sw)
+            wq, wk, wv = (w_[:, :HQ * D].contiguous(),
+                          w_[:, HQ * D:(HQ + KV) * D].contiguous(),
+                          w_[:, (HQ + KV) * D:].contiguous())
+            b_, by = bound(nbytes(h, qw, sw, cos, sin, *idx, got[0])
+                           + 2 * T * KV * D * isz, 2 * T * H * N, dtype)
+            r.update(
+                bound_ms=b_, bound_by=by,
+                ms=timer.ms(lambda: ops.fused_qkv_rope_append(
+                    h, qw, sw, None, cos, sin, kp, vp, *idx, **kw)),
+                plain_ms=timer.ms(lambda: ops.qkv_rope_append_reference(
+                    h, qw, sw, None, cos, sin, kp2, vp2, *idx, **kw)),
+                split_ms=timer.ms(lambda: ops.fused_rope_append(
+                    (h @ wq).view(T, HQ, D), (h @ wk).view(T, KV, D),
+                    (h @ wv).view(T, KV, D), cos, sin, kp2, vp2, *idx)))
+            del w_, wq, wk, wv
+
+        # o-proj + residual + rms norm
+        o, x, nw = rnd(T, HQ * D), rnd(T, H), rnd(H)
+        qw, sw = quantized(HQ * D, H)
+        n0 = ops.fused_oproj_norm.launches
+        got = ops.fused_oproj_norm(o, x, qw, sw, None, nw, eps=1e-5,
+                                   algo=algo)
+        torch.cuda.synchronize()
+        assert ops.fused_oproj_norm.launches == n0 + 1
+        ref = ops.oproj_norm_reference(o, x, qw, sw, None, nw, eps=1e-5,
+                                       algo=algo)
+        r = record("fused_oproj_norm", got, ref)
+        if main:
+            wo = dq(qw, sw)
+            b_, by = bound(nbytes(o, x, qw, sw, nw) + 2 * nbytes(x),
+                           2 * T * HQ * D * H, dtype)
+            r.update(
+                bound_ms=b_, bound_by=by,
+                ms=timer.ms(lambda: ops.fused_oproj_norm(
+                    o, x, qw, sw, None, nw, eps=1e-5, algo=algo)),
+                plain_ms=timer.ms(lambda: ops.oproj_norm_reference(
+                    o, x, qw, sw, None, nw, eps=1e-5, algo=algo)),
+                split_ms=timer.ms(lambda: ops.fused_rms_norm(
+                    x + o @ wo, nw, 1e-5)))
+            del wo
+
+        # gate/up + swiglu + down + residual
+        hh = rnd(T, H)
+        ws = [quantized(H, FFN), quantized(H, FFN), quantized(FFN, H)]
+        args = [t for pair in ws for t in pair]
+        n0 = ops.fused_ffn.launches
+        got = ops.fused_ffn(hh, x, *args, algo=algo)
+        torch.cuda.synchronize()
+        assert ops.fused_ffn.launches == n0 + 1
+        ref = ops.megadecode_ffn_reference(hh, x, *args, algo=algo)
+        r = record("fused_ffn", got, ref)
+        if main:
+            wg, wu, wd = (dq(*pair) for pair in ws)
+            b_, by = bound(nbytes(hh, x, *args) + nbytes(x),
+                           3 * 2 * T * H * FFN, dtype)
+            r.update(
+                bound_ms=b_, bound_by=by,
+                ms=timer.ms(lambda: ops.fused_ffn(hh, x, *args, algo=algo)),
+                plain_ms=timer.ms(lambda: ops.megadecode_ffn_reference(
+                    hh, x, *args, algo=algo)),
+                split_ms=timer.ms(
+                    lambda: x + (silu(hh @ wg) * (hh @ wu)) @ wd))
+            del wg, wu, wd
+
+
+#: K rows that one (scale, zero) pair of torch._weight_int4pack_mm
+#: covers, and the inner k tiles of its packed layout
+INT4PACK_GROUP, INT4PACK_INNER_K_TILES = 128, 8
+
+
+def int4pack_operands(qw, sw, dtype):
+    """A packed int4 weight of this port (per-column symmetric, nibbles
+    -8..7, the even row low) as the operands of
+    torch._weight_int4pack_mm, which computes x @ ((u - 8) s_g + z_g)
+    for every group g of INT4PACK_GROUP rows from nibbles u in 0..15:
+    u = q + 8, [N, K/2] bytes with the even row in the high nibble,
+    packed once by _convert_weight_to_int4pack; (s_g, z_g) = (the
+    column's scale in `dtype`, 0) in every group. A yardstick only: the
+    port never calls it."""
+    lo, hi = (p_.to(torch.int32) + 8 for p_ in ops.int4_planes(qw))
+    b = ((lo << 4) | hi).to(torch.uint8).t().contiguous()
+    sz = torch.stack([sw.to(dtype), torch.zeros_like(sw, dtype=dtype)], -1)
+    sz = sz[None].expand(2 * qw.shape[0] // INT4PACK_GROUP, -1, -1)
+    return (torch._convert_weight_to_int4pack(b, INT4PACK_INNER_K_TILES),
+            sz.contiguous())
+
+
+def check_weight_only_linear(timer, rows):
+    """weight_only_linear, int8 and int4, bf16 and f32, against its plain
+    version at the 8B step's largest layer product (T = 132 rows x [4096
+    -> 14336]), the int4 LM head of a decode step (M = 5 x [4096 ->
+    128256]) and a ragged case (odd M, N = 1000: byte copies, a masked
+    last column tile); f32 at 2e-5, bf16 by `row_rel_errors`. In bf16
+    timed beside its plain version, its bound, `split_ms` (bf16
+    torch.matmul on the dequantized weight: what quantizing has to beat)
+    and, at the layer and head shapes, torch._weight_int8pack_mm (int8)
+    or torch._weight_int4pack_mm (int4, `int4pack_operands`) (library_ms,
+    yardsticks the port never calls, each first held to the plain version
+    within 1e-2 relative: they take bf16 scales). The row's headline
+    numbers are int4 at the layer shape (the split chain's 7 a layer);
+    every case is under "cases"."""
+    gc_ = torch.Generator(DEV).manual_seed(4)
+    shapes = {"layer": (SLOTS + CHUNK, H, FFN),
+              "head": (SLOTS + 1, H, VOCAB), "ragged": (7, H, 1000)}
+    r = rows.setdefault("weight_only_linear", {"cases": {}})
+    wol, ref_fn = ops.weight_only_linear, ops.weight_only_linear_reference
+    for algo in (INT8, INT4):
+        for shape, (M, K, N) in shapes.items():
+            qw, sw = ops.weight_quantize(torch.randn(
+                K, N, device=DEV, generator=gc_) * K ** -0.5, algo)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(M, K, device=DEV, generator=gc_).to(dtype)
+                n0 = wol.launches
+                got = wol(x, qw, sw, algo=algo)
+                torch.cuda.synchronize()
+                assert wol.launches == n0 + 1
+                want = ref_fn(x, qw, sw, algo=algo)
+                assert torch.isfinite(got).all()
+                case = {"m": M, "k": K, "n": N,
+                        "max_abs_err": max_err(got, want)}
+                key = f"{algo[12:]}/{shape}/"
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got, want, atol=2e-5,
+                                               rtol=2e-5)
+                    r["cases"][key + "f32"] = case
+                    continue
+                tensor, row = row_rel_errors(got, want)
+                assert tensor <= WOL_BF16_TENSOR_LIMIT, (key, tensor)
+                assert row <= WOL_BF16_ROW_LIMIT, (key, row)
+                wdq = ops.weight_dequantize(qw, sw, algo).to(dtype)
+                b_, by = bound(nbytes(x, qw, sw, got), 2 * M * K * N, dtype)
+                case.update(
+                    rel_err_bf16={"tensor": tensor, "row": row},
+                    bound_ms=b_, bound_by=by,
+                    ms=timer.ms(lambda: wol(x, qw, sw, algo=algo)),
+                    plain_ms=timer.ms(lambda: ref_fn(x, qw, sw, algo=algo)),
+                    split_ms=timer.ms(lambda: x @ wdq), library_ms=None)
+                del wdq
+                if shape != "ragged":
+                    if algo == INT8:
+                        w_nk, sb = qw.t().contiguous(), sw.to(dtype)
+                        lib = lambda: torch._weight_int8pack_mm(  # noqa: E731
+                            x, w_nk, sb)
+                    else:
+                        wp, sz = int4pack_operands(qw, sw, dtype)
+                        lib = lambda: torch._weight_int4pack_mm(  # noqa: E731
+                            x, wp, INT4PACK_GROUP, sz)
+                    # the yardstick computes this function, but for its
+                    # scales rounded to bf16 (~2^-9 a column)
+                    lt, _ = row_rel_errors(lib(), want)
+                    assert lt <= 1e-2, (key, "library", lt)
+                    case.update(library_ms=timer.ms(lib),
+                                library_rel_err_tensor=lt)
+                    del lib
+                r["cases"][key + "bf16"] = case
+    head = r["cases"]["int4/layer/bf16"]
+    r.update({k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "split_ms")})
+
+
 def causal_pairs(Sq: int, Sk: int) -> int:
     """(row, key) pairs a causal, bottom-right aligned mask leaves
     visible: row i sees min(Sk, i + Sk - Sq + 1) keys."""
@@ -785,12 +1091,26 @@ NO_PAGED = {"paged_decode_attention": (0, 0),
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_qkv_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_oproj_norm": (1, 0), "fused_ffn": (1, 0),
-                  "fused_rope_append": (0, 0), **NO_TRAINING, **NO_PAGED}
+                  "fused_rope_append": (0, 0), "weight_only_linear": (0, 0),
+                  **NO_TRAINING, **NO_PAGED}
 SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_qkv_rope_append": (0, 0),
                   "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0),
-                  **NO_TRAINING, **NO_PAGED}
+                  "weight_only_linear": (0, 0), **NO_TRAINING, **NO_PAGED}
+#: weight_only_linear a step under int4 weights: the LM head on the fused
+#: chain; the seven projections of every layer and the head on the split
+#: chain (int8 products are h @ (q * s), no kernel)
+INT4_WOL = {"fused": (0, 1), "split": (7, 1)}
+
+
+def per_step_counts(chain: str, quant=None) -> dict:
+    """(per layer, per step) launches of every kernel on a unified-step
+    chain ("fused" / "split") under weight_only_quant `quant`."""
+    base = FUSED_PER_STEP if chain == "fused" else SPLIT_PER_STEP
+    if quant != "int4":
+        return base
+    return dict(base, weight_only_linear=INT4_WOL[chain])
 #: the alternating path (ragged=False) under each FLAGS_paged_impl: its
 #: decode launch's paged kernel and the one it must not launch
 ALTERNATING = {"intree": ("paged_decode_attention_v2",
@@ -806,13 +1126,16 @@ def alternating_launches(steps):
             sum(1 for _, o in steps if o["decoded"] > 0))
 
 
-def expect_alternating(impl, layers, prefill, decode):
+def expect_alternating(impl, layers, prefill, decode, quant=None):
     """Every kernel's launches in an alternating-path run: 2 * layers + 1
     rms_norm a launch, `layers` of the impl's paged kernel a decode
-    launch, nothing else."""
+    launch, under int4 weights 7 * layers + 1 weight_only_linear a launch
+    (every projection and the head), nothing else."""
     want = {name: 0 for name in ops.launch_counts()}
     want["fused_rms_norm"] = (2 * layers + 1) * (prefill + decode)
     want[ALTERNATING[impl][0]] = layers * decode
+    if quant == "int4":
+        want["weight_only_linear"] = (7 * layers + 1) * (prefill + decode)
     return want
 
 
@@ -871,6 +1194,79 @@ def tiny_engine_parity():
             "decode_launches": dec,
             "launches": {k: v for k, v in want.items() if v}}
     out["generate"] = tiny_generate_parity()
+    out["quantized"] = tiny_quant_parity()
+    return out
+
+
+def tiny_quant_parity():
+    """The tiny f32 Llama with weight-only int8 and int4 weights, CPU
+    (plain versions) vs card (kernels): identical greedy tokens on the
+    fused chain, the split chain and the alternating path, each card run
+    with exactly its path's launches and no plain-version call; then
+    generate_cached (the tiny head_dim-64 model of tiny_generate_parity)
+    in both layouts: identical tokens, scores within 1e-5, int4's
+    projections and head through weight_only_linear."""
+    cfg = llama_tiny_config(num_hidden_layers=2)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    reqs = trace(np.random.RandomState(1), cfg.vocab_size, 6, 2, 12, 2, 8, 4)
+    kw = dict(max_slots=2, page_size=4, prefill_chunk=4)
+    L = cfg.num_hidden_layers
+    out = {}
+    for quant in ("int8", "int4"):
+        for chain, ckw in (("fused", {}), ("split", SPLIT),
+                           ("alternating", dict(ragged=False))):
+            qkw = dict(kw, weight_only_quant=quant, **ckw)
+            cpu_out, _, _ = drive(ServingEngine(cpu_model, device="cpu",
+                                                **qkw), reqs)
+            eng = ServingEngine(gpu_model, device=DEV, **qkw)
+            ops.reset_counts()
+            gpu_out, _, steps = drive(eng, reqs)
+            counts = ops.launch_counts()
+            assert set(cpu_out) == set(gpu_out) == set(range(len(reqs)))
+            for rid in cpu_out:
+                np.testing.assert_array_equal(gpu_out[rid], cpu_out[rid])
+            if chain == "alternating":
+                want = expect_alternating("intree", L,
+                                          *alternating_launches(steps),
+                                          quant)
+            else:
+                want = {k: (a * L + b) * eng.launches for k, (a, b)
+                        in per_step_counts(chain, quant).items()}
+            for name, c in counts.items():
+                assert c == {"launches": want[name], "plain_calls": 0}, \
+                    (quant, chain, name, c, want[name])
+            out[f"{quant}/{chain}"] = {
+                "tokens": int(sum(len(v) for v in cpu_out.values())),
+                "identical": True,
+                "launches": {k: v for k, v in want.items() if v}}
+    cfg = llama_tiny_config(**TINY_TRAIN)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 7))
+    new, L = 6, cfg.num_hidden_layers
+    for quant in ("int8", "int4"):
+        kw = dict(max_new_tokens=new, decode_strategy="greedy_search",
+                  weight_only_quant=quant)
+        cpu_tok, cpu_sc = generation.generate_cached(cpu_model, ids, **kw)
+        ops.reset_counts()
+        gpu_tok, gpu_sc = generation.generate_cached(gpu_model, ids, **kw)
+        counts = ops.launch_counts()
+        np.testing.assert_array_equal(gpu_tok.cpu().numpy(),
+                                      cpu_tok.numpy())
+        dist = float((gpu_sc.cpu() - cpu_sc).abs().max())
+        assert dist <= 1e-5, (quant, dist)
+        # one prefill and new - 1 decode calls of the cached step
+        wol = (7 * L + 1) * new if quant == "int4" else 0
+        for name, c in counts.items():
+            want = {"flash_sdpa": L, "weight_only_linear": wol}.get(name, 0)
+            assert c == {"launches": want, "plain_calls": 0}, \
+                (quant, name, c)
+        out[f"{quant}/generate_cached"] = {
+            "tokens": cpu_tok.numpy().tolist(), "score_max_abs_diff": dist,
+            "weight_only_linear_launches": wol}
     return out
 
 
@@ -905,29 +1301,47 @@ def tiny_generate_parity():
     return out
 
 
-def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree"):
+def read_bytes(w) -> int:
+    """Bytes of an engine's weight tree that one decode step reads: every
+    layer tensor, the final norm and the LM head in its layout (not the
+    embedding, of which a step gathers a few rows, nor the rope tables)."""
+    return (sum(nbytes(t) for L in w["layers"] for t in L.values())
+            + nbytes(w["norm"])
+            + sum(nbytes(t) for k, t in w.items()
+                  if k.startswith("head") and t is not None))
+
+
+def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree",
+             quant=None):
     """Serve the seeded 8B trace through one chain of ServingEngine's
     unified step ("fused", "split") or through the alternating path
     ("alternating", ragged=False, with FLAGS_paged_impl `impl` pinned:
-    the v2 paged kernel under "intree", v1 under "intree_v1"); every
-    kernel's launches must be that path's per launch, with no
-    plain-version call (and, alternating, no other paged route)."""
+    the v2 paged kernel under "intree", v1 under "intree_v1"), with the
+    model's weights or, `quant` "int8" / "int4", their weight-only layout
+    quantized on the card as the engine is built; every kernel's launches
+    must be that path's per launch, with no plain-version call (and,
+    alternating, no other paged route)."""
     cfg = model.config
     layers = cfg.num_hidden_layers
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     alt = chain == "alternating"
     kw = {"split": SPLIT, "alternating": dict(ragged=False)}.get(chain, {})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with flags_guard(paged_impl=impl):
         eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
                             prefill_chunk=CHUNK, max_context=MAX_CTX,
-                            device=DEV, **kw)
+                            device=DEV, weight_only_quant=quant, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     assert eng.megafront == eng.megadecode == (chain == "fused")
     assert eng.ragged == (not alt)
     assert eng.paged_impl == (impl if alt else None)
     pool_bytes = sum(nbytes(k, v) for k, v in eng._pools)
-    slab_bytes = sum(nbytes(L["wqkv"]) for L in eng._p["layers"]
-                     if "wqkv" in L)
+    slab_bytes = sum(nbytes(t) for L in eng._p["layers"]
+                     for k, t in L.items() if k.startswith("wqkv"))
+    tree_bytes = read_bytes(eng._w)
     rng = np.random.RandomState(0)
     # warm-up (cuBLAS handles, allocator): one short request, then the
     # counts start at 0 for the measured run
@@ -974,7 +1388,7 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree"):
     if alt:
         pre, dec = alternating_launches(steps)
         assert n_steps == pre + dec, (n_steps, pre, dec)
-        expect = expect_alternating(impl, layers, pre, dec)
+        expect = expect_alternating(impl, layers, pre, dec, quant)
         assert paged_routes.route_counts == dict(
             {k: 0 for k in paged_routes.route_counts},
             **{"paged_" + impl: layers * dec}), paged_routes.route_counts
@@ -982,7 +1396,7 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree"):
                                  "fused_rms_norm": 2 * layers + 1},
                       "prefill": {"fused_rms_norm": 2 * layers + 1}}
     else:
-        per_step = FUSED_PER_STEP if chain == "fused" else SPLIT_PER_STEP
+        per_step = per_step_counts(chain, quant)
         expect = {name: (a * layers + b) * n_steps
                   for name, (a, b) in per_step.items()}
         per_launch = {k: v // n_steps for k, v in expect.items()}
@@ -997,7 +1411,8 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree"):
     gen = sum(len(h[0].tokens) for h in handles.values())
     ttft = sorted(first_tok.values())
     res = {
-        "chain": chain, "layers": layers,
+        "chain": chain, "layers": layers, "weight_only_quant": quant,
+        "engine_build_s": build_s,
         "requests": len(reqs), "launches": n_steps, "steps": len(steps),
         "generated_tokens": gen,
         "prompt_tokens": int(sum(p.size for p, _, _ in reqs)),
@@ -1009,6 +1424,8 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree"):
         "weight_bytes": weight_bytes, "qkv_slab_bytes": slab_bytes,
         "page_pool_bytes": pool_bytes,
         "decode_step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "weight_read_bytes": tree_bytes,
+        "weight_read_ms": tree_bytes / HBM_BYTES_PER_S * 1e3,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launches_per_step" if not alt else "launches_per_launch":
             per_launch,
@@ -1259,7 +1676,11 @@ SOURCES = {
     "paged_decode_attention_v2": ("paddle_tpu_torch/ops/csrc/"
                                   "paged_attention.cu",
                                   "paddle_tpu/ops/pallas_paged.py:201"),
+    "weight_only_linear": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+                           "paddle_tpu/ops/quant.py:227"),
 }
+#: the megakernels' quantized sites, reported inside their rows
+QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
 
 
 def main() -> int:
@@ -1317,6 +1738,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("7 llama3-8b generate_cached", card=card["nvidia_smi"],
          **generate_cached_8b(model))
+    torch.cuda.empty_cache()
+    # weight-only quantized serving of the same model and trace: the
+    # engine quantizes the tree on the card (quantize_s), each run's
+    # counts read alone, each engine freed before the next
+    quant_launches, quant_out = {}, {}
+    for tag, quant, chain in (("7a", "int8", "fused"), ("7b", "int4", "fused"),
+                              ("7c", "int4", "split")):
+        launches: dict = {}
+        q_out, res = serve_8b(model, chain, launches, quant=quant)
+        key = f"{quant} {chain}"
+        quant_launches[key], quant_out[key] = launches, q_out
+        shares = {"identical_token_share_vs_fused":
+                  same_share(fused_out, q_out)}
+        if key == "int4 split":      # the same int4 weights on both chains
+            shares["identical_token_share_vs_int4_fused"] = same_share(
+                quant_out["int4 fused"], q_out)
+        emit(f"{tag} llama3-8b serving, {quant} weights, {chain} chain",
+             card=card["nvidia_smi"], quantize_s=res.pop("engine_build_s"),
+             **shares, **res)
+        gc.collect()
+        torch.cuda.empty_cache()
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1329,17 +1771,33 @@ def main() -> int:
     paths = (("fused", fused_launches), ("split", split_launches),
              ("alternating", alt_launches),
              ("alternating, intree_v1", v1_launches),
-             ("train", train_launches))
+             ("train", train_launches),
+             ("int4 split", quant_launches["int4 split"]))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         path, launches = next((p, c[name]) for p, c in paths if name in c)
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, "path": path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "split_ms": r.get("split_ms")})
+            "split_ms": r.get("split_ms")}
+        if name in QUANT_SITES:
+            for q in ("int8", "int4"):
+                row[q] = dict(
+                    {k: r[q][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "split_ms", "rel_err_bf16")},
+                    launches=quant_launches[f"{q} fused"][name])
+        if name == "weight_only_linear":
+            row["cases"] = {k: {f: v[f] for f in ("ms", "bound_ms",
+                                                  "bound_by", "split_ms",
+                                                  "library_ms",
+                                                  "rel_err_bf16")}
+                            for k, v in r["cases"].items()
+                            if k.endswith("bf16")}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -116,8 +116,10 @@ def plant(name: str, root: Path, faults=FAULTS, kernel: str = KERNEL,
                  "tests/test_torch_flash.py")) -> Path:
     """A copy of what the readings run (the package without its build,
     and `files`: the card scripts and tests) under root/name, with fault
-    `name` of `faults` planted in the kernel source `kernel`."""
-    _, old, new, which = faults[name]
+    `name` of `faults` planted in the kernel source `kernel`: each
+    (text, replacement, occurrence) triple after the fault's description
+    is one substitution, made in order."""
+    _, *edits = faults[name]
     dst = root / name
     if dst.exists():
         shutil.rmtree(dst)
@@ -128,10 +130,12 @@ def plant(name: str, root: Path, faults=FAULTS, kernel: str = KERNEL,
         shutil.copy2(HERE / f, dst / f)
     src = dst / kernel
     text = src.read_text()
-    parts = text.split(old)
-    if len(parts) < which + 2:
-        raise RuntimeError(f"fault {name}: text not found in {kernel}")
-    text = old.join(parts[:which + 1]) + new + old.join(parts[which + 1:])
+    for i in range(0, len(edits), 3):
+        old, new, which = edits[i:i + 3]
+        parts = text.split(old)
+        if len(parts) < which + 2:
+            raise RuntimeError(f"fault {name}: text not found in {kernel}")
+        text = old.join(parts[:which + 1]) + new + old.join(parts[which + 1:])
     src.write_text(text)
     return dst
 

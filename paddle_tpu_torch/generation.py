@@ -13,12 +13,16 @@ Ported:
   step's K/V rows are written into preallocated [B, total, KV, D] caches
   IN PLACE (the JAX body returned updated copies) and attention is the
   dense masked einsum over the cache, in the JAX body's op order.
-- `_decode_params`, `_llama_decode_params` (fp layout), `_llama_weights`,
-  `_mm_w` (fp branch), `_ffn_apply` (dense SwiGLU): the weight tree the
-  serving engine reads too. The weight-only int8/int4 layouts raise
-  naming ROADMAP.md queue A item 4; the gpt, MoE and MLA families raise
-  naming item 5. `generate_compiled` and the beam searches are not
-  ported yet (queue A item 3).
+- `_decode_params`, `_llama_decode_params`, `_llama_weights`, `_mm_w`,
+  `_dq`, `_ffn_apply` (dense SwiGLU): the weight tree the serving engine
+  reads too, in the fp layout or, with ``weight_only_int8=True`` /
+  ``weight_only_quant="int8"|"int4"``, the JAX package's weight-only
+  deploy layouts byte for byte (`_woq_algo`, `_q8`): every 2-D matmul
+  weight of the layers and the LM head as ``key_q`` (int8 [K, N]) or
+  ``key_q4`` (packed int4 [K/2, N]) beside its f32 scale ``key_s``. The
+  gpt, MoE and MLA families (and their 3-D expert stacks and 2-D int4
+  whole reads) raise naming item 5. `generate_compiled` and the beam
+  searches are not ported yet (queue A item 3).
 
 PyTorch idiom: an eager Python loop, no jit. Inputs move to the model's
 device, so the model decides where the call runs (a model built with
@@ -207,15 +211,75 @@ def generate(model, input_ids, max_new_tokens: int = 20,
 # ---------------------------------------------------------------------------
 # the decode weight tree
 # ---------------------------------------------------------------------------
+def _woq_algo(weight_only_int8, weight_only_quant):
+    """Normalize the two public quant knobs to (algo, enabled)."""
+    if weight_only_quant not in (None, "int8", "int4"):
+        raise ValueError(
+            f"weight_only_quant {weight_only_quant!r}: expected "
+            "'int8' or 'int4'")
+    if weight_only_quant:
+        if weight_only_int8 and weight_only_quant != "int8":
+            raise ValueError(
+                "conflicting quant knobs: weight_only_int8=True with "
+                f"weight_only_quant={weight_only_quant!r} — drop the "
+                "bool or make them agree")
+        return "weight_only_" + weight_only_quant, True
+    return "weight_only_int8", bool(weight_only_int8)
+
+
+#: the stored name of a weight leaf in each weight-only layout: key_q
+#: (int8 [K, N]) or key_q4 (packed int4 [K/2, N]), beside its f32 scale
+#: key_s [N]; an fp leaf is key itself
+_SUFFIX = {"weight_only_int8": "_q", "weight_only_int4": "_q4"}
+
+
+def _walgo(d, key):
+    """The layout of weight leaf `key` of `d`: 'weight_only_int4',
+    'weight_only_int8' or None (fp)."""
+    for algo, suffix in _SUFFIX.items():
+        if key + suffix in d:
+            return algo
+    return None
+
+
+def _wq2(d, key):
+    """(payload, scale) of weight leaf `key` of `d` in any layout, as the
+    megakernels read it (fp: scale None)."""
+    algo = _walgo(d, key)
+    if algo is None:
+        return d[key], None
+    return d[key + _SUFFIX[algo]], d[key + "_s"]
+
+
+def _q8(d, key, enabled: bool = True, algo: str = "weight_only_int8"):
+    """Quantize d[key] in place to (int8 or packed-int4 values,
+    per-out-channel f32 scale), the weight-only deploy transform: int8
+    stores key_q [K, N], int4 key_q4 [K/2, N], both key_s [N]. None
+    entries and disabled calls are no-ops."""
+    if not enabled or d.get(key) is None:
+        return
+    from .ops.quant import weight_quantize
+    w = d.pop(key)
+    if w.ndim != 2:
+        raise NotImplementedError(
+            "quantized expert stacks (the MoE family) are not ported yet "
+            "(ROADMAP.md queue A item 5)")
+    qw, sc = weight_quantize(w, algo)
+    d[key + _SUFFIX[algo]] = qw
+    d[key + "_s"] = sc.float()
+
+
 def _llama_decode_params(model, weight_only_int8: bool = False,
                          weight_only_quant=None):
     """The cached-decode weight tree of a LlamaForCausalLM: plain tensors
     (detached views of the parameters, no copies) keyed like the JAX
-    package's tree, plus the config and the f32 rope tables."""
-    if weight_only_int8 or weight_only_quant:
-        raise NotImplementedError(
-            "weight-only int8/int4 layouts are not ported yet (ROADMAP.md "
-            "queue A item 4)")
+    package's tree, plus the config and the f32 rope tables.
+
+    ``weight_only_int8`` / ``weight_only_quant`` ('int8' or 'int4')
+    quantize every 2-D matmul weight of the layers, and the LM head
+    (whose fp entry then reads None), into the deploy layout
+    (``_q8``): new tensors where the model's device is."""
+    algo, enabled = _woq_algo(weight_only_int8, weight_only_quant)
     cfg = model.config
     inner = getattr(model, "llama", None)
     if inner is None:
@@ -225,19 +289,26 @@ def _llama_decode_params(model, weight_only_int8: bool = False,
     layers = []
     for lyr in inner.layers:
         a, m = lyr.self_attn, lyr.mlp
-        layers.append(dict(
+        d = dict(
             ln1=lyr.input_layernorm.weight.detach(),
             wq=a.q_proj.weight.detach(), wk=a.k_proj.weight.detach(),
             wv=a.v_proj.weight.detach(), wo=a.o_proj.weight.detach(),
             ln2=lyr.post_attention_layernorm.weight.detach(),
             wg=m.gate_proj.weight.detach(), wu=m.up_proj.weight.detach(),
-            wd=m.down_proj.weight.detach()))
+            wd=m.down_proj.weight.detach())
+        for k in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+            _q8(d, k, enabled, algo)
+        layers.append(d)
     head = model.lm_head.weight.detach() if model.lm_head is not None \
         else None
-    return dict(cfg=cfg, family="llama",
-                embed=inner.embed_tokens.weight.detach(),
-                layers=layers, norm=inner.norm.weight.detach(), head=head,
-                cos=inner.rope_cos, sin=inner.rope_sin)
+    p = dict(cfg=cfg, family="llama",
+             embed=inner.embed_tokens.weight.detach(),
+             layers=layers, norm=inner.norm.weight.detach(), head=head,
+             cos=inner.rope_cos, sin=inner.rope_sin)
+    if enabled and head is not None:
+        _q8(p, "head", True, algo)
+        p["head"] = None
+    return p
 
 
 def _decode_params(model, weight_only_int8: bool = False,
@@ -257,11 +328,47 @@ def _llama_weights(p):
     return {k: v for k, v in p.items() if k not in ("cfg", "family")}
 
 
+def _dq(d, key, dtype):
+    """A stored weight read WHOLE in `dtype`: fp as it is, int8 as the
+    JAX package's ``q.astype(dtype) * s.astype(dtype)`` (which XLA fuses
+    into the consuming matmul), here one elementwise pass ``q * s`` that
+    converts the int8 operand exactly on the fly and writes the [K, N]
+    weight in `dtype`. A 2-D packed-int4 whole read (the MLA absorbed
+    kv_b, through ``int4_dequantize``) and the 3-D expert stacks are the
+    MLA / MoE families' (ROADMAP.md queue A item 5)."""
+    algo = _walgo(d, key)
+    if algo == "weight_only_int4":
+        raise NotImplementedError(
+            "a packed-int4 weight read whole (int4_dequantize, the MLA "
+            "family) is not ported yet (ROADMAP.md queue A item 5)")
+    if algo == "weight_only_int8":
+        q, s = d[key + "_q"], d[key + "_s"].to(dtype)
+        if q.ndim != 2:
+            raise NotImplementedError(
+                "quantized expert stacks (the MoE family) are not ported "
+                "yet (ROADMAP.md queue A item 5)")
+        return q * s
+    return d[key]
+
+
 def _mm_w(h, L, key):
-    """h @ the stored weight ``L[key]``: the one place the decode
-    matmuls go through (the fp layout; the quantized layouts of queue A
-    item 4 extend it)."""
-    return h @ L[key]
+    """h @ the stored weight ``L[key]``, the one place every layout's
+    decode matmul goes through: packed int4 through
+    ``ops.quant.weight_only_linear`` (the kernel reads the packed bytes);
+    fp and int8 as ``h @ _dq(...)``, a torch.matmul as the JAX package
+    leaves it to XLA."""
+    if _walgo(L, key) == "weight_only_int4":
+        from .ops.quant import weight_only_linear
+        return weight_only_linear(h, *_wq2(L, key), algo="weight_only_int4")
+    return h @ _dq(L, key, h.dtype)
+
+
+def _head(last, w):
+    """The LM head's logits of the last rows: the quantized head through
+    `_mm_w`, else the fp head, else the tied embedding."""
+    if _walgo(w, "head"):
+        return _mm_w(last, w, "head")
+    return last @ (w["head"] if w["head"] is not None else w["embed"].T)
 
 
 def _ffn_apply(L, h2):
@@ -332,9 +439,7 @@ def _llama_cached_step_body(cfg, max_len: int):
             h2 = rms(x, L["ln2"])
             x = x + _ffn_apply(L, h2)
         x = rms(x, w["norm"])
-        last = x[:, -1]
-        return last @ (w["head"] if w["head"] is not None
-                       else w["embed"].T), caches
+        return _head(x[:, -1], w), caches
 
     return step
 

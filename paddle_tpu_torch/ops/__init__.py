@@ -20,6 +20,8 @@ from .paged import (default_pages_per_group, paged_decode_attention,
 # the router `paged_attention` stays in its module: exported here, the
 # function would shadow the submodule ``ops.paged_attention``
 from .paged_attention import append_to_cache, paged_attention_reference
+from .quant import (int4_planes, weight_dequantize, weight_only_linear,
+                    weight_only_linear_reference, weight_quantize)
 from .ragged import ragged_attention_reference, ragged_paged_attention
 
 __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
@@ -33,7 +35,9 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
            "paged_decode_attention", "paged_decode_attention_v2",
            "paged_decode_reference", "paged_decode_v2_reference",
            "paged_kernel_eligible", "default_pages_per_group",
-           "paged_attention_reference", "append_to_cache", "oracles",
+           "paged_attention_reference", "append_to_cache",
+           "weight_quantize", "weight_dequantize", "int4_planes",
+           "weight_only_linear", "weight_only_linear_reference", "oracles",
            "launch_counts", "reset_counts"]
 
 

@@ -36,6 +36,7 @@ import torch
 
 __all__ = ["library", "kernel", "check", "dtype_code", "stream",
            "require_cuda", "require_aligned", "index32", "ptr", "split_k",
+           "weight_layout",
            "build_seconds", "build_log", "CSRC", "BUILD_ROOT", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -208,6 +209,24 @@ def split_k(M: int, N: int, K: int, t: torch.Tensor) -> Tuple[int, int]:
     check("ptt_mega_split_k", fn(M, N, K, dtype_code(t), t.device.index or 0,
                                  ctypes.addressof(out)))
     return out[0], out[1]
+
+
+def weight_layout(name: str, algo: Optional[str], w: torch.Tensor, scale,
+                  n: int, dtype: torch.dtype, device: torch.device):
+    """Check a weight against its deploy layout (`algo` None: the
+    activation's dtype; 'weight_only_int8' / 'weight_only_int4': int8
+    with an [n] scale) and return the scale as contiguous f32 on
+    `device`, or None for an fp weight."""
+    if algo is None:
+        if w.dtype != dtype:
+            raise TypeError(f"{name}: an fp weight takes the activation's "
+                            f"dtype {dtype}, got {w.dtype}")
+        return None
+    if w.dtype != torch.int8:
+        raise TypeError(f"{name}: a {algo} weight is int8, got {w.dtype}")
+    if scale is None or scale.numel() != n:
+        raise ValueError(f"{name}: a {algo} weight takes an [{n}] scale")
+    return scale.reshape(n).to(device, torch.float32).contiguous()
 
 
 def index32(name: str, t: torch.Tensor, device: torch.device):

@@ -1,6 +1,6 @@
 """o-proj -> residual -> rms norm, and the whole SwiGLU FFN, one wrapper
-call each (counterpart of paddle_tpu/ops/pallas_megadecode.py, fp
-layout).
+call each (counterpart of paddle_tpu/ops/pallas_megadecode.py: the fp,
+int8 and packed-int4 weight sites).
 
 ``fused_oproj_norm`` and ``fused_ffn`` launch the hand-written CUDA
 kernels of ``csrc/megakernels.cu`` on CUDA tensors and run their plain
@@ -14,8 +14,8 @@ three (gate/up GEMM with the swiglu epilogue, split-K down GEMM, then
 the residual add). The wrappers allocate the workspaces and pick the
 split of K (``_build.split_k``).
 
-The int8 / packed-int4 weight sites are ROADMAP.md queue A item 4; layer
-norm and gelu (the gpt family) are item 5; both raise.
+Layer norm and gelu (the gpt family) are ROADMAP.md queue A item 5 and
+raise.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 
 from . import _build
 from .oracles import register_oracle
+from .quant import INT4, WFMT, check_algo, dequant_matmul_f32
 
 __all__ = ["fused_oproj_norm", "oproj_norm_reference", "fused_ffn",
            "megadecode_ffn_reference", "megadecode_eligible"]
@@ -35,10 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _refuse(name, algo, kind=None, what=None) -> None:
-    if algo is not None:
-        raise NotImplementedError(
-            f"{name}: the {algo} weight site is not ported yet (ROADMAP.md "
-            f"queue A item 4)")
+    check_algo(algo)
     if kind is not None:
         raise NotImplementedError(
             f"{name}: {what} {kind!r} (the gpt family) is not ported yet "
@@ -57,15 +55,16 @@ def _f32(t, n: int, dev):
 def oproj_norm_reference(o, x, w, scale=None, bias=None, norm_weight=None,
                          norm_bias=None, *, eps: float = 1e-6,
                          norm: str = "rms", algo: Optional[str] = None):
-    """Plain version: f32 o-proj (+ bias) + residual, rms norm of the f32
-    sum; returns (x_new, h) in x's dtype."""
+    """Plain version: f32 o-proj (+ bias; the JAX kernels' op order for
+    int8 / int4 weights) + residual, rms norm of the f32 sum; returns
+    (x_new, h) in x's dtype."""
     _refuse("fused_oproj_norm", algo, None if norm == "rms" else norm,
             "norm")
     shape = x.shape
     H = shape[-1]
     x2 = x.reshape(-1, H).float()
-    o2 = o.reshape(x2.shape[0], -1).float()
-    p = o2 @ w.float()
+    o2 = o.reshape(x2.shape[0], -1)
+    p = dequant_matmul_f32(o2, w, scale, algo)
     if bias is not None:
         p = p + bias.reshape(1, H).float()
     xn = x2 + p
@@ -84,17 +83,19 @@ def fused_oproj_norm(o, x, w, scale=None, bias=None, norm_weight=None,
     """o-proj -> (+bias) -> residual add -> rms norm.
 
     ``o`` [..., Ko] is the attention output, ``x`` [..., H] the residual
-    stream, ``w`` the fp o-proj weight [Ko, H] (``scale`` ignored, as in
-    the JAX package); bias / norm_weight / norm_bias [H] or None.
-    Returns ``(x_new, h)``, both shaped like ``x``: the post-residual
-    stream and its normed copy (the FFN input), the norm taken on the
-    f32 sum, not on the rounded x_new."""
+    stream, ``w`` / ``scale`` the o-proj weight in any deploy layout: fp
+    [Ko, H] (``algo`` None, ``scale`` ignored, as in the JAX package),
+    int8 [Ko, H] + f32 scale [H] ('weight_only_int8') or packed int4
+    [Ko/2, H] + scale [H] ('weight_only_int4'); bias / norm_weight /
+    norm_bias [H] or None. Returns ``(x_new, h)``, both shaped like
+    ``x``: the post-residual stream and its normed copy (the FFN input),
+    the norm taken on the f32 sum, not on the rounded x_new."""
     name = "fused_oproj_norm"
     _refuse(name, algo, None if norm == "rms" else norm, "norm")
     if x.device.type == "cpu":
         fused_oproj_norm.plain_calls += 1
         return oproj_norm_reference(o, x, w, scale, bias, norm_weight,
-                                    norm_bias, eps=eps)
+                                    norm_bias, eps=eps, algo=algo)
     shape = x.shape
     H = shape[-1]
     x2 = x.reshape(-1, H)
@@ -102,28 +103,29 @@ def fused_oproj_norm(o, x, w, scale=None, bias=None, norm_weight=None,
     o2 = o.reshape(T, -1)
     Ko = o2.shape[1]
     dev = _build.require_cuda(name, o2, x2, w)
-    if w.shape != (Ko, H):
+    if w.shape != (Ko // 2 if algo == INT4 else Ko, H):
         raise ValueError(f"{name}: o {tuple(o.shape)}, x {tuple(shape)}, "
-                         f"w {tuple(w.shape)}")
+                         f"{algo or 'fp'} w {tuple(w.shape)}")
     if not megadecode_eligible(H, 8, Ko, dtype_bytes=x.element_size()):
         raise ValueError(f"{name}: the kernel takes Ko and H multiples of "
                          f"8; got Ko {Ko}, H {H}")
-    if len({o.dtype, x.dtype, w.dtype}) != 1:
-        raise TypeError(f"{name}: o, x and w share one dtype")
+    if o.dtype != x.dtype:
+        raise TypeError(f"{name}: o and x share one dtype")
+    # f32 copies held until the launch is enqueued (a temporary freed
+    # earlier would hand its memory to the next one)
+    s = _build.weight_layout(name, algo, w, scale, H, x.dtype, dev)
     _build.require_aligned(name, o2, w)
     per, splits = _build.split_k(T, H, Ko, x)
     partial = torch.empty(splits, T, H, dtype=torch.float32, device=dev)
     x_new, h = torch.empty_like(x2), torch.empty_like(x2)
-    # f32 copies held until the launch is enqueued (a temporary freed
-    # earlier would hand its memory to the next one)
     b, nw, nb = (_f32(v, H, dev) for v in (bias, norm_weight, norm_bias))
     fn = _build.kernel("ptt_oproj_norm",
-                       [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P])
-    err = fn(o2.data_ptr(), x2.data_ptr(), w.data_ptr(), _build.ptr(b),
-             _build.ptr(nw), _build.ptr(nb), partial.data_ptr(),
-             x_new.data_ptr(), h.data_ptr(), T, Ko, H, per, splits,
-             float(eps), _build.dtype_code(x), dev.index or 0,
-             _build.stream(x))
+                       [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _P])
+    err = fn(o2.data_ptr(), x2.data_ptr(), w.data_ptr(), _build.ptr(s),
+             _build.ptr(b), _build.ptr(nw), _build.ptr(nb),
+             partial.data_ptr(), x_new.data_ptr(), h.data_ptr(), T, Ko, H,
+             per, splits, float(eps), WFMT[algo], _build.dtype_code(x),
+             dev.index or 0, _build.stream(x))
     _build.check(name, err)
     fused_oproj_norm.launches += 1
     return x_new.reshape(shape), h.reshape(shape)
@@ -137,32 +139,26 @@ fused_oproj_norm.plain_calls = 0
 # gate/up + swiglu + down + residual
 # ---------------------------------------------------------------------------
 
-def _fp_only(sg, su, sd) -> None:
-    if sg is not None or su is not None or sd is not None:
-        raise NotImplementedError(
-            "fused_ffn: per-channel weight scales ride the int8/int4 "
-            "layouts, not ported yet (ROADMAP.md queue A item 4)")
-
-
 def megadecode_ffn_reference(h, x, wg, sg=None, wu=None, su=None, wd=None,
                              sd=None, b1=None, b2=None, *,
                              act: str = "swiglu",
                              algo: Optional[str] = None):
     """Plain version: gate/up, g * sigmoid(g) * u, down and the residual,
-    all in f32; returns x's dtype and shape."""
+    all in f32 (the JAX kernels' op order for int8 / int4 weights: int4
+    splits h, and the activation before the down product, into even and
+    odd columns); returns x's dtype and shape."""
     _refuse("fused_ffn", algo, None if act == "swiglu" else act,
             "activation")
-    _fp_only(sg, su, sd)
     shape = x.shape
     H = shape[-1]
     x2 = x.reshape(-1, H).float()
-    h2 = h.reshape(-1, H).float()
-    g = h2 @ wg.float()
+    h2 = h.reshape(-1, H)
+    g = dequant_matmul_f32(h2, wg, sg, algo)
     if b1 is not None:
         g = g + b1.reshape(1, -1).float()
-    u = h2 @ wu.float()
+    u = dequant_matmul_f32(h2, wu, su, algo)
     t = g * torch.sigmoid(g) * u
-    d = t @ wd.float()
+    d = dequant_matmul_f32(t, wd, sd, algo)
     if b2 is not None:
         d = d + b2.reshape(1, H).float()
     return (x2 + d).to(x.dtype).reshape(shape)
@@ -174,16 +170,18 @@ def fused_ffn(h, x, wg, sg=None, wu=None, su=None, wd=None, sd=None,
     """Gate/up matmul -> swiglu -> down-proj -> residual add.
 
     ``h`` [..., H] is the normed FFN input (fused_oproj_norm's second
-    output), ``x`` [..., H] the residual stream (its first); fp weights
-    wg/wu [H, I], wd [I, H]; b1 [I] / b2 [H] or None. Returns
-    x + down(silu(h @ wg + b1) * (h @ wu)) + b2, shaped like ``x``."""
+    output), ``x`` [..., H] the residual stream (its first); weights in
+    any deploy layout as in :func:`fused_oproj_norm`: fp wg/wu [H, I],
+    wd [I, H] (scales ignored); int8 the same shapes + f32 scales sg/su
+    [I], sd [H]; packed int4 wg/wu [H/2, I], wd [I/2, H] + the scales;
+    b1 [I] / b2 [H] or None. Returns x + down(silu(h @ wg + b1) * (h @
+    wu)) + b2, shaped like ``x``."""
     name = "fused_ffn"
     _refuse(name, algo, None if act == "swiglu" else act, "activation")
-    _fp_only(sg, su, sd)
     if x.device.type == "cpu":
         fused_ffn.plain_calls += 1
-        return megadecode_ffn_reference(h, x, wg, None, wu, None, wd, None,
-                                        b1, b2)
+        return megadecode_ffn_reference(h, x, wg, sg, wu, su, wd, sd, b1,
+                                        b2, algo=algo)
     shape = x.shape
     H = shape[-1]
     x2 = x.reshape(-1, H)
@@ -191,27 +189,33 @@ def fused_ffn(h, x, wg, sg=None, wu=None, su=None, wd=None, sd=None,
     T = x2.shape[0]
     I = wg.shape[-1]
     dev = _build.require_cuda(name, h2, x2, wg, wu, wd)
-    if (h2.shape != x2.shape or wg.shape != (H, I) or wu.shape != (H, I)
-            or wd.shape != (I, H)):
+    pack = 2 if algo == INT4 else 1
+    if (h2.shape != x2.shape or wg.shape != (H // pack, I)
+            or wu.shape != wg.shape or wd.shape != (I // pack, H)):
         raise ValueError(f"{name}: h {tuple(h.shape)}, x {tuple(shape)}, "
-                         f"wg {tuple(wg.shape)}, wu {tuple(wu.shape)}, "
-                         f"wd {tuple(wd.shape)}")
+                         f"{algo or 'fp'} wg {tuple(wg.shape)}, wu "
+                         f"{tuple(wu.shape)}, wd {tuple(wd.shape)}")
     if not megadecode_eligible(H, I, 8, dtype_bytes=x.element_size()):
         raise ValueError(f"{name}: the kernel takes H and I multiples of "
                          f"8; got H {H}, I {I}")
-    if len({h.dtype, x.dtype, wg.dtype, wu.dtype, wd.dtype}) != 1:
-        raise TypeError(f"{name}: h, x and the weights share one dtype")
+    if h.dtype != x.dtype:
+        raise TypeError(f"{name}: h and x share one dtype")
+    fsg, fsu = (_build.weight_layout(name, algo, w_, s_, I, x.dtype, dev)
+                for w_, s_ in ((wg, sg), (wu, su)))
+    fsd = _build.weight_layout(name, algo, wd, sd, H, x.dtype, dev)
     _build.require_aligned(name, h2, wg, wu, wd)
     work = torch.empty(T, I, dtype=x.dtype, device=dev)   # swiglu(h)
     per, splits = _build.split_k(T, H, I, x)
     partial = torch.empty(splits, T, H, dtype=torch.float32, device=dev)
     out = torch.empty_like(x2)
     fb1, fb2 = _f32(b1, I, dev), _f32(b2, H, dev)
-    fn = _build.kernel("ptt_ffn", [_P] * 10 + [_I] * 7 + [_P])
+    fn = _build.kernel("ptt_ffn", [_P] * 13 + [_I] * 8 + [_P])
     err = fn(h2.data_ptr(), x2.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-             wd.data_ptr(), _build.ptr(fb1), _build.ptr(fb2), work.data_ptr(),
-             partial.data_ptr(), out.data_ptr(), T, H, I, per, splits,
-             _build.dtype_code(x), dev.index or 0, _build.stream(x))
+             wd.data_ptr(), _build.ptr(fsg), _build.ptr(fsu),
+             _build.ptr(fsd), _build.ptr(fb1), _build.ptr(fb2),
+             work.data_ptr(), partial.data_ptr(), out.data_ptr(), T, H, I,
+             per, splits, WFMT[algo], _build.dtype_code(x), dev.index or 0,
+             _build.stream(x))
     _build.check(name, err)
     fused_ffn.launches += 1
     return out.reshape(shape)
@@ -222,20 +226,22 @@ fused_ffn.plain_calls = 0
 
 
 def megadecode_eligible(hidden: int, intermediate: int, o_width: int, *,
-                        int4: bool = False, dtype_bytes: int = 2,
-                        device=None) -> bool:
+                        dtype_bytes: int = 2, device=None) -> bool:
     """True when the kernels take this geometry (the engine's gate for
     the fused back half, a pure function of shapes). On the CPU the
     plain versions take any geometry: True. On the card, from what the
-    kernels need: 16-byte copies of every operand row (hidden,
-    intermediate and o_width multiples of 8, which covers bf16 and f32)
-    and an fp weight of 2 or 4 bytes (packed int4 is queue A item 4). No
-    size limit: the weights stream through shared memory and the
-    activation goes through a workspace (the TPU's VMEM rule does not
-    apply)."""
+    kernels need: 16-byte copies of every activation row and 4-column
+    epilogue stores of whole 8-column groups (hidden, intermediate and
+    o_width multiples of 8, which covers bf16 and f32 and makes every
+    packed int4 contraction even) and an activation of 2 or 4 bytes.
+    int8 and int4 weight rows take 16-byte copies where their width is a
+    multiple of 16, byte copies else (right, slower), so the weight
+    layout adds no rule. No size limit: the weights stream through
+    shared memory and the activation goes through a workspace (the TPU's
+    VMEM rule does not apply)."""
     if device is not None and torch.device(device).type == "cpu":
         return True
-    return (not int4 and dtype_bytes in (2, 4)
+    return (dtype_bytes in (2, 4)
             and min(hidden, intermediate, o_width) > 0
             and hidden % 8 == 0 and intermediate % 8 == 0
             and o_width % 8 == 0)

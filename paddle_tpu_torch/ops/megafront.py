@@ -1,5 +1,6 @@
 """qkv projection -> rope -> paged K/V append in one wrapper call
-(counterpart of paddle_tpu/ops/pallas_megafront.py, fp layout).
+(counterpart of paddle_tpu/ops/pallas_megafront.py: the fp, int8 and
+packed-int4 weight sites).
 
 ``fused_qkv_rope_append`` launches the hand-written CUDA kernels of
 ``csrc/megakernels.cu`` on CUDA tensors (two CUDA kernels per call,
@@ -11,8 +12,8 @@ paddle_tpu/ops/references.py) on CPU tensors. A CUDA tensor launches the
 kernel or raises; nothing falls back. The wrapper counts
 ``.launches`` and ``.plain_calls``.
 
-The int8 / packed-int4 weight sites are ROADMAP.md queue A item 4 and
-the MLA layout (``lora_rank > 0``) item 5; both raise.
+The MLA layout (``lora_rank > 0``) is ROADMAP.md queue A item 5 and
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from . import _build
 from .fused import _rotate_half
 from .oracles import register_oracle
+from .quant import INT4, WFMT, check_algo, dequant_matmul_f32
 
 __all__ = ["fused_qkv_rope_append", "qkv_rope_append_reference",
            "megafront_eligible"]
@@ -33,10 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _refuse(algo, lora_rank) -> None:
-    if algo is not None:
-        raise NotImplementedError(
-            f"fused_qkv_rope_append: the {algo} weight site is not ported "
-            f"yet (ROADMAP.md queue A item 4)")
+    check_algo(algo)
     if lora_rank:
         raise NotImplementedError(
             "fused_qkv_rope_append: the MLA layout (lora_rank > 0) is not "
@@ -51,12 +50,14 @@ def qkv_rope_append_reference(h, w, scale, bias, cos, sin, k_pages,
                               rope_dim: int = 0, lora_rank: int = 0):
     """Plain version: f32 projection (+ bias), rope on the f32 q and k,
     then the K/V rows into the pools in place (same contract as the
-    kernel)."""
+    kernel). The projection takes the JAX kernels' op order: int8
+    ``h @ (q * s)``, int4 the even / odd columns of h against the scaled
+    nibble planes."""
     _refuse(algo, lora_rank)
     T = h.shape[0]
     D = head_dim
     P, psz = k_pages.shape[1], k_pages.shape[2]
-    p = h.float() @ w.float()
+    p = dequant_matmul_f32(h, w, scale, algo)
     if bias is not None:
         p = p + bias.reshape(1, -1).float()
     c = cos.float()[:, None, :]                        # [T, 1, D/2]
@@ -81,13 +82,16 @@ def fused_qkv_rope_append(h, w, scale, bias, cos, sin, k_pages, v_pages,
                           rope_dim: int = 0, lora_rank: int = 0):
     """qkv projection -> rope -> paged K/V append.
 
-    ``h`` [T, H] is the normed hidden stream; ``w`` the concatenated fp
-    slab [H, N], N = (heads + 2 * kv_heads) * head_dim, columns
-    [q | k | v] (``scale`` is ignored for fp weights, as in the JAX
-    package); ``bias`` [N] or None (zeros); cos/sin [T, head_dim / 2];
-    k/v_pages [kv_heads, total_pages, page_size, head_dim]; page_idx /
-    page_off [T] name where token t's K/V row lands, clamped into the
-    pool (page 0 is the trash page idle rows write to). Returns
+    ``h`` [T, H] is the normed hidden stream; ``w`` / ``scale`` the
+    concatenated slab, N = (heads + 2 * kv_heads) * head_dim, columns
+    [q | k | v], in any deploy layout: fp [H, N] (``algo`` None,
+    ``scale`` ignored, as in the JAX package), int8 [H, N] + f32 scale
+    [N] ('weight_only_int8'), or packed int4 [H/2, N] + scale [N]
+    ('weight_only_int4'); ``bias`` [N] or None (zeros); cos/sin [T,
+    head_dim / 2]; k/v_pages [kv_heads, total_pages, page_size,
+    head_dim]; page_idx / page_off [T] name where token t's K/V row
+    lands, clamped into the pool (page 0 is the trash page idle rows
+    write to). Returns
     ``(q_roped [T, heads, head_dim], k_pages, v_pages)``: the pools are
     the SAME tensors, updated in place (the JAX kernel aliased them)."""
     _refuse(algo, lora_rank)
@@ -95,7 +99,8 @@ def fused_qkv_rope_append(h, w, scale, bias, cos, sin, k_pages, v_pages,
         fused_qkv_rope_append.plain_calls += 1
         return qkv_rope_append_reference(
             h, w, scale, bias, cos, sin, k_pages, v_pages, page_idx,
-            page_off, heads=heads, kv_heads=kv_heads, head_dim=head_dim)
+            page_off, heads=heads, kv_heads=kv_heads, head_dim=head_dim,
+            algo=algo)
     name = "fused_qkv_rope_append"
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
     dev = _build.require_cuda(name, h, w, cos, sin, k_pages, v_pages)
@@ -103,7 +108,8 @@ def fused_qkv_rope_append(h, w, scale, bias, cos, sin, k_pages, v_pages,
     D, KV = head_dim, kv_heads
     N = (heads + 2 * KV) * D
     P, psz = k_pages.shape[1], k_pages.shape[2]
-    if (w.shape != (H, N) or cos.shape != (T, D // 2)
+    rows = H // 2 if algo == INT4 else H
+    if (w.shape != (rows, N) or cos.shape != (T, D // 2)
             or sin.shape != (T, D // 2)
             or k_pages.shape != (KV, P, psz, D)
             or v_pages.shape != k_pages.shape):
@@ -115,8 +121,9 @@ def fused_qkv_rope_append(h, w, scale, bias, cos, sin, k_pages, v_pages,
         raise ValueError(
             f"{name}: the kernel takes H and N multiples of 8 and an even "
             f"head_dim; got H {H}, N {N}, head_dim {D}")
-    if len({h.dtype, w.dtype, k_pages.dtype, v_pages.dtype}) != 1:
-        raise TypeError(f"{name}: h, w and the pools share one dtype")
+    s = _build.weight_layout(name, algo, w, scale, N, h.dtype, dev)
+    if len({h.dtype, k_pages.dtype, v_pages.dtype}) != 1:
+        raise TypeError(f"{name}: h and the pools share one dtype")
     _build.require_aligned(name, h, w)
     b = None if bias is None else bias.reshape(N).to(dev, torch.float32)
     pg = _build.index32(name, page_idx, dev)
@@ -126,12 +133,13 @@ def fused_qkv_rope_append(h, w, scale, bias, cos, sin, k_pages, v_pages,
     q_out = torch.empty(T, heads, D, dtype=h.dtype, device=dev)
     per, splits = _build.split_k(T, N, H, h)
     partial = torch.empty(splits, T, N, dtype=torch.float32, device=dev)
-    fn = _build.kernel("ptt_qkv_rope_append", [_P] * 11 + [_I] * 11 + [_P])
-    err = fn(h.data_ptr(), w.data_ptr(), _build.ptr(b), cos.data_ptr(),
-             sin.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             pg.data_ptr(), off.data_ptr(), q_out.data_ptr(),
-             partial.data_ptr(), T, H, heads, KV, D, P, psz, per, splits,
-             _build.dtype_code(h), dev.index or 0, _build.stream(h))
+    fn = _build.kernel("ptt_qkv_rope_append", [_P] * 12 + [_I] * 12 + [_P])
+    err = fn(h.data_ptr(), w.data_ptr(), _build.ptr(s), _build.ptr(b),
+             cos.data_ptr(), sin.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(), pg.data_ptr(), off.data_ptr(),
+             q_out.data_ptr(), partial.data_ptr(), T, H, heads, KV, D, P,
+             psz, per, splits, WFMT[algo], _build.dtype_code(h),
+             dev.index or 0, _build.stream(h))
     _build.check(name, err)
     fused_qkv_rope_append.launches += 1
     return q_out, k_pages, v_pages
@@ -142,20 +150,22 @@ fused_qkv_rope_append.plain_calls = 0
 
 
 def megafront_eligible(hidden: int, out_cols: int, head_dim: int, *,
-                       int4: bool = False, dtype_bytes: int = 2,
-                       device=None) -> bool:
+                       dtype_bytes: int = 2, device=None) -> bool:
     """True when the kernel takes this geometry (the engine's gate for
     the fused front half, a pure function of shapes). On the CPU the
     plain version takes any geometry: True. On the card, from what the
-    kernels need: 16-byte copies of h and w rows (hidden and out_cols
-    multiples of 8, which covers bf16 and f32), whole heads of an even
-    head_dim (rope pairs j with j + head_dim / 2) and an fp weight of 2
-    or 4 bytes (packed int4 is queue A item 4). No size limit: the
-    weights stream through shared memory, never resident (the TPU's
-    VMEM rule does not apply)."""
+    kernels need: 16-byte copies of h rows (hidden a multiple of 8, which
+    covers bf16 and f32; it also makes the packed int4 contraction even),
+    4-column epilogue stores of whole 8-column groups (out_cols a
+    multiple of 8), whole heads of an even head_dim (rope pairs j with j
+    + head_dim / 2) and an activation of 2 or 4 bytes. int8 and int4
+    weight rows take 16-byte copies where out_cols is a multiple of 16,
+    byte copies else (right, slower), so the weight layout adds no rule.
+    No size limit: the weights stream through shared memory, never
+    resident (the TPU's VMEM rule does not apply)."""
     if device is not None and torch.device(device).type == "cpu":
         return True
-    return (not int4 and dtype_bytes in (2, 4) and hidden > 0
+    return (dtype_bytes in (2, 4) and hidden > 0
             and hidden % 8 == 0 and out_cols % 8 == 0
             and head_dim > 0 and head_dim % 2 == 0
             and out_cols % head_dim == 0)

@@ -62,10 +62,19 @@ copies are in-place page copies.
 PyTorch runs eagerly: the body is a plain Python function over tensors,
 built once per engine (CUDA graphs are ROADMAP.md queue A item 6).
 
+Weight-only quantized serving (``weight_only_int8=True``, or
+``weight_only_quant="int8"`` / ``"int4"``) takes the JAX package's
+deploy layouts (``generation._llama_decode_params``) on every path: the
+megakernels read the int8 / packed-int4 slabs and their scales, the
+split chain's and the alternating path's int4 products go through
+``ops.quant.weight_only_linear`` and their int8 products through
+``h @ (q * s)`` (``generation._mm_w``), and so does a quantized LM head.
+
 Greedy decoding only: engine tokens equal the JAX engine's tokens per
 request on the same weights and trace, on either chain and on the
-alternating path, and the solo ``generate_cached`` tokens of each
-request (tests/test_torch_llama_serving.py).
+alternating path, in the fp, int8 and int4 layouts, and the solo
+``generate_cached`` tokens of each request
+(tests/test_torch_llama_serving.py).
 """
 
 from __future__ import annotations
@@ -78,8 +87,8 @@ import torch
 from .. import resilience as _res
 from ..device import DeviceLike, resolve_device
 from ..flags import flag
-from ..generation import _ffn_apply, _llama_decode_params, _llama_weights, \
-    _mm_w
+from ..generation import _SUFFIX, _ffn_apply, _head, \
+    _llama_decode_params, _llama_weights, _mm_w, _walgo, _wq2
 from ..ops.fused import fused_rms_norm, fused_rope_append
 from ..ops.megadecode import (fused_ffn, fused_oproj_norm,
                               megadecode_eligible)
@@ -535,16 +544,23 @@ class ServingEngine:
         """The fused front half's layout: each layer's wq | wk | wv
         become ONE [H, (Hq + 2 KV) * D] slab (``wqkv``), the columns in
         q | k | v order (every output column depends only on its own
-        weight column, so the math is the three products'). The slab is
-        a copy made once here; the model keeps its own q/k/v weights,
-        so the engine holds both (1.61 GB more at Llama-3-8B in bf16).
-        The per-projection entries leave the engine's weight tree: a
-        megafront engine never runs the split front."""
+        weight column, so the math is the three products'; int4 packs
+        along the contraction axis, so the concatenation is layout-safe
+        there too), payloads and scales alike (``wqkv_q`` / ``wqkv_q4``
+        and ``wqkv_s``). The fp slab is a copy made once here; the model
+        keeps its own q/k/v weights, so the engine holds both (1.61 GB
+        more at Llama-3-8B in bf16). The consumed entries leave the
+        engine's weight tree: a megafront engine never runs the split
+        front."""
         layers = []
         for L in self._p["layers"]:
             L = dict(L)
-            L["wqkv"] = torch.cat([L.pop("wq"), L.pop("wk"), L.pop("wv")],
-                                  dim=-1)
+            suffix = _SUFFIX.get(_walgo(L, "wq"), "")
+            L["wqkv" + suffix] = torch.cat(
+                [L.pop(k + suffix) for k in ("wq", "wk", "wv")], dim=-1)
+            if suffix:
+                L["wqkv_s"] = torch.cat(
+                    [L.pop(k + "_s") for k in ("wq", "wk", "wv")], dim=-1)
             layers.append(L)
         self._p = dict(self._p, layers=layers)
         self._w = dict(self._w, layers=layers)
@@ -573,10 +589,11 @@ class ServingEngine:
             for L, (kp, vp) in zip(w["layers"], pools):
                 h = fused_rms_norm(x, L["ln1"], eps)
                 if megafront:
+                    wp, ws = _wq2(L, "wqkv")
                     q, kp, vp = fused_qkv_rope_append(
-                        h[0], L["wqkv"], None, None, c, s, kp, vp,
-                        tok_page, tok_off, heads=Hh, kv_heads=KV,
-                        head_dim=D)
+                        h[0], wp, ws, None, c, s, kp, vp, tok_page, tok_off,
+                        heads=Hh, kv_heads=KV, head_dim=D,
+                        algo=_walgo(L, "wqkv"))
                 else:
                     q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
                                _mm_w(h, L, "wv"))
@@ -588,11 +605,15 @@ class ServingEngine:
                                            num_tokens, kv_lengths, tables,
                                            scale=D ** -0.5)
                 if mega:
-                    xn, h2 = fused_oproj_norm(o.reshape(T, Hh * D), x[0],
-                                              L["wo"], None, None,
-                                              L["ln2"], None, eps=eps)
-                    x = fused_ffn(h2, xn, L["wg"], None, L["wu"], None,
-                                  L["wd"], None)[None]
+                    wp, ws = _wq2(L, "wo")
+                    xn, h2 = fused_oproj_norm(
+                        o.reshape(T, Hh * D), x[0], wp, ws, None, L["ln2"],
+                        None, eps=eps, algo=_walgo(L, "wo"))
+                    gp, gs = _wq2(L, "wg")
+                    up, us = _wq2(L, "wu")
+                    dp, ds = _wq2(L, "wd")
+                    x = fused_ffn(h2, xn, gp, gs, up, us, dp, ds,
+                                  algo=_walgo(L, "wg"))[None]
                 else:
                     x = x + _mm_w(o.reshape(1, T, Hh * D), L, "wo")
                     h2 = fused_rms_norm(x, L["ln2"], eps)
@@ -601,8 +622,7 @@ class ServingEngine:
             # each sequence's logits come from its LAST flat row; idle
             # slots (num_tokens 0) index garbage the host ignores
             last = x[0, (seq_start + num_tokens - 1).clamp(0, T - 1).long()]
-            head = w["head"] if w["head"] is not None else w["embed"].T
-            return last @ head, pools
+            return _head(last, w), pools
 
         return step
 
@@ -644,8 +664,7 @@ class ServingEngine:
                 h2 = fused_rms_norm(x, L["ln2"], eps)
                 x = x + _ffn_apply(L, h2)
             x = fused_rms_norm(x, w["norm"], eps)
-            head = w["head"] if w["head"] is not None else w["embed"].T
-            return x[:, -1] @ head, pools
+            return _head(x[:, -1], w), pools
 
         return step
 
@@ -711,7 +730,6 @@ class ServingEngine:
                 h2 = fused_rms_norm(x, L["ln2"], eps)
                 x = x + _ffn_apply(L, h2)
             x = fused_rms_norm(x, w["norm"], eps)
-            head = w["head"] if w["head"] is not None else w["embed"].T
-            return x[0, n_valid - 1][None] @ head, pools
+            return _head(x[0, n_valid - 1][None], w), pools
 
         return prefill

@@ -3,6 +3,7 @@
 
     python3 profile_serving.py [--out serving_trace.json]
                                [--chain fused|split|alternating]
+                               [--quant int8|int4]
 
 Serves the same Llama-3-8B configuration and seeded traffic as
 chip_smoke.py's phase 4 (bf16, 4 slots, page_size 16, 128-token prefill
@@ -11,7 +12,9 @@ the split chain of the unified step, or with ``--chain alternating`` on
 the alternating path (``ragged=False``: a prefill-chunk launch and a
 decode-step launch per engine step, paged decode attention), and records
 a window of decode-only steps and a window of mixed (prefill + decode)
-steps under torch.profiler. Prints one JSON line per window: host wall
+steps under torch.profiler; ``--quant`` serves the weight-only int8 or
+int4 layout of the same weights (quantized on the card as the engine is
+built). Prints one JSON line per window: host wall
 ms per step, device busy ms per step (the union of kernel intervals in
 the trace), the device's idle share, device time by kernel group (the
 port's kernels, cuBLAS GEMMs, PyTorch's gathers / scatters, concatenations
@@ -45,6 +48,7 @@ PORT_KERNELS = ("rms_norm_kernel", "rope_append_kernel",
                 "qkv_finalize_kernel", "oproj_norm_finalize_kernel",
                 "residual_finalize_kernel", "paged_v1_kernel",
                 "paged_v2_kernel", "paged_v2_mma_kernel")
+# (weight_only_linear runs mega::gemm_kernel and residual_finalize_kernel)
 #: name fragments of PyTorch's own passes, in match order: gathers and
 #: scatters (page gathers, append_to_cache's index_put_), concatenations
 #: (the alternating path's inline rope), other elementwise passes
@@ -130,6 +134,7 @@ def main() -> int:
     ap.add_argument("--out", default="serving_trace.json")
     ap.add_argument("--chain", choices=("fused", "split", "alternating"),
                     default="fused")
+    ap.add_argument("--quant", choices=("int8", "int4"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving.py: no CUDA device", file=sys.stderr)
@@ -144,7 +149,8 @@ def main() -> int:
     chain = {"fused": {}, "split": dict(megafront=False, megadecode=False),
              "alternating": dict(ragged=False)}[args.chain]
     eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
-                        prefill_chunk=CHUNK, max_context=MAX_CTX, **chain)
+                        prefill_chunk=CHUNK, max_context=MAX_CTX,
+                        weight_only_quant=args.quant, **chain)
     rng = np.random.RandomState(0)
     # warm-up request, then chip_smoke.py's phase-4 prompts, all at once
     eng.add_request(rng.randint(0, cfg.vocab_size, 64), max_new_tokens=2)
@@ -160,7 +166,7 @@ def main() -> int:
     eng.run_to_completion()
     for r in results:
         print(json.dumps({"card": card["nvidia_smi"], "chain": args.chain,
-                          **r}), flush=True)
+                          "weight_only_quant": args.quant, **r}), flush=True)
     return 0
 
 

@@ -8,7 +8,11 @@ within 1e-5 (f32; the two frameworks sum in different orders; JAX at
 "highest" matmul precision). `_filter_logits` is held to JAX's on seeded
 logits. Sampled tokens cannot match JAX's random bits (jax.random keys
 against a torch.Generator): sampling is checked for reproducibility
-under one seed, for validity, and top_k=1 against greedy."""
+under one seed, for validity, and top_k=1 against greedy.
+`generate_cached` with weight-only int8 and int4 weights
+(`TestQuantizedAgainstJax`): greedy tokens identical to JAX's, scores
+within 1e-5; the int4 run's projections and head go through
+weight_only_linear; conflicting quant knobs raise as in JAX."""
 
 import numpy as np
 import pytest
@@ -133,6 +137,55 @@ class TestGreedyAgainstJax:
             gpt = object()
         with pytest.raises(NotImplementedError, match="queue A item 5"):
             tgen.generate_cached(Gpt(), np.zeros((1, 3), np.int32))
+
+
+@pytest.fixture(scope="module")
+def jax_quant(models, prompts):
+    jm, _ = models
+    kw = dict(max_new_tokens=NEW, decode_strategy="greedy_search")
+    return {q: _jax_run(jgen.generate_cached, jm, prompts,
+                        weight_only_quant=q, **kw) for q in ("int8", "int4")}
+
+
+class TestQuantizedAgainstJax:
+    @pytest.mark.parametrize("quant", ["int8", "int4"])
+    def test_generate_cached_tokens_identical(self, models, prompts,
+                                              jax_quant, quant):
+        from paddle_tpu_torch import ops
+        _, tm = models
+        ops.reset_counts()
+        gen, sc = tgen.generate_cached(tm, prompts, max_new_tokens=NEW,
+                                       decode_strategy="greedy_search",
+                                       weight_only_quant=quant)
+        want_gen, want_sc = jax_quant[quant]
+        np.testing.assert_array_equal(gen.numpy(), want_gen)
+        np.testing.assert_allclose(sc.numpy(), want_sc, atol=1e-5,
+                                   rtol=1e-5)
+        # one prefill and NEW - 1 decode calls, each 7 projections a layer
+        # and the head; int8 products are h @ (q * s), no kernel
+        L = TINY["num_hidden_layers"]
+        wol = (7 * L + 1) * NEW if quant == "int4" else 0
+        assert ops.launch_counts()["weight_only_linear"] == {
+            "launches": 0, "plain_calls": wol}
+
+    def test_int8_bool_equals_int8_knob(self, models, prompts, jax_quant):
+        _, tm = models
+        gen, _ = tgen.generate_cached(tm, prompts, max_new_tokens=NEW,
+                                      decode_strategy="greedy_search",
+                                      weight_only_int8=True)
+        np.testing.assert_array_equal(gen.numpy(), jax_quant["int8"][0])
+
+    @pytest.mark.parametrize("kw,match", [
+        (dict(weight_only_int8=True, weight_only_quant="int4"),
+         "conflicting quant knobs"),
+        (dict(weight_only_quant="int2"), "expected 'int8' or 'int4'")])
+    def test_bad_knobs_raise_like_jax(self, models, prompts, kw, match):
+        jm, tm = models
+        with pytest.raises(ValueError, match=match):
+            jgen.generate_cached(jm, paddle.to_tensor(prompts),
+                                 max_new_tokens=2, **kw)
+        with pytest.raises(ValueError, match=match):
+            tgen.generate_cached(tm, prompts, max_new_tokens=2, **kw)
 
 
 class TestSampling:

@@ -20,7 +20,15 @@ orders).
 The alternating path (ragged=False on both engines: a prefill-chunk
 launch and a decode-step launch per step, paged decode attention) is
 held the same way under the port's two paged impls, launch by launch,
-and to the port's own solo generate_cached tokens per request."""
+and to the port's own solo generate_cached tokens per request.
+
+Weight-only int8 and int4 serving (`TestQuantizedEngineAgainstJax`): the
+port's quantized trees equal the JAX package's byte for byte (the engine's
+concatenated qkv slabs and scales too); both engines run the serving
+trace on the fused chain, the split chain and the alternating path with
+identical greedy tokens and the route counts of each path (int4: the LM
+head, and on the split chain and the alternating path every projection,
+through weight_only_linear; int8 through h @ (q * s), no kernel)."""
 
 from types import SimpleNamespace
 
@@ -411,6 +419,137 @@ class TestAlternatingEngineAgainstJax:
         assert fused_runs["teng"].launches < alt["teng"].launches
 
 
+QUANT = ("int8", "int4")
+CHAINS = {"fused": {}, "split": dict(megafront=False, megadecode=False),
+          "alternating": dict(ragged=False)}
+
+
+def _run_quant(models, quant, chain):
+    """Both engines over the seeded serving trace with weight_only_quant
+    `quant` on `chain`; the port's counts, launches and decode launches."""
+    jm, tm, _ = models
+    trace = _serving_trace(jm.config.vocab_size)
+    kw = dict(CHAINS[chain], weight_only_quant=quant, **ENGINE_KW)
+    jeng = JaxEngine(jm, enable_prefix_cache=False, **kw)
+    jres, _ = _drive(jeng, trace)
+    ops.reset_counts()
+    teng = ServingEngine(tm, device="cpu", **kw)
+    decode = []
+    if chain == "alternating":
+        body = teng._decode_body
+
+        def counted(*args):
+            decode.append(1)
+            return body(*args)
+        teng._decode_body = counted
+    tres, _ = _drive(teng, trace)
+    return dict(jres=jres, tres=tres, jeng=jeng, teng=teng, trace=trace,
+                counts=ops.launch_counts(), decode=len(decode))
+
+
+@pytest.fixture(scope="module")
+def quant_runs(models):
+    return {(q, c): _run_quant(models, q, c) for q in QUANT for c in CHAINS}
+
+
+class TestQuantizedEngineAgainstJax:
+    """ServingEngine(weight_only_int8=True / weight_only_quant=...) on
+    every path, against the JAX engine with the same knobs."""
+
+    @pytest.mark.parametrize("quant", QUANT)
+    def test_decode_tree_byte_identical(self, models, quant):
+        from paddle_tpu import generation as jgen
+        from paddle_tpu_torch import generation as tgen
+        jm, tm, _ = models
+        jp = jgen._decode_params(jm, weight_only_quant=quant)
+        tp = tgen._llama_decode_params(tm, weight_only_quant=quant)
+        assert tp["head"] is None and jp["head"] is None
+        tops = {k for k in tp if k.startswith("head_")}
+        assert tops == {k for k in jp if k.startswith("head_")} == {
+            "head_q4" if quant == "int4" else "head_q", "head_s"}
+        for a, b in [(jp, tp)] + list(zip(jp["layers"], tp["layers"])):
+            keys = set(b) - {"cfg", "family", "embed", "norm", "cos", "sin",
+                             "layers", "head"}
+            assert keys == set(a) - {"cfg", "family", "embed", "norm",
+                                     "cos", "sin", "layers", "head"}
+            for k in keys:
+                want = np.asarray(a[k])
+                got = b[k].numpy()
+                assert got.dtype == want.dtype, k
+                np.testing.assert_array_equal(got, want, err_msg=k)
+
+    @pytest.mark.parametrize("quant", QUANT)
+    def test_engine_slab_byte_identical(self, quant_runs, quant):
+        run = quant_runs[(quant, "fused")]
+        sfx = "_q4" if quant == "int4" else "_q"
+        for jl, tl in zip(run["jeng"]._p["layers"], run["teng"]._p["layers"]):
+            for k in ("wqkv" + sfx, "wqkv_s"):
+                want = np.asarray(jl[k])
+                assert tl[k].numpy().dtype == want.dtype
+                np.testing.assert_array_equal(tl[k].numpy(), want)
+            for k in ("wq", "wk", "wv"):
+                assert k + sfx not in tl and k + "_s" not in tl
+
+    @pytest.mark.parametrize("quant", QUANT)
+    @pytest.mark.parametrize("chain", list(CHAINS))
+    def test_greedy_tokens_identical(self, quant_runs, quant, chain):
+        run = quant_runs[(quant, chain)]
+        assert set(run["tres"]) == set(run["jres"]) == \
+            set(range(len(run["trace"])))
+        for rid, ref in run["jres"].items():
+            np.testing.assert_array_equal(run["tres"][rid], ref)
+
+    @pytest.mark.parametrize("quant", QUANT)
+    @pytest.mark.parametrize("chain", list(CHAINS))
+    def test_route_counts(self, quant_runs, quant, chain):
+        run = quant_runs[(quant, chain)]
+        eng, L = run["teng"], 2
+        n, dec = eng.launches, run["decode"]
+        assert eng.megafront == eng.megadecode == (chain == "fused")
+        int4 = quant == "int4"
+        per = {"fused": {"fused_rms_norm": L + 1,
+                         "fused_qkv_rope_append": L,
+                         "ragged_paged_attention": L,
+                         "fused_oproj_norm": L, "fused_ffn": L,
+                         "weight_only_linear": int(int4)},
+               "split": {"fused_rms_norm": 2 * L + 1,
+                         "fused_rope_append": L,
+                         "ragged_paged_attention": L,
+                         "weight_only_linear": (7 * L + 1) * int4},
+               "alternating": {"fused_rms_norm": 2 * L + 1,
+                               "weight_only_linear": (7 * L + 1) * int4}}
+        want = {k: v * n for k, v in per[chain].items()}
+        if chain == "alternating":
+            assert 0 < dec < n
+            want["paged_decode_attention_v2"] = L * dec
+        for name, c in run["counts"].items():
+            assert c == {"launches": 0,
+                         "plain_calls": want.get(name, 0)}, name
+
+    def test_int4_engine_equals_solo_generate_cached(self, models,
+                                                     quant_runs):
+        from paddle_tpu_torch.generation import generate_cached
+        _, tm, _ = models
+        run = quant_runs[("int4", "fused")]
+        for rid, (prompt, max_new, _) in enumerate(run["trace"]):
+            gen, _ = generate_cached(tm, prompt[None], max_new_tokens=max_new,
+                                     decode_strategy="greedy_search",
+                                     weight_only_quant="int4")
+            np.testing.assert_array_equal(gen[0].numpy(), run["tres"][rid])
+
+    def test_int8_bool_knob_is_the_int8_layout(self, models, quant_runs):
+        _, tm, _ = models
+        eng = ServingEngine(tm, device="cpu", weight_only_int8=True,
+                            **ENGINE_KW)
+        for rid, (prompt, max_new, _) in enumerate(
+                quant_runs[("int8", "fused")]["trace"][:3]):
+            eng.add_request(prompt, max_new_tokens=max_new, request_id=rid)
+        out = eng.run_to_completion()
+        for rid in out:
+            np.testing.assert_array_equal(
+                out[rid], quant_runs[("int8", "fused")]["tres"][rid])
+
+
 class TestLayersAgainstJax:
     """Linear, Embedding and RMSNorm: same weights (carried by name),
     same outputs as the JAX package's layers, f32 at 2e-5."""
@@ -469,8 +608,6 @@ class TestEngineOptions:
             np.testing.assert_array_equal(out[i], runs["jres"][i])
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(weight_only_int8=True), 4),
-        (dict(weight_only_quant="int4"), 4),
         (dict(enable_prefix_cache=True), 6), (dict(spec_decode=2), 6),
         (dict(preemption=True), 6), (dict(role="prefill"), 6),
         (dict(slo_targets={"ttft_p90": 1.0}), 6),

@@ -1,7 +1,8 @@
 """The port's three megakernels against the JAX package.
 
-For fused_qkv_rope_append, fused_oproj_norm and fused_ffn (fp weights,
-rms norm, swiglu), seeded numpy inputs go through the JAX kernel (Pallas
+For fused_qkv_rope_append, fused_oproj_norm and fused_ffn (rms norm,
+swiglu; fp weights, and in `TestQuantizedSitesParity` the int8 and
+packed-int4 deploy layouts), seeded numpy inputs go through the JAX kernel (Pallas
 in interpret mode on the CPU, as tests/test_megafront.py and
 tests/test_megadecode.py run it), the JAX reference and the port's
 wrapper on CPU tensors, which runs its plain PyTorch version. f32
@@ -10,12 +11,21 @@ own bar (tests/test_megadecode.py); qkv_rope_append at 2e-5, because rope
 multiplies the projection by cos/sin and the two frameworks may fuse its
 multiply-adds differently. Pools are compared whole: each case writes
 one idle row to the trash page 0 (no duplicate writes) and fills part of
-a page whose other slots must keep their old rows.
+a page whose other slots must keep their old rows. Quantized sites are
+held to the JAX kernels (the same op order: int8 ``h @ (q * s)``, int4
+the even / odd split contraction) at the same bars, and to the JAX
+references (one product over the whole dequantized weight) at the JAX
+tests' own bars for int4's split contraction (tests/test_megadecode.py
+atol 1e-4, rtol 1e-5; qkv 2e-5 as above).
 
 `TestKernelsOnCard` holds each CUDA kernel against its plain version on
 the card; it needs one and skips elsewhere. On the machine with the
 card, which has no JAX: python -m pytest --noconftest
-tests/test_torch_megakernels.py -m cuda."""
+tests/test_torch_megakernels.py -m cuda. Its bf16 int8 / int4 cases are
+also held by relative errors over each site's outputs and over each
+token's row of them (`_site_rows`), within chip_smoke.py's
+QSITE_BF16_LIMITS, which sit between the sound kernels' readings and
+those of a scale folded into the bf16 weight (quant_limits.py)."""
 
 import types
 
@@ -26,7 +36,45 @@ import torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import (fused_ffn, fused_oproj_norm,
                                   fused_qkv_rope_append,
-                                  megadecode_eligible, megafront_eligible)
+                                  megadecode_eligible, megafront_eligible,
+                                  weight_quantize)
+
+INT8, INT4 = "weight_only_int8", "weight_only_int4"
+#: (tensor, row) relative-error limits of the bf16 quantized sites,
+#: chip_smoke.py's (the FFN's sound kernel rounds its swiglu activation
+#: to bf16, the plain version keeps f32: 1.8e-3 tensor, up to 2.6e-3 a
+#: row at H 256; a scale folded into the bf16 weight reads 2.6e-3 and
+#: more over the tensor)
+QSITE_BF16_LIMITS = {"qkv": (3e-4, 1e-3), "oproj": (3e-4, 1e-3),
+                     "ffn": (2.2e-3, 3e-3)}
+
+
+def _site_rows(outs, pg=None, off=None):
+    """One [T, X] tensor of a site's outputs, a row per token: for
+    qkv_rope_append (pg / off given) q and the K / V rows written into
+    the pools, else the outputs side by side."""
+    if pg is None:
+        return torch.cat([o.reshape(o.shape[0], -1) for o in outs], dim=1)
+    q, kp, vp = outs
+    T = q.shape[0]
+    return torch.cat([q.reshape(T, -1)] + [
+        p[:, pg.long(), off.long()].transpose(0, 1).reshape(T, -1)
+        for p in (kp, vp)], dim=1)
+
+
+def _hold_rel(site, got, want):
+    """`got` [T, X] within QSITE_BF16_LIMITS[site] of `want`: ||got -
+    want|| / ||want|| over the whole, and over each row (its norm floored
+    at 1% of the root-mean-square row norm)."""
+    w = want.float()
+    d = got.float() - w
+    wn, dn = w.norm(dim=-1), d.norm(dim=-1)
+    floor = 1e-2 * float(w.norm()) / wn.numel() ** 0.5
+    tensor = float(d.norm() / w.norm())
+    row = float((dn / wn.clamp_min(floor)).max())
+    lt, lr = QSITE_BF16_LIMITS[site]
+    assert tensor <= lt, (site, "tensor", tensor)
+    assert row <= lr, (site, "row", row)
 
 
 @pytest.fixture(scope="module")
@@ -177,20 +225,121 @@ class TestFfnParity:
         _close(got.numpy(), 2e-6, *want)
 
 
+def _quantized(w, algo):
+    """(payload, f32 scale) numpy of a seeded f32 weight's deploy layout."""
+    q, s = weight_quantize(torch.from_numpy(w), algo)
+    return q.numpy(), s.numpy()
+
+
+class TestQuantizedSitesParity:
+    """The int8 and packed-int4 sites: the plain versions against the JAX
+    kernels and references (module docstring for the bars)."""
+
+    @staticmethod
+    def _ref_tol(algo, fp_tol):
+        return (1e-4, 1e-5) if algo == INT4 and fp_tol < 2e-5 \
+            else (fp_tol, fp_tol)
+
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("T,H,heads,kv,D,bias", [
+        (7, 40, 3, 1, 12, False), (12, 72, 4, 2, 16, True)])
+    def test_qkv_rope_append(self, jx, algo, T, H, heads, kv, D, bias):
+        a = _qkv_inputs(T, H, heads, kv, D, bias, seed=8)
+        qw, s = _quantized(a["w"], algo)
+        kw = dict(heads=heads, kv_heads=kv, head_dim=D, algo=algo)
+        j = lambda v: None if v is None else jx.jnp.asarray(v)  # noqa: E731
+        jargs = [j(a["h"]), j(qw), j(s), j(a["b"])] + \
+            [j(a[k]) for k in ("cos", "sin", "kp", "vp", "pg", "off")]
+        want_k = jx.qkv(*jargs, **kw)
+        want_r = jx.qkv_ref(*jargs, **kw)
+        before = fused_qkv_rope_append.plain_calls
+        got = fused_qkv_rope_append(
+            _t(a["h"]), _t(qw), _t(s), _t(a["b"]), _t(a["cos"]),
+            _t(a["sin"]), _t(a["kp"]), _t(a["vp"]), _t(a["pg"]),
+            _t(a["off"]), **kw)
+        assert fused_qkv_rope_append.plain_calls == before + 1
+        for i, g in enumerate(got):
+            _close(g.numpy(), 2e-5, want_k[i], want_r[i])
+
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("T,Ko,H,bias", [(7, 48, 40, False),
+                                             (12, 136, 24, True)])
+    def test_oproj_norm(self, jx, algo, T, Ko, H, bias):
+        rng = np.random.RandomState(9)
+        o, x, nw = _rand(rng, T, Ko), _rand(rng, T, H), _rand(rng, H)
+        qw, s = _quantized(_rand(rng, Ko, H, scale=Ko ** -0.5), algo)
+        b = _rand(rng, H) if bias else None
+        jj = [jx.jnp.asarray(v) for v in (o, x, qw, s)]
+        jkw = dict(bias=None if b is None else jx.jnp.asarray(b),
+                   norm_weight=jx.jnp.asarray(nw), eps=1e-5, algo=algo)
+        want_k, want_r = jx.oproj(*jj, **jkw), jx.oproj_ref(*jj, **jkw)
+        before = fused_oproj_norm.plain_calls
+        got = fused_oproj_norm(_t(o), _t(x), _t(qw), _t(s), _t(b), _t(nw),
+                               eps=1e-5, algo=algo)
+        assert fused_oproj_norm.plain_calls == before + 1
+        atol, rtol = self._ref_tol(algo, 2e-6)
+        for i, g in enumerate(got):
+            _close(g.numpy(), 2e-6, want_k[i])
+            np.testing.assert_allclose(g.numpy(), np.asarray(want_r[i]),
+                                       atol=atol, rtol=rtol)
+
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("T,H,I,bias", [(7, 40, 72, False),
+                                            (12, 24, 136, True)])
+    def test_ffn(self, jx, algo, T, H, I, bias):
+        rng = np.random.RandomState(10)
+        h, x = _rand(rng, T, H), _rand(rng, T, H)
+        (qg, sg), (qu, su) = (_quantized(_rand(rng, H, I, scale=H ** -0.5),
+                                         algo) for _ in range(2))
+        qd, sd = _quantized(_rand(rng, I, H, scale=I ** -0.5), algo)
+        b1, b2 = (_rand(rng, I), _rand(rng, H)) if bias else (None, None)
+        args = (h, x, qg, sg, qu, su, qd, sd, b1, b2)
+        j = lambda v: None if v is None else jx.jnp.asarray(v)  # noqa: E731
+        want_k = jx.ffn(*map(j, args), algo=algo)
+        want_r = jx.ffn_ref(*map(j, args), algo=algo)
+        before = fused_ffn.plain_calls
+        got = fused_ffn(*map(_t, args), algo=algo)
+        assert fused_ffn.plain_calls == before + 1
+        _close(got.numpy(), 2e-6, want_k)
+        atol, rtol = self._ref_tol(algo, 2e-6)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_r),
+                                   atol=atol, rtol=rtol)
+
+    @pytest.mark.parametrize("call", [
+        # the three sites that named queue A item 4 before they were
+        # ported: each now runs its plain version on CPU tensors
+        lambda t, q: fused_qkv_rope_append(
+            t[0], q[INT8][0], q[INT8][1], None, t[3], t[3], t[4], t[4],
+            t[5], t[5], heads=1, kv_heads=1, head_dim=4, algo=INT8),
+        lambda t, q: fused_oproj_norm(t[1], t[1], q[INT4][2], q[INT4][3],
+                                      algo=INT4),
+        lambda t, q: fused_ffn(t[1], t[1], q[INT8][2], q[INT8][3],
+                               q[INT8][2], q[INT8][3], q[INT8][2],
+                               q[INT8][3], algo=INT8),
+    ])
+    def test_formerly_refused_sites_run(self, call):
+        rng = np.random.RandomState(11)
+        t = [_t(_rand(rng, 2, 4)), _t(_rand(rng, 2, 4)), None,
+             _t(_rand(rng, 2, 2)), _t(_rand(rng, 1, 3, 4, 4)),
+             torch.tensor([1, 2])]
+        q = {a: [*map(_t, _quantized(_rand(rng, 4, 12), a)),
+                 *map(_t, _quantized(_rand(rng, 4, 4), a))]
+             for a in (INT8, INT4)}
+        out = call(t, q)
+        out = out if isinstance(out, tuple) else (out,)
+        assert all(bool(torch.isfinite(o).all()) for o in out)
+
+
 class TestRefusalsAndGates:
     @pytest.mark.parametrize("call,item", [
         (lambda t: fused_qkv_rope_append(*t[:10], heads=1, kv_heads=1,
-                                         head_dim=4,
-                                         algo="weight_only_int8"), 4),
-        (lambda t: fused_qkv_rope_append(*t[:10], heads=1, kv_heads=1,
                                          head_dim=4, lora_rank=8), 5),
-        (lambda t: fused_oproj_norm(t[0], t[0], t[1],
-                                    algo="weight_only_int4"), 4),
         (lambda t: fused_oproj_norm(t[0], t[0], t[1], norm="layer"), 5),
         (lambda t: fused_ffn(t[0], t[0], t[1], None, t[1], None, t[1],
                              act="gelu"), 5),
+        # the JAX package refuses int4 gelu too
         (lambda t: fused_ffn(t[0], t[0], t[1], None, t[1], None, t[1],
-                             algo="weight_only_int8"), 4),
+                             act="gelu", algo=INT4), 5),
     ])
     def test_unported_sites_name_their_item(self, call, item):
         t = [torch.zeros(2, 4)] * 2 + [None] * 8
@@ -204,14 +353,12 @@ class TestRefusalsAndGates:
         assert megadecode_eligible(4096, 14336, 4096)
         assert megafront_eligible(4096, 6144, 128, dtype_bytes=4)
         # what the kernels cannot take: an odd head_dim, rows that are no
-        # whole 16-byte pieces, packed int4
+        # whole 16-byte pieces
         assert megafront_eligible(4096, 96 * 12, 96)
         assert not megafront_eligible(4096, 8 * 15, 15)
         assert not megafront_eligible(4100, 6144, 128)
         assert not megafront_eligible(4096, 6148, 106)
-        assert not megafront_eligible(4096, 6144, 128, int4=True)
         assert not megadecode_eligible(4096, 14330, 4096)
-        assert not megadecode_eligible(4096, 14336, 4096, int4=True)
         # the plain versions take any geometry
         assert megafront_eligible(40, 60, 12, device="cpu")
         assert megadecode_eligible(40, 70, 12, device="cpu")
@@ -313,3 +460,72 @@ class TestKernelsOnCard:
         x = torch.zeros(4, 12, device="cuda")
         with pytest.raises(ValueError, match="multiples of 8"):
             fused_oproj_norm(x, x, torch.zeros(12, 12, device="cuda"))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("T,H,heads,kv,D", [
+        (132, 512, 4, 2, 128), (37, 264, 3, 1, 24)])   # N 120: byte copies
+    def test_qkv_rope_append_quantized(self, dtype, algo, T, H, heads, kv,
+                                       D):
+        a = _qkv_inputs(T, H, heads, kv, D, False, psz=16, seed=12)
+        qw, s = (_t(v).cuda() for v in _quantized(a["w"], algo))
+        c = {k: (None if v is None else _t(v).cuda()) for k, v in a.items()}
+        for k in ("h", "kp", "vp"):
+            c[k] = c[k].to(dtype)
+        kw = dict(heads=heads, kv_heads=kv, head_dim=D, algo=algo)
+        kp2, vp2 = c["kp"].clone(), c["vp"].clone()
+        n = fused_qkv_rope_append.launches
+        got = fused_qkv_rope_append(c["h"], qw, s, None, c["cos"], c["sin"],
+                                    c["kp"], c["vp"], c["pg"], c["off"], **kw)
+        torch.cuda.synchronize()
+        assert fused_qkv_rope_append.launches == n + 1
+        ref = ops.qkv_rope_append_reference(
+            c["h"], qw, s, None, c["cos"], c["sin"], kp2, vp2, c["pg"],
+            c["off"], **kw)
+        for g_, r_ in zip(got, ref):
+            torch.testing.assert_close(g_.float(), r_.float(),
+                                       **self._tol(dtype))
+        if dtype == torch.bfloat16:
+            _hold_rel("qkv", _site_rows(got, c["pg"], c["off"]),
+                      _site_rows(ref, c["pg"], c["off"]))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("T,Ko,H", [(132, 512, 264), (37, 136, 512),
+                                        (200, 264, 136)])
+    def test_oproj_norm_quantized(self, dtype, algo, T, Ko, H):
+        rng = np.random.RandomState(13)
+        o, x, nw = (_t(_rand(rng, *s_)).cuda().to(dtype)
+                    for s_ in ((T, Ko), (T, H), (H,)))
+        qw, s = (_t(v).cuda() for v in _quantized(
+            _rand(rng, Ko, H, scale=Ko ** -0.5), algo))
+        n = fused_oproj_norm.launches
+        got = fused_oproj_norm(o, x, qw, s, None, nw, eps=1e-5, algo=algo)
+        torch.cuda.synchronize()
+        assert fused_oproj_norm.launches == n + 1
+        ref = ops.oproj_norm_reference(o, x, qw, s, None, nw, eps=1e-5,
+                                       algo=algo)
+        for a_, b_ in zip(got, ref):
+            torch.testing.assert_close(a_.float(), b_.float(),
+                                       **self._tol(dtype))
+        if dtype == torch.bfloat16:
+            _hold_rel("oproj", _site_rows(got), _site_rows(ref))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("T,H,I", [(132, 256, 712), (37, 264, 136)])
+    def test_ffn_quantized(self, dtype, algo, T, H, I):
+        rng = np.random.RandomState(14)
+        h, x = (_t(_rand(rng, T, H)).cuda().to(dtype) for _ in range(2))
+        ws = [_quantized(_rand(rng, k, n, scale=k ** -0.5), algo)
+              for k, n in ((H, I), (H, I), (I, H))]
+        args = [_t(v).cuda() for pair in ws for v in pair]
+        n = fused_ffn.launches
+        got = fused_ffn(h, x, *args, algo=algo)
+        torch.cuda.synchronize()
+        assert fused_ffn.launches == n + 1
+        ref = ops.megadecode_ffn_reference(h, x, *args, algo=algo)
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **self._tol(dtype))
+        if dtype == torch.bfloat16:
+            _hold_rel("ffn", got, ref)

@@ -29,6 +29,7 @@ for n in names:
     importlib.import_module(n)
 # imports only: the scripts run under __main__
 import chip_smoke, flash_limits, paged_limits, profile_serving, profile_training
+import quant_limits
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -66,7 +67,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.distributed.parallel_layers",
                 "paddle_tpu_torch.generation", "paddle_tpu_torch.flags",
                 "paddle_tpu_torch.ops.paged",
-                "paddle_tpu_torch.ops.paged_attention"):
+                "paddle_tpu_torch.ops.paged_attention",
+                "paddle_tpu_torch.ops.quant"):
         assert mod in res["modules"]
 
 
@@ -118,6 +120,7 @@ def test_registry_names_the_ported_kernels():
     import paddle_tpu.ops.pallas_megafront  # noqa: F401
     import paddle_tpu.ops.pallas_paged  # noqa: F401
     import paddle_tpu.ops.pallas_ragged  # noqa: F401
+    import paddle_tpu.ops.quant  # noqa: F401
     from paddle_tpu.ops.oracles import oracles as jax_oracles
     from paddle_tpu_torch.ops import launch_counts, oracles
     ported = oracles()
@@ -125,7 +128,7 @@ def test_registry_names_the_ported_kernels():
                            "ragged_paged_attention", "fused_qkv_rope_append",
                            "fused_oproj_norm", "fused_ffn", "flash_sdpa",
                            "paged_decode_attention",
-                           "paged_decode_attention_v2"}
+                           "paged_decode_attention_v2", "weight_only_linear"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
