@@ -32,7 +32,17 @@ Phases, one line each on stdout:
    -> 1000] (`check_weight_only_linear`: bf16 by `row_rel_errors`, split_ms
    bf16 torch.matmul on the dequantized weight, library_ms
    torch._weight_int8pack_mm for int8, torch._weight_int4pack_mm for
-   int4);
+   int4); the bf16 fp megakernel sites are held by the same relative
+   errors as the quantized ones (the FFN's at the other sites' limits
+   since its activation reaches the down product as bf16 hi + lo
+   planes); the ragged kernel and both paged decode kernels at GPT-3
+   6.7B's heads (32 x 128 over 32 KV heads, rep 1) and Qwen2-7B's (28
+   over 4, rep 7) (`check_rep_shapes`); the gpt family's pieces at
+   GPT-3 6.7B's step (`check_gpt_kernels`: fused_layer_norm [132, 4096],
+   library_ms F.layer_norm; the layer-norm site of fused_oproj_norm with
+   the o-proj bias, split_ms cuBLAS + fused_layer_norm; the gelu site of
+   fused_ffn [4096 -> 16384 -> 4096] with b1 / b2, split_ms the cuBLAS +
+   F.gelu(approximate="tanh") chain);
 3. a tiny f32 Llama served on the CPU (plain versions) and on the card
    (kernels) over one seeded join/leave trace, on the fused and on the
    split chain and on the alternating path (ragged=False) under
@@ -41,7 +51,11 @@ Phases, one line each on stdout:
    generate and generate_cached (greedy, f32) CPU vs card: identical
    tokens, scores within 1e-5; then the same with weight-only int8 and
    int4 weights on all three paths and generate_cached, every card run
-   at its exact launch counts (`tiny_quant_parity`);
+   at its exact launch counts (`tiny_quant_parity`); then a tiny GPT
+   (head dim 64) and a tiny Qwen2 with random biases the same way on
+   the fused chain, the split chain and the alternating path under both
+   paged impls, and generate_cached, at exact launch counts
+   (`tiny_family_parity`);
 4. Llama-3-8B at full width (32 layers, vocab 128256, bf16 weights drawn
    on the card from a seeded generator) serving 8 seeded requests
    (prompts 64-512 tokens, 32 new tokens each) through ServingEngine's
@@ -86,12 +100,26 @@ Phases, one line each on stdout:
    trajectory; the loss must be finite and fall, and every timed step
    must launch the flash forward and backward once per layer with no
    plain-version call and no attention off the flash route;
-10. the ``{"kernels": [...]}`` line (launches from the run of the path
+10. GPT-3 6.7B at full width and depth (gpt3_6_7b_config: 32 layers,
+   hidden 4096, 32 heads x 128, FFN 16384, vocab 50304, tied head; bf16
+   weights drawn on the card) on the trace of phase 4: the fused chain
+   (fused_layer_norm layers + 1 a step, the layer-norm and gelu sites
+   of fused_oproj_norm / fused_ffn layers each), the split chain and the
+   alternating path (v2), each run's counts read alone; then
+   generate_cached 4 x 512 + 32 as phase 7;
+11. Qwen2-7B's published widths (`QWEN2_7B`: hidden 3584, 28 layers, 28
+   / 4 heads x 128, FFN 18944, vocab 152064, rope theta 1e6, untied;
+   bf16 weights drawn on the card) on the same trace: the fused chain
+   and the alternating path (v2);
+12. the ``{"kernels": [...]}`` line (launches from the run of the path
    that uses each kernel: the fused chain, the split chain for
    rope_append, phase 6's two runs for paged v2 and v1, the 8B training
-   run for flash attention, phase 7c for weight_only_linear; the three
-   megakernels' rows carry their int8 / int4 readings and launches from
-   phases 7a / 7b), then the ``{"ok": true, ...}`` line.
+   run for flash attention, phase 7c for weight_only_linear, phase 10's
+   fused chain for fused_layer_norm; the three megakernels' rows carry
+   their int8 / int4 readings and launches from phases 7a / 7b, and
+   fused_oproj_norm's and fused_ffn's their layer / gelu readings and
+   launches from phase 10's fused chain), then the ``{"ok": true, ...}``
+   line.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
 against its plain version at the training shape (B 1, S 8192, 32 heads
@@ -123,6 +151,9 @@ import torch
 
 from paddle_tpu_torch import card_report, generation, ops
 from paddle_tpu_torch.flags import flags_guard
+from paddle_tpu_torch.models import (GPTForCausalLM, Qwen2Config,
+                                     Qwen2ForCausalLM, gpt3_6_7b_config,
+                                     gpt_tiny_config, qwen2_tiny_config)
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama3_8b_config,
                                            llama_tiny_config,
@@ -159,6 +190,16 @@ F32_FLASH_SEQ = 2048
 LONG_SEQS, LONG_CTX = 8, 8192
 # generate_cached at 8B: 4 prompts of 512 tokens, 32 greedy new tokens
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
+# GPT-3 6.7B's step shapes (gpt3_6_7b_config: hidden 4096, 32 heads x
+# 128, MHA, FFN 16384)
+GPT_H, GPT_HEADS, GPT_FFN = 4096, 32, 16384
+#: Qwen2-7B's published config (Qwen/Qwen2-7B config.json): the JAX
+#: package has no helper for it, so its widths live here
+QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+                num_hidden_layers=28, num_attention_heads=28,
+                num_key_value_heads=4, max_position_embeddings=131072,
+                rope_theta=1000000.0, rms_norm_eps=1e-6,
+                tie_word_embeddings=False)
 
 
 def emit(phase: str, **fields) -> None:
@@ -323,16 +364,16 @@ def assert_paged_bf16(name: str, got, want):
 #: (quant_limits.py, PERF.md).
 WOL_BF16_TENSOR_LIMIT = 3e-4
 WOL_BF16_ROW_LIMIT = 1e-3
-#: the megakernels' int8 / int4 sites in bf16, the same two measures over
-#: each site's outputs (`quant_site_rows`), (tensor, row) limits from the
-#: same readings. fused_ffn reads higher for a sound kernel: it rounds
-#: the swiglu activation to bf16 for the down product, where the plain
-#: version keeps it in f32 (1.8e-3 tensor, up to 2.6e-3 a row at the
-#: card tests' H 256), so its tensor limit sits between that and the
-#: folded scale's 2.6e-3, and its row limit above the sound rows.
+#: the megakernels' sites in bf16 (fp, int8 / int4, and the gpt family's
+#: layer-norm and gelu sites), the same two measures over each site's
+#: outputs (`quant_site_rows`), (tensor, row) limits from the same
+#: readings. Every sound site rounds only its outputs: the FFN feeds its
+#: f32 activation to the down product as bf16 hi + lo planes, as exact
+#: as the plain version's f32 (its one bf16 plane read 1.8e-3 tensor, up
+#: to 2.6e-3 a row, and a folded scale only 1.4x above that).
 QSITE_BF16_LIMITS = {"fused_qkv_rope_append": (3e-4, 1e-3),
                      "fused_oproj_norm": (3e-4, 1e-3),
-                     "fused_ffn": (2.2e-3, 3e-3)}
+                     "fused_ffn": (3e-4, 1e-3)}
 INT8, INT4 = "weight_only_int8", "weight_only_int4"
 
 
@@ -476,32 +517,8 @@ def check_kernels(timer: Timer):
         r = rows.setdefault("ragged_paged_attention", {})
         r[f"max_abs_err_{tag}"] = err
         if main:
-            nt = mb["num_tokens"].cpu().tolist()
-            kvl = mb["kv_lengths"].cpu().tolist()
-            isz = qa.element_size()
-            live = sum(kv * KV * D * 2 * isz
-                       for kv, n in zip(kvl, nt) if n)
-            pairs = sum(kv - n + t + 1 for kv, n in zip(kvl, nt)
-                        for t in range(n))
-            b, by = bound(nbytes(qa, o, *tabs) + live, 4 * HQ * D * pairs,
-                          dtype)
-            # the same batch with the prefill chunk idle: a decode-only step
-            dec = (tabs[0], tabs[1] * (tabs[1] == 1), tabs[2] * (tabs[1] == 1),
-                   tabs[3])
-            dec_live = sum(kv * KV * D * 2 * isz
-                           for kv, n in zip(kvl, nt) if n == 1)
-            r.update(max_abs_err=err, bound_ms=b, bound_by=by,
-                     ms=timer.ms(lambda: ops.ragged_paged_attention(
-                         qa, kp, vp, *tabs)),
-                     plain_ms=timer.ms(lambda: ops.ragged_attention_reference(
-                         qa, kp, vp, *tabs)),
-                     library_ms=None, live_kv_bytes=live,
-                     qk_pairs=pairs,
-                     decode_only_ms=timer.ms(
-                         lambda: ops.ragged_paged_attention(qa, kp, vp,
-                                                            *dec)),
-                     decode_only_bound_ms=bound(nbytes(qa, o, *tabs)
-                                                + dec_live)[0])
+            r.update(max_abs_err=err, **time_ragged(timer, qa, kp, vp, o,
+                                                    tabs, dtype))
         check_megakernels(timer, mb, cos, sin, rows, dtype, tol[dtype], gc)
         check_quantized_megakernels(timer, mb, cos, sin, rows, dtype,
                                     tol[dtype], gc)
@@ -509,9 +526,199 @@ def check_kernels(timer: Timer):
             g, SLOTS, MAX_CTX // PSZ, [300, 1024, 517, 1], idle=3))
     check_paged(timer, rows, torch.bfloat16, gc, *long_context_batch(g),
                 tag="long")
+    check_rep_shapes(timer, rows, g, gc, mb)
+    check_gpt_kernels(timer, rows, gc, mb)
     check_flash(timer, rows)
     check_weight_only_linear(timer, rows)
     return rows
+
+
+def time_ragged(timer, qa, kp, vp, o, tabs, dtype):
+    """The ragged kernel's time over a mixed batch beside its plain
+    version and its bound (the live K/V rows, q, o and the tables, or the
+    4 H D operations of every visible (query, key) pair, whichever is
+    longer), and its time with the prefill chunk idle (a decode-only
+    step) beside that step's bytes bound."""
+    hq, kv = qa.shape[1], kp.shape[0]
+    nt = tabs[1].cpu().tolist()
+    kvl = tabs[2].cpu().tolist()
+    isz = qa.element_size()
+    live = sum(k * kv * D * 2 * isz for k, n in zip(kvl, nt) if n)
+    pairs = sum(k - n + t + 1 for k, n in zip(kvl, nt) for t in range(n))
+    b, by = bound(nbytes(qa, o, *tabs) + live, 4 * hq * D * pairs, dtype)
+    dec = (tabs[0], tabs[1] * (tabs[1] == 1), tabs[2] * (tabs[1] == 1),
+           tabs[3])
+    dec_live = sum(k * kv * D * 2 * isz for k, n in zip(kvl, nt) if n == 1)
+    return dict(
+        bound_ms=b, bound_by=by,
+        ms=timer.ms(lambda: ops.ragged_paged_attention(qa, kp, vp, *tabs)),
+        plain_ms=timer.ms(lambda: ops.ragged_attention_reference(
+            qa, kp, vp, *tabs)),
+        library_ms=None, live_kv_bytes=live, qk_pairs=pairs,
+        decode_only_ms=timer.ms(
+            lambda: ops.ragged_paged_attention(qa, kp, vp, *dec)),
+        decode_only_bound_ms=bound(nbytes(qa, o, *tabs) + dec_live)[0])
+
+
+#: the query / KV heads of the two geometries the Llama-3-8B shapes leave
+#: untried: GPT-3 6.7B's MHA (rep 1) and Qwen2-7B's 28 / 4 (rep 7)
+REP_SHAPES = {"rep1": (32, 32), "rep7": (28, 4)}
+
+
+def check_rep_shapes(timer, rows, g, gc, mb):
+    """The ragged kernel over the mixed batch and both paged decode
+    kernels over the alternating decode batch at REP_SHAPES, bf16, each
+    against its plain version (ragged at 2e-2, paged by
+    `assert_paged_bf16`) and timed beside it and its bound; readings
+    under rows[name][rep]."""
+    dtype = torch.bfloat16
+    T, P = mb["T"], mb["P"]
+    tabs = (mb["seq_start"], mb["num_tokens"], mb["kv_lengths"],
+            mb["tables"])
+    dec = decode_batch(g, SLOTS, MAX_CTX // PSZ, [300, 1024, 517, 1],
+                       idle=3)
+    for tag, (hq, kv) in REP_SHAPES.items():
+        def rnd(*shape):
+            return torch.randn(*shape, device=DEV, generator=gc).to(dtype)
+
+        qa, kp, vp = rnd(T, hq, D), rnd(kv, P, PSZ, D), rnd(kv, P, PSZ, D)
+        n0 = ops.ragged_paged_attention.launches
+        o = ops.ragged_paged_attention(qa, kp, vp, *tabs)
+        torch.cuda.synchronize()
+        assert ops.ragged_paged_attention.launches == n0 + 1
+        ref = ops.ragged_attention_reference(qa, kp, vp, *tabs)
+        torch.testing.assert_close(o.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        rows["ragged_paged_attention"][tag] = dict(
+            heads=hq, kv_heads=kv, max_abs_err=max_err(o, ref),
+            **time_ragged(timer, qa, kp, vp, o, tabs, dtype))
+        del qa, kp, vp
+        args = paged_batch(gc, dtype, *dec, heads=hq, kv_heads=kv)
+        ref = ops.paged_decode_reference(*args)
+        live = int(dec[1].sum()) * kv * D * 2 * args[0].element_size()
+        for fn in (ops.paged_decode_attention, ops.paged_decode_attention_v2):
+            n0 = fn.launches
+            out = fn(*args)
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1
+            tensor, head = assert_paged_bf16(fn.__name__, out, ref)
+            b_, by = bound(live + nbytes(args[0], out, dec[1], dec[2]))
+            rows[fn.__name__][tag] = dict(
+                heads=hq, kv_heads=kv, max_abs_err=max_err(out, ref),
+                rel_err_bf16={"tensor": tensor, "head": head},
+                bound_ms=b_, bound_by=by, ms=timer.ms(lambda: fn(*args)),
+                plain_ms=timer.ms(
+                    lambda: ops.paged_decode_reference(*args)),
+                library_ms=None, live_kv_bytes=live)
+        del args
+
+
+def check_gpt_kernels(timer, rows, gc, mb):
+    """The gpt family's kernel pieces at GPT-3 6.7B's step shapes (T =
+    SLOTS + CHUNK rows, hidden 4096, FFN 16384), bf16 and f32, each
+    against its plain version: fused_layer_norm (at 2e-2 / 2e-5), the
+    layer-norm site of fused_oproj_norm with the o-proj bias and the gelu
+    site of fused_ffn with b1 / b2 (bf16 also by `row_rel_errors` within
+    QSITE_BF16_LIMITS). The residual stream carries a mean of 3 (the
+    two-pass variance). bf16 is timed beside the plain version, the bound,
+    F.layer_norm (`library_ms`) or the split chain's calls (`split_ms`:
+    cuBLAS + fused_layer_norm; the cuBLAS + F.gelu chain). Readings under
+    rows["fused_layer_norm"], rows["fused_oproj_norm"]["layer"] and
+    rows["fused_ffn"]["gelu"]."""
+    T = mb["T"]
+    H, I = GPT_H, GPT_FFN
+    F = torch.nn.functional
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        tag = "bf16" if main else "f32"
+        tol = dict(atol=2e-2, rtol=2e-2) if main else \
+            dict(atol=2e-5, rtol=2e-5)
+
+        def rnd(*shape, scale=1.0, shift=0.0):
+            return (torch.randn(*shape, device=DEV, generator=gc) * scale
+                    + shift).to(dtype)
+
+        def hold(name, got, ref, site):
+            got, ref = ((got, ref) if isinstance(got, tuple)
+                        else ((got,), (ref,)))
+            for a, b_ in zip(got, ref):
+                torch.testing.assert_close(a.float(), b_.float(), **tol)
+            r = rows.setdefault(name, {})
+            if site:
+                r = r.setdefault(site, {})
+            r[f"max_abs_err_{tag}"] = max(max_err(a, b_)
+                                          for a, b_ in zip(got, ref))
+            if main:
+                r["max_abs_err"] = r[f"max_abs_err_{tag}"]
+                tensor, row = row_rel_errors(torch.cat(got, 1),
+                                             torch.cat(ref, 1))
+                r["rel_err_bf16"] = {"tensor": tensor, "row": row}
+                if site:
+                    lt, lr = QSITE_BF16_LIMITS[name]
+                    assert tensor <= lt and row <= lr, (name, site, tensor,
+                                                        row)
+            return r
+
+        x, w, b = rnd(T, H, shift=3.0), rnd(H), rnd(H)
+        n0 = ops.fused_layer_norm.launches
+        out = ops.fused_layer_norm(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        assert ops.fused_layer_norm.launches == n0 + 1
+        r = hold("fused_layer_norm", out,
+                 ops.layer_norm_reference(x, w, b, 1e-5), None)
+        if main:
+            b_, by = bound(nbytes(x, w, b, out))
+            r.update(bound_ms=b_, bound_by=by,
+                     ms=timer.ms(lambda: ops.fused_layer_norm(x, w, b,
+                                                              1e-5)),
+                     plain_ms=timer.ms(
+                         lambda: ops.layer_norm_reference(x, w, b, 1e-5)),
+                     library_ms=timer.ms(
+                         lambda: F.layer_norm(x, (H,), w, b, 1e-5)))
+
+        o, wo = rnd(T, H), rnd(H, H, scale=H ** -0.5)
+        bo, nw, nb = rnd(H), rnd(H), rnd(H)
+        kw = dict(eps=1e-5, norm="layer")
+        n0 = ops.fused_oproj_norm.launches
+        got = ops.fused_oproj_norm(o, x, wo, None, bo, nw, nb, **kw)
+        torch.cuda.synchronize()
+        assert ops.fused_oproj_norm.launches == n0 + 1
+        r = hold("fused_oproj_norm", got, ops.oproj_norm_reference(
+            o, x, wo, None, bo, nw, nb, **kw), "layer")
+        if main:
+            b_, by = bound(nbytes(o, x, wo, bo, nw, nb) + 2 * nbytes(x),
+                           2 * T * H * H, dtype)
+            r.update(
+                bound_ms=b_, bound_by=by, library_ms=None,
+                ms=timer.ms(lambda: ops.fused_oproj_norm(
+                    o, x, wo, None, bo, nw, nb, **kw)),
+                plain_ms=timer.ms(lambda: ops.oproj_norm_reference(
+                    o, x, wo, None, bo, nw, nb, **kw)),
+                split_ms=timer.ms(lambda: ops.fused_layer_norm(
+                    x + (o @ wo + bo), nw, nb, 1e-5)))
+        del o, wo
+
+        h = rnd(T, H)
+        wi, wf = rnd(H, I, scale=H ** -0.5), rnd(I, H, scale=I ** -0.5)
+        bi, bf = rnd(I), rnd(H)
+        args = (h, x, wi, None, None, None, wf, None, bi, bf)
+        n0 = ops.fused_ffn.launches
+        got = ops.fused_ffn(*args, act="gelu")
+        torch.cuda.synchronize()
+        assert ops.fused_ffn.launches == n0 + 1
+        r = hold("fused_ffn", got,
+                 ops.megadecode_ffn_reference(*args, act="gelu"), "gelu")
+        if main:
+            b_, by = bound(nbytes(h, x, wi, wf, bi, bf) + nbytes(x),
+                           2 * 2 * T * H * I, dtype)
+            r.update(
+                bound_ms=b_, bound_by=by, library_ms=None,
+                ms=timer.ms(lambda: ops.fused_ffn(*args, act="gelu")),
+                plain_ms=timer.ms(lambda: ops.megadecode_ffn_reference(
+                    *args, act="gelu")),
+                split_ms=timer.ms(lambda: x + (F.gelu(
+                    h @ wi + bi, approximate="tanh") @ wf + bf)))
+        del h, wi, wf
 
 
 def decode_batch(g, B, nj, lengths, idle=None):
@@ -544,16 +751,18 @@ def long_context_batch(g):
     return decode_batch(g, LONG_SEQS, LONG_CTX // PSZ, lengths)
 
 
-def paged_batch(gc, dtype, P, lens, tables):
+def paged_batch(gc, dtype, P, lens, tables, heads=None, kv_heads=None):
     """(q, k_pages, v_pages, lengths, tables) of one paged decode batch
-    at the 8B heads, drawn from `gc`."""
+    at `heads` query heads over `kv_heads` (the 8B heads by default),
+    drawn from `gc`."""
     B = lens.shape[0]
+    heads, kv_heads = heads or HQ, kv_heads or KV
 
     def rnd(*shape):
         return torch.randn(*shape, device=DEV, generator=gc).to(dtype)
 
-    return rnd(B, HQ, D), rnd(KV, P, PSZ, D), rnd(KV, P, PSZ, D), lens, \
-        tables
+    return rnd(B, heads, D), rnd(kv_heads, P, PSZ, D), \
+        rnd(kv_heads, P, PSZ, D), lens, tables
 
 
 def check_paged(timer, rows, dtype, gc, P, lens, tables, tag=None):
@@ -615,11 +824,22 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
         return (torch.randn(*shape, device=DEV, generator=gc)
                 * scale).to(dtype)
 
-    def record(name, err, **timed):
+    def record(name, got, ref):
+        """The site's readings, taken before the timed calls write the
+        pools again; bf16 also held by `row_rel_errors` over
+        `quant_site_rows` within QSITE_BF16_LIMITS, as the quantized
+        sites are."""
+        err = max(max_err(a, b) for a, b in zip(got, ref))
         r = rows.setdefault(name, {})
         r[f"max_abs_err_{tag}"] = err
         if main:
-            r.update(max_abs_err=err, library_ms=None, **timed)
+            tensor, row = row_rel_errors(quant_site_rows(name, got, idx),
+                                         quant_site_rows(name, ref, idx))
+            lt, lr = QSITE_BF16_LIMITS[name]
+            assert tensor <= lt and row <= lr, (name, tensor, row)
+            r.update(max_abs_err=err, library_ms=None,
+                     rel_err_bf16={"tensor": tensor, "row": row})
+        return r
 
     # qkv projection + rope + paged append, one [H, (HQ + 2 KV) D] slab
     h, w = rnd(T, H), rnd(H, N, scale=H ** -0.5)
@@ -637,14 +857,14 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
                                         vp2, *idx, **kw)
     for a, b in zip((q, okp, ovp), ref):     # one idle row: pools whole
         torch.testing.assert_close(a.float(), b.float(), **tol)
-    err = max(max_err(a, b) for a, b in zip((q, okp, ovp), ref))
+    r = record("fused_qkv_rope_append", (q, okp, ovp), ref)
     if main:
         wq, wk, wv = (w[:, :HQ * D].contiguous(),
                       w[:, HQ * D:(HQ + KV) * D].contiguous(),
                       w[:, (HQ + KV) * D:].contiguous())
         b_, by = bound(nbytes(h, w, cos, sin, *idx, q)
                        + 2 * T * KV * D * isz, 2 * T * H * N, dtype)
-        timed = dict(
+        r.update(
             bound_ms=b_, bound_by=by,
             ms=timer.ms(lambda: ops.fused_qkv_rope_append(
                 h, w, None, None, cos, sin, kp, vp, *idx, **kw)),
@@ -653,7 +873,6 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
             split_ms=timer.ms(lambda: ops.fused_rope_append(
                 (h @ wq).view(T, HQ, D), (h @ wk).view(T, KV, D),
                 (h @ wv).view(T, KV, D), cos, sin, kp2, vp2, *idx)))
-    record("fused_qkv_rope_append", err, **(timed if main else {}))
 
     # o-proj + residual + rms norm
     o, x = rnd(T, HQ * D), rnd(T, H)
@@ -665,11 +884,11 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
     ref = ops.oproj_norm_reference(o, x, wo, None, None, nw, eps=1e-5)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a.float(), b.float(), **tol)
-    err = max(max_err(a, b) for a, b in zip(got, ref))
+    r = record("fused_oproj_norm", got, ref)
     if main:
         b_, by = bound(nbytes(o, x, wo, nw) + 2 * nbytes(x),
                        2 * T * HQ * D * H, dtype)
-        timed = dict(
+        r.update(
             bound_ms=b_, bound_by=by,
             ms=timer.ms(lambda: ops.fused_oproj_norm(
                 o, x, wo, None, None, nw, eps=1e-5)),
@@ -677,7 +896,6 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
                 o, x, wo, None, None, nw, eps=1e-5)),
             split_ms=timer.ms(lambda: ops.fused_rms_norm(x + o @ wo, nw,
                                                          1e-5)))
-    record("fused_oproj_norm", err, **(timed if main else {}))
 
     # gate/up + swiglu + down + residual
     hh = rnd(T, H)
@@ -689,19 +907,18 @@ def check_megakernels(timer, mb, cos, sin, rows, dtype, tol, gc):
     assert ops.fused_ffn.launches == n0 + 1
     ref = ops.megadecode_ffn_reference(hh, x, wg, None, wu, None, wd, None)
     torch.testing.assert_close(got.float(), ref.float(), **tol)
-    err = max_err(got, ref)
+    r = record("fused_ffn", (got,), (ref,))
     if main:
         silu = torch.nn.functional.silu
         b_, by = bound(nbytes(hh, x, wg, wu, wd) + nbytes(x),
                        3 * 2 * T * H * FFN, dtype)
-        timed = dict(
+        r.update(
             bound_ms=b_, bound_by=by,
             ms=timer.ms(lambda: ops.fused_ffn(hh, x, wg, None, wu, None, wd,
                                               None)),
             plain_ms=timer.ms(lambda: ops.megadecode_ffn_reference(
                 hh, x, wg, None, wu, None, wd, None)),
             split_ms=timer.ms(lambda: x + (silu(hh @ wg) * (hh @ wu)) @ wd))
-    record("fused_ffn", err, **(timed if main else {}))
 
 
 def quant_site_rows(name, outs, idx):
@@ -1088,12 +1305,14 @@ SPLIT = dict(megafront=False, megadecode=False)
 NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0)}
 NO_PAGED = {"paged_decode_attention": (0, 0),
             "paged_decode_attention_v2": (0, 0)}
-FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_qkv_rope_append": (1, 0),
+FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_layer_norm": (0, 0),
+                  "fused_qkv_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_oproj_norm": (1, 0), "fused_ffn": (1, 0),
                   "fused_rope_append": (0, 0), "weight_only_linear": (0, 0),
                   **NO_TRAINING, **NO_PAGED}
-SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_rope_append": (1, 0),
+SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_layer_norm": (0, 0),
+                  "fused_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_qkv_rope_append": (0, 0),
                   "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0),
@@ -1104,10 +1323,21 @@ SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_rope_append": (1, 0),
 INT4_WOL = {"fused": (0, 1), "split": (7, 1)}
 
 
-def per_step_counts(chain: str, quant=None) -> dict:
+def norm_kernel(model) -> str:
+    """The norm kernel of a model's serving bodies: layer norm for the
+    gpt family, rms norm for the llama family (Qwen2 included)."""
+    return "fused_layer_norm" if hasattr(model, "gpt") else "fused_rms_norm"
+
+
+def per_step_counts(chain: str, quant=None,
+                    norm: str = "fused_rms_norm") -> dict:
     """(per layer, per step) launches of every kernel on a unified-step
-    chain ("fused" / "split") under weight_only_quant `quant`."""
+    chain ("fused" / "split") under weight_only_quant `quant`, with
+    `norm` the family's norm kernel."""
     base = FUSED_PER_STEP if chain == "fused" else SPLIT_PER_STEP
+    if norm == "fused_layer_norm":
+        base = dict(base, fused_layer_norm=base["fused_rms_norm"],
+                    fused_rms_norm=(0, 0))
     if quant != "int4":
         return base
     return dict(base, weight_only_linear=INT4_WOL[chain])
@@ -1126,13 +1356,15 @@ def alternating_launches(steps):
             sum(1 for _, o in steps if o["decoded"] > 0))
 
 
-def expect_alternating(impl, layers, prefill, decode, quant=None):
+def expect_alternating(impl, layers, prefill, decode, quant=None,
+                       norm: str = "fused_rms_norm"):
     """Every kernel's launches in an alternating-path run: 2 * layers + 1
-    rms_norm a launch, `layers` of the impl's paged kernel a decode
-    launch, under int4 weights 7 * layers + 1 weight_only_linear a launch
-    (every projection and the head), nothing else."""
+    of the family's `norm` kernel a launch, `layers` of the impl's paged
+    kernel a decode launch, under int4 weights 7 * layers + 1
+    weight_only_linear a launch (every projection and the head), nothing
+    else."""
     want = {name: 0 for name in ops.launch_counts()}
-    want["fused_rms_norm"] = (2 * layers + 1) * (prefill + decode)
+    want[norm] = (2 * layers + 1) * (prefill + decode)
     want[ALTERNATING[impl][0]] = layers * decode
     if quant == "int4":
         want["weight_only_linear"] = (7 * layers + 1) * (prefill + decode)
@@ -1195,6 +1427,7 @@ def tiny_engine_parity():
             "launches": {k: v for k, v in want.items() if v}}
     out["generate"] = tiny_generate_parity()
     out["quantized"] = tiny_quant_parity()
+    out["gpt_and_qwen2"] = tiny_family_parity()
     return out
 
 
@@ -1270,6 +1503,81 @@ def tiny_quant_parity():
     return out
 
 
+def tiny_family_parity():
+    """The tiny f32 GPT (hidden 128, 2 heads of 64) and Qwen2 (2 query
+    heads of 64 on 1 KV head), biases drawn at random (the initializers
+    leave them at 0), CPU (plain versions) vs card (kernels): identical
+    greedy tokens on the fused chain, the split chain and the alternating
+    path under both paged impls, each card run at exactly its path's
+    launches (the gpt family's with fused_layer_norm for every norm);
+    then generate_cached: identical tokens, scores within 1e-5, the
+    flash kernel once a layer and nothing else."""
+    out = {}
+    families = (
+        ("gpt", GPTForCausalLM,
+         gpt_tiny_config(hidden_size=128, num_attention_heads=2)),
+        ("qwen2", Qwen2ForCausalLM,
+         qwen2_tiny_config(num_attention_heads=2, num_key_value_heads=1)))
+    kw = dict(max_slots=2, page_size=4, prefill_chunk=4)
+    paths = (("fused", {}, "intree"), ("split", SPLIT, "intree"),
+             ("alternating", dict(ragged=False), "intree"),
+             ("alternating", dict(ragged=False), "intree_v1"))
+    for fam, cls, cfg in families:
+        cpu_model = cls(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, p_ in cpu_model.named_parameters():
+                if name.endswith("bias"):
+                    p_.normal_(0.0, 0.1, generator=g)
+        gpu_model = copy.deepcopy(cpu_model).to(DEV)
+        norm, L = norm_kernel(cpu_model), cfg.num_hidden_layers
+        reqs = trace(np.random.RandomState(1), cfg.vocab_size, 6, 2, 12, 2,
+                     8, 4)
+        for chain, ckw, impl in paths:
+            with flags_guard(paged_impl=impl):
+                cpu_out, _, _ = drive(ServingEngine(
+                    cpu_model, device="cpu", **kw, **ckw), reqs)
+                eng = ServingEngine(gpu_model, device=DEV, **kw, **ckw)
+            ops.reset_counts()
+            gpu_out, _, steps = drive(eng, reqs)
+            counts = ops.launch_counts()
+            assert set(cpu_out) == set(gpu_out) == set(range(len(reqs)))
+            for rid in cpu_out:
+                np.testing.assert_array_equal(gpu_out[rid], cpu_out[rid])
+            if chain == "alternating":
+                want = expect_alternating(
+                    impl, L, *alternating_launches(steps), norm=norm)
+            else:
+                want = {k: (a * L + b) * eng.launches for k, (a, b)
+                        in per_step_counts(chain, None, norm).items()}
+            for name, c in counts.items():
+                assert c == {"launches": want[name], "plain_calls": 0}, \
+                    (fam, chain, impl, name, c, want[name])
+            key = f"{fam}/{chain}" + ("" if chain != "alternating"
+                                      else "/" + impl)
+            out[key] = {"tokens": int(sum(len(v) for v in cpu_out.values())),
+                        "identical": True,
+                        "launches": {k: v for k, v in want.items() if v}}
+        ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 7))
+        gkw = dict(max_new_tokens=6, decode_strategy="greedy_search")
+        cpu_tok, cpu_sc = generation.generate_cached(cpu_model, ids, **gkw)
+        ops.reset_counts()
+        gpu_tok, gpu_sc = generation.generate_cached(gpu_model, ids, **gkw)
+        counts = ops.launch_counts()
+        np.testing.assert_array_equal(gpu_tok.cpu().numpy(),
+                                      cpu_tok.numpy())
+        dist = float((gpu_sc.cpu() - cpu_sc).abs().max())
+        assert dist <= 1e-5, (fam, dist)
+        for name, c in counts.items():
+            want = L if name == "flash_sdpa" else 0
+            assert c == {"launches": want, "plain_calls": 0}, (fam, name, c)
+        out[f"{fam}/generate_cached"] = {
+            "tokens": cpu_tok.numpy().tolist(), "score_max_abs_diff": dist,
+            "flash_launches": L}
+    return out
+
+
 def tiny_generate_parity():
     """generate and generate_cached (greedy, f32) on a tiny Llama (head_dim
     64, 2 query heads on 1 KV head): CPU (plain versions) vs card (the
@@ -1303,17 +1611,23 @@ def tiny_generate_parity():
 
 def read_bytes(w) -> int:
     """Bytes of an engine's weight tree that one decode step reads: every
-    layer tensor, the final norm and the LM head in its layout (not the
-    embedding, of which a step gathers a few rows, nor the rope tables)."""
+    layer tensor, the final norm and the LM head in its layout, which is
+    the embedding for a tied head (otherwise not the embedding or the
+    learned positions, of which a step gathers a few rows, nor the rope
+    tables)."""
+    heads = [t for k, t in w.items() if k.startswith("head")
+             and t is not None]
     return (sum(nbytes(t) for L in w["layers"] for t in L.values())
-            + nbytes(w["norm"])
-            + sum(nbytes(t) for k, t in w.items()
-                  if k.startswith("head") and t is not None))
+            + sum(nbytes(t) for k, t in w.items() if k.startswith("norm"))
+            + sum(nbytes(t) for t in heads)
+            + (0 if heads else nbytes(w["embed"])))
 
 
-def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree",
-             quant=None):
-    """Serve the seeded 8B trace through one chain of ServingEngine's
+def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
+                quant=None):
+    """Serve the seeded trace (8 requests, prompts of 64-512 tokens, 32
+    new tokens each) with a full-width model (Llama-3-8B, GPT-3 6.7B or
+    Qwen2-7B) through one chain of ServingEngine's
     unified step ("fused", "split") or through the alternating path
     ("alternating", ragged=False, with FLAGS_paged_impl `impl` pinned:
     the v2 paged kernel under "intree", v1 under "intree_v1"), with the
@@ -1323,6 +1637,7 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree",
     alternating, no other paged route)."""
     cfg = model.config
     layers = cfg.num_hidden_layers
+    norm = norm_kernel(model)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     alt = chain == "alternating"
@@ -1339,8 +1654,11 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree",
     assert eng.ragged == (not alt)
     assert eng.paged_impl == (impl if alt else None)
     pool_bytes = sum(nbytes(k, v) for k, v in eng._pools)
-    slab_bytes = sum(nbytes(t) for L in eng._p["layers"]
-                     for k, t in L.items() if k.startswith("wqkv"))
+    # the engine's concatenated qkv copy (the gpt family's wqkv is the
+    # model's own weight, no copy)
+    slab_bytes = 0 if norm == "fused_layer_norm" else sum(
+        nbytes(t) for L in eng._p["layers"] for k, t in L.items()
+        if k.startswith("wqkv"))
     tree_bytes = read_bytes(eng._w)
     rng = np.random.RandomState(0)
     # warm-up (cuBLAS handles, allocator): one short request, then the
@@ -1388,15 +1706,15 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree",
     if alt:
         pre, dec = alternating_launches(steps)
         assert n_steps == pre + dec, (n_steps, pre, dec)
-        expect = expect_alternating(impl, layers, pre, dec, quant)
+        expect = expect_alternating(impl, layers, pre, dec, quant, norm)
         assert paged_routes.route_counts == dict(
             {k: 0 for k in paged_routes.route_counts},
             **{"paged_" + impl: layers * dec}), paged_routes.route_counts
         per_launch = {"decode": {ALTERNATING[impl][0]: layers,
-                                 "fused_rms_norm": 2 * layers + 1},
-                      "prefill": {"fused_rms_norm": 2 * layers + 1}}
+                                 norm: 2 * layers + 1},
+                      "prefill": {norm: 2 * layers + 1}}
     else:
-        per_step = per_step_counts(chain, quant)
+        per_step = per_step_counts(chain, quant, norm)
         expect = {name: (a * layers + b) * n_steps
                   for name, (a, b) in per_step.items()}
         per_launch = {k: v // n_steps for k, v in expect.items()}
@@ -1440,8 +1758,8 @@ def serve_8b(model, chain: str, counts_out: dict, impl: str = "intree",
     return out, res
 
 
-def generate_cached_8b(model):
-    """generate_cached at Llama-3-8B: GEN_BATCH seeded prompts of
+def generate_cached_run(model):
+    """generate_cached at full width: GEN_BATCH seeded prompts of
     GEN_PROMPT tokens, GEN_NEW greedy new tokens. Every call of the cached
     step is timed alone (a synchronize on both sides); the prefill must
     run the flash kernel once a layer and nothing else may launch."""
@@ -1655,6 +1973,8 @@ def same_share(a: dict, b: dict) -> float:
 SOURCES = {
     "fused_rms_norm": ("paddle_tpu_torch/ops/csrc/fused.cu",
                        "paddle_tpu/ops/fused.py:100"),
+    "fused_layer_norm": ("paddle_tpu_torch/ops/csrc/fused.cu",
+                         "paddle_tpu/ops/fused.py:122"),
     "fused_rope_append": ("paddle_tpu_torch/ops/csrc/fused.cu",
                           "paddle_tpu/ops/fused.py:396"),
     "ragged_paged_attention": ("paddle_tpu_torch/ops/csrc/"
@@ -1681,6 +2001,11 @@ SOURCES = {
 }
 #: the megakernels' quantized sites, reported inside their rows
 QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
+#: the gpt family's sites of two megakernels, reported inside their rows
+GPT_SITES = {"fused_oproj_norm": "layer", "fused_ffn": "gelu"}
+#: the readings a site's sub-row of the kernels line carries
+SITE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "split_ms", "rel_err_bf16")
 
 
 def main() -> int:
@@ -1713,31 +2038,31 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     fused_launches: dict = {}
-    fused_out, res = serve_8b(model, "fused", fused_launches)
+    fused_out, res = serve_trace(model, "fused", fused_launches)
     emit("4 llama3-8b serving, fused chain", card=card["nvidia_smi"],
          model_init_s=init_s, **res)
     torch.cuda.empty_cache()
     split_launches: dict = {}
-    split_out, res = serve_8b(model, "split", split_launches)
+    split_out, res = serve_trace(model, "split", split_launches)
     emit("5 llama3-8b serving, split chain", card=card["nvidia_smi"],
          identical_token_share_vs_fused=same_share(fused_out, split_out),
          **res)
     torch.cuda.empty_cache()
     alt_launches: dict = {}
-    alt_out, res = serve_8b(model, "alternating", alt_launches)
+    alt_out, res = serve_trace(model, "alternating", alt_launches)
     emit("6 llama3-8b serving, alternating path", card=card["nvidia_smi"],
          identical_token_share_vs_fused=same_share(fused_out, alt_out),
          **res)
     torch.cuda.empty_cache()
     v1_launches: dict = {}
-    v1_out, res = serve_8b(model, "alternating", v1_launches, "intree_v1")
+    v1_out, res = serve_trace(model, "alternating", v1_launches, "intree_v1")
     emit("6 llama3-8b serving, alternating path, intree_v1",
          card=card["nvidia_smi"],
          identical_token_share_vs_fused=same_share(fused_out, v1_out),
          identical_token_share_vs_v2=same_share(alt_out, v1_out), **res)
     torch.cuda.empty_cache()
     emit("7 llama3-8b generate_cached", card=card["nvidia_smi"],
-         **generate_cached_8b(model))
+         **generate_cached_run(model))
     torch.cuda.empty_cache()
     # weight-only quantized serving of the same model and trace: the
     # engine quantizes the tree on the card (quantize_s), each run's
@@ -1746,7 +2071,7 @@ def main() -> int:
     for tag, quant, chain in (("7a", "int8", "fused"), ("7b", "int4", "fused"),
                               ("7c", "int4", "split")):
         launches: dict = {}
-        q_out, res = serve_8b(model, chain, launches, quant=quant)
+        q_out, res = serve_trace(model, chain, launches, quant=quant)
         key = f"{quant} {chain}"
         quant_launches[key], quant_out[key] = launches, q_out
         shares = {"identical_token_share_vs_fused":
@@ -1766,13 +2091,60 @@ def main() -> int:
     emit("8 tiny training cpu vs card", **tiny_train_parity())
     res, train_launches = train_8b(card)
     emit("9 llama3-8b-width pretraining, 4 of 32 layers", **res)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GPT-3 6.7B at full width and depth (tied head, bf16 weights drawn on
+    # the card): the fused chain (its layer-norm and gelu sites), the split
+    # chain and the alternating path on the same trace, then
+    # generate_cached; then Qwen2-7B on the fused chain and the alternating
+    # path; each model freed before the next
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(gpt3_6_7b_config(), device=DEV,
+                           dtype=torch.bfloat16,
+                           generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gpt_launches: dict = {}
+    gpt_out, res = serve_trace(model, "fused", gpt_launches)
+    emit("10 gpt3-6.7b serving, fused chain", card=card["nvidia_smi"],
+         model_init_s=init_s, **res)
+    torch.cuda.empty_cache()
+    for chain, tag in (("split", "split chain"),
+                       ("alternating", "alternating path")):
+        out, res = serve_trace(model, chain, {})
+        emit(f"10 gpt3-6.7b serving, {tag}", card=card["nvidia_smi"],
+             identical_token_share_vs_fused=same_share(gpt_out, out), **res)
+        torch.cuda.empty_cache()
+    emit("10 gpt3-6.7b generate_cached", card=card["nvidia_smi"],
+         **generate_cached_run(model))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Qwen2ForCausalLM(Qwen2Config(**QWEN2_7B), device=DEV,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    qwen_out, res = serve_trace(model, "fused", {})
+    emit("11 qwen2-7b serving, fused chain", card=card["nvidia_smi"],
+         model_init_s=init_s, **res)
+    torch.cuda.empty_cache()
+    out, res = serve_trace(model, "alternating", {})
+    emit("11 qwen2-7b serving, alternating path", card=card["nvidia_smi"],
+         identical_token_share_vs_fused=same_share(qwen_out, out), **res)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels = []
     paths = (("fused", fused_launches), ("split", split_launches),
              ("alternating", alt_launches),
              ("alternating, intree_v1", v1_launches),
              ("train", train_launches),
-             ("int4 split", quant_launches["int4 split"]))
+             ("int4 split", quant_launches["int4 split"]),
+             ("gpt3-6.7b fused", gpt_launches))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         path, launches = next((p, c[name]) for p, c in paths if name in c)
@@ -1782,14 +2154,21 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "split_ms": r.get("split_ms")}
+            "split_ms": r.get("split_ms"),
+            "rel_err_bf16": r.get("rel_err_bf16")}
         if name in QUANT_SITES:
             for q in ("int8", "int4"):
-                row[q] = dict(
-                    {k: r[q][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "split_ms", "rel_err_bf16")},
-                    launches=quant_launches[f"{q} fused"][name])
+                row[q] = dict({k: r[q][k] for k in SITE_KEYS},
+                              launches=quant_launches[f"{q} fused"][name])
+        if name in GPT_SITES:
+            site = GPT_SITES[name]
+            row[site] = dict({k: r[site][k] for k in SITE_KEYS},
+                             launches=gpt_launches[name])
+        for rep_ in REP_SHAPES:
+            if rep_ in r:
+                row[rep_] = {k: r[rep_][k] for k in (
+                    "heads", "kv_heads", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by")}
         if name == "weight_only_linear":
             row["cases"] = {k: {f: v[f] for f in ("ms", "bound_ms",
                                                   "bound_by", "split_ms",

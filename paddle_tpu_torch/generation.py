@@ -1,5 +1,6 @@
 """Text generation and the decode weight tree (counterpart of
-paddle_tpu/generation.py, Llama family).
+paddle_tpu/generation.py: the llama family, with Qwen2, and the gpt
+family).
 
 Ported:
 
@@ -13,16 +14,20 @@ Ported:
   step's K/V rows are written into preallocated [B, total, KV, D] caches
   IN PLACE (the JAX body returned updated copies) and attention is the
   dense masked einsum over the cache, in the JAX body's op order.
-- `_decode_params`, `_llama_decode_params`, `_llama_weights`, `_mm_w`,
-  `_dq`, `_ffn_apply` (dense SwiGLU): the weight tree the serving engine
-  reads too, in the fp layout or, with ``weight_only_int8=True`` /
+- `_decode_params`, `_llama_decode_params` (Llama and Qwen2, whose
+  q/k/v biases ride as ``bq`` / ``bk`` / ``bv``), `_gpt_decode_params`
+  (fused ``wqkv`` + ``bqkv``, LayerNorms with biases, the GELU MLP,
+  learned positions ``pos``), `_llama_weights`, `_mm_w`, `_dq`,
+  `_ffn_apply` (dense SwiGLU): the weight tree the serving engine reads
+  too, in the fp layout or, with ``weight_only_int8=True`` /
   ``weight_only_quant="int8"|"int4"``, the JAX package's weight-only
   deploy layouts byte for byte (`_woq_algo`, `_q8`): every 2-D matmul
   weight of the layers and the LM head as ``key_q`` (int8 [K, N]) or
   ``key_q4`` (packed int4 [K/2, N]) beside its f32 scale ``key_s``. The
-  gpt, MoE and MLA families (and their 3-D expert stacks and 2-D int4
-  whole reads) raise naming item 5. `generate_compiled` and the beam
-  searches are not ported yet (queue A item 3).
+  gpt family stays fp, as in JAX (its quant knobs raise). The MoE and
+  MLA families (and their 3-D expert stacks and 2-D int4 whole reads)
+  raise naming item 5. `generate_compiled` and the beam searches are
+  not ported yet (queue A item 3).
 
 PyTorch idiom: an eager Python loop, no jit. Inputs move to the model's
 device, so the model decides where the call runs (a model built with
@@ -271,9 +276,11 @@ def _q8(d, key, enabled: bool = True, algo: str = "weight_only_int8"):
 
 def _llama_decode_params(model, weight_only_int8: bool = False,
                          weight_only_quant=None):
-    """The cached-decode weight tree of a LlamaForCausalLM: plain tensors
-    (detached views of the parameters, no copies) keyed like the JAX
-    package's tree, plus the config and the f32 rope tables.
+    """The cached-decode weight tree of a LlamaForCausalLM or a
+    Qwen2ForCausalLM (the same GQA backbone; Qwen2's q/k/v biases ride as
+    the fp leaves ``bq`` / ``bk`` / ``bv``): plain tensors (detached
+    views of the parameters, no copies) keyed like the JAX package's
+    tree, plus the config and the f32 rope tables.
 
     ``weight_only_int8`` / ``weight_only_quant`` ('int8' or 'int4')
     quantize every 2-D matmul weight of the layers, and the LM head
@@ -283,9 +290,11 @@ def _llama_decode_params(model, weight_only_int8: bool = False,
     cfg = model.config
     inner = getattr(model, "llama", None)
     if inner is None:
+        inner = getattr(model, "qwen2", None)
+    if inner is None:
         raise NotImplementedError(
-            "the port serves the llama family only; the other families "
-            "are ROADMAP.md queue A item 5")
+            "expected a Llama-family model (model.llama / model.qwen2); "
+            "the MoE and MLA families are ROADMAP.md queue A item 5")
     layers = []
     for lyr in inner.layers:
         a, m = lyr.self_attn, lyr.mlp
@@ -296,6 +305,10 @@ def _llama_decode_params(model, weight_only_int8: bool = False,
             ln2=lyr.post_attention_layernorm.weight.detach(),
             wg=m.gate_proj.weight.detach(), wu=m.up_proj.weight.detach(),
             wd=m.down_proj.weight.detach())
+        if a.q_proj.bias is not None:           # Qwen2's q/k/v biases
+            d["bq"] = a.q_proj.bias.detach()
+            d["bk"] = a.k_proj.bias.detach()
+            d["bv"] = a.v_proj.bias.detach()
         for k in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
             _q8(d, k, enabled, algo)
         layers.append(d)
@@ -311,20 +324,55 @@ def _llama_decode_params(model, weight_only_int8: bool = False,
     return p
 
 
+def _gpt_decode_params(model):
+    """The cached-decode weight tree of a GPTForCausalLM: fused qkv
+    (+bias), LayerNorms with biases, the GELU MLP, learned positions, no
+    rope; detached views of the parameters, keyed like the JAX tree."""
+    gpt = model.gpt
+    layers = []
+    for blk in gpt.h:
+        layers.append(dict(
+            ln1w=blk.ln_1.weight.detach(), ln1b=blk.ln_1.bias.detach(),
+            wqkv=blk.attn.qkv.weight.detach(),
+            bqkv=blk.attn.qkv.bias.detach(),
+            wo=blk.attn.proj.weight.detach(),
+            bo=blk.attn.proj.bias.detach(),
+            ln2w=blk.ln_2.weight.detach(), ln2b=blk.ln_2.bias.detach(),
+            wi=blk.mlp.fc_in.weight.detach(),
+            bi=blk.mlp.fc_in.bias.detach(),
+            wf=blk.mlp.fc_out.weight.detach(),
+            bf=blk.mlp.fc_out.bias.detach()))
+    head = model.lm_head.weight.detach() if model.lm_head is not None \
+        else None
+    return dict(cfg=model.config, family="gpt",
+                embed=gpt.embed_tokens.weight.detach(),
+                pos=gpt.embed_positions.weight.detach(),
+                layers=layers, normw=gpt.ln_f.weight.detach(),
+                normb=gpt.ln_f.bias.detach(), head=head)
+
+
 def _decode_params(model, weight_only_int8: bool = False,
                    weight_only_quant=None):
-    """Family dispatch of the cached decode path: the llama family only
-    (the gpt, MoE and MLA trees are ROADMAP.md queue A item 5)."""
-    if getattr(model, "gpt", None) is not None \
-            or getattr(model, "model", None) is not None:
+    """Family dispatch of the cached decode path: the gpt family (fp
+    only, as in JAX), the llama family with Qwen2; the MoE and MLA
+    families (``model.model``) are ROADMAP.md queue A item 5."""
+    _, enabled = _woq_algo(weight_only_int8, weight_only_quant)
+    if getattr(model, "gpt", None) is not None:
+        if enabled:
+            raise NotImplementedError(
+                "weight-only decode covers the llama family; the GPT "
+                "family is fp (its fused-qkv + bias layout is not wired "
+                "through the quant matmul helper), as in the JAX package")
+        return _gpt_decode_params(model)
+    if getattr(model, "model", None) is not None:
         raise NotImplementedError(
-            "cached decoding of the gpt, MoE and MLA families is not "
-            "ported yet (ROADMAP.md queue A item 5)")
+            "cached decoding of the MoE and MLA families is not ported "
+            "yet (ROADMAP.md queue A item 5)")
     return _llama_decode_params(model, weight_only_int8, weight_only_quant)
 
 
 def _llama_weights(p):
-    """The tensor slice of `_llama_decode_params` (no config, no family)."""
+    """The tensor slice of a decode tree (no config, no family)."""
     return {k: v for k, v in p.items() if k not in ("cfg", "family")}
 
 
@@ -409,9 +457,13 @@ def _llama_cached_step_body(cfg, max_len: int):
         vis = pos_k[None, :] <= q_pos[:, None]            # [S, max_len]
         for L, (ck, cv) in zip(w["layers"], caches):
             h = rms(x, L["ln1"])
-            q = apply_rope(_mm_w(h, L, "wq").reshape(B, S, Hh, D), cos, sin)
-            k = apply_rope(_mm_w(h, L, "wk").reshape(B, S, KV, D), cos, sin)
-            v = _mm_w(h, L, "wv").reshape(B, S, KV, D)
+            q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
+                       _mm_w(h, L, "wv"))
+            if "bq" in L:                      # Qwen2 qkv biases
+                q, k, v = q + L["bq"], k + L["bk"], v + L["bv"]
+            q = apply_rope(q.reshape(B, S, Hh, D), cos, sin)
+            k = apply_rope(k.reshape(B, S, KV, D), cos, sin)
+            v = v.reshape(B, S, KV, D)
             ck[:, start:start + S] = k
             cv[:, start:start + S] = v
             if S > 1 and start == 0:
@@ -444,20 +496,79 @@ def _llama_cached_step_body(cfg, max_len: int):
     return step
 
 
+def _gpt_cached_step_body(cfg, max_len: int):
+    """The GPT counterpart of `_llama_cached_step_body`: learned
+    positions, LayerNorm with bias (f32 statistics, cast before the
+    affine, the JAX body's op order), fused qkv + bias, tanh-GELU MLP;
+    an MHA cache (KV heads == query heads). The prefill attends through
+    `sdpa_prefill`, every other window densely over the cache."""
+    from .nn.functional import gelu
+    from .ops.flash_attention import sdpa_prefill
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    eps = cfg.layer_norm_eps
+
+    def ln(h, wt, b):
+        h32 = h.float()
+        mu = h32.mean(-1, keepdim=True)
+        var = ((h32 - mu) * (h32 - mu)).mean(-1, keepdim=True)
+        return ((h32 - mu) * torch.rsqrt(var + eps)).to(h.dtype) * wt + b
+
+    def step(w, ids, caches, start: int):
+        B, S = ids.shape
+        x = w["embed"][ids] + w["pos"][start:start + S][None]
+        dev = x.device
+        pos_k = torch.arange(max_len, device=dev)
+        q_pos = start + torch.arange(S, device=dev)
+        vis = pos_k[None, :] <= q_pos[:, None]            # [S, max_len]
+        for L, (ck, cv) in zip(w["layers"], caches):
+            h = ln(x, L["ln1w"], L["ln1b"])
+            q, k, v = (h @ L["wqkv"] + L["bqkv"]).chunk(3, dim=-1)
+            q = q.reshape(B, S, nh, hd)
+            k = k.reshape(B, S, nh, hd)
+            v = v.reshape(B, S, nh, hd)
+            ck[:, start:start + S] = k
+            cv[:, start:start + S] = v
+            if S > 1 and start == 0:
+                o = sdpa_prefill(q, k, v, causal=True).reshape(B, S, -1)
+            else:
+                scores = torch.einsum("bshd,bthd->bhst", q, ck) \
+                    * (hd ** -0.5)
+                scores = torch.where(vis[None, None], scores.float(),
+                                     torch.tensor(-1e30, device=dev))
+                aw = torch.softmax(scores, dim=-1).to(cv.dtype)
+                o = torch.einsum("bhst,bthd->bshd", aw, cv).reshape(
+                    B, S, -1)
+            x = x + (o @ L["wo"] + L["bo"])
+            h2 = ln(x, L["ln2w"], L["ln2b"])
+            x = x + (gelu(h2 @ L["wi"] + L["bi"], approximate=True)
+                     @ L["wf"] + L["bf"])
+        x = ln(x, w["normw"], w["normb"])
+        return _head(x[:, -1], w), caches
+
+    return step
+
+
 def _cached_step_body(p, max_len: int):
-    if p["family"] != "llama":
-        raise NotImplementedError(
-            f"cached decoding of the {p['family']} family is not ported "
-            f"yet (ROADMAP.md queue A item 5)")
+    if p["family"] == "gpt":
+        return _gpt_cached_step_body(p["cfg"], max_len)
     return _llama_cached_step_body(p["cfg"], max_len)
+
+
+def _kv_geometry(p):
+    """(KV heads, head dim) of a decode tree's cache: the gpt family's
+    cache has a KV head per query head (its config has no
+    num_key_value_heads)."""
+    cfg = p["cfg"]
+    if p["family"] == "gpt":
+        return cfg.num_attention_heads, cfg.head_dim
+    return cfg.num_key_value_heads, cfg.head_dim
 
 
 def _init_caches(p, B: int, total: int):
     """Zero KV caches [B, total, KV, D] per layer, in the weights' dtype
     on their device."""
-    cfg = p["cfg"]
     emb = p["embed"]
-    shape = (B, total, cfg.num_key_value_heads, cfg.head_dim)
+    shape = (B, total) + _kv_geometry(p)
     return [(torch.zeros(shape, dtype=emb.dtype, device=emb.device),
              torch.zeros(shape, dtype=emb.dtype, device=emb.device))
             for _ in p["layers"]]
@@ -484,8 +595,9 @@ def generate_cached(model, input_ids, max_new_tokens: int = 20,
                     weight_only_quant=None,
                     deadline_s: Optional[float] = None,
                     generator: Optional[torch.Generator] = None):
-    """KV-cache generation for LlamaForCausalLM: prefill once over the
-    prompt, then O(1) work per new token. Returns (generated_ids,
+    """KV-cache generation for LlamaForCausalLM, Qwen2ForCausalLM and
+    GPTForCausalLM: prefill once over the prompt, then O(1) work per new
+    token. Returns (generated_ids,
     scores) as `generate` does, on the model's device; ``deadline_s`` as
     in `generate`. Greedy tokens equal `generate`'s under f32 (summation
     order aside, near-tied logits may flip in bf16)."""

@@ -121,9 +121,11 @@ class LlamaAttention(nn.Module):
         super().__init__()
         _no_fused_packs(c)
         H, D, KV = c.num_attention_heads, c.head_dim, c.num_key_value_heads
-        self.q_proj = Linear(c.hidden_size, H * D, bias_attr=False, **kw)
-        self.k_proj = Linear(c.hidden_size, KV * D, bias_attr=False, **kw)
-        self.v_proj = Linear(c.hidden_size, KV * D, bias_attr=False, **kw)
+        # q/k/v biases: the Qwen2 signature (its config's qkv_bias)
+        qkv_bias = None if getattr(c, "qkv_bias", False) else False
+        self.q_proj = Linear(c.hidden_size, H * D, bias_attr=qkv_bias, **kw)
+        self.k_proj = Linear(c.hidden_size, KV * D, bias_attr=qkv_bias, **kw)
+        self.v_proj = Linear(c.hidden_size, KV * D, bias_attr=qkv_bias, **kw)
         self.o_proj = Linear(H * D, c.hidden_size, bias_attr=False, **kw)
         self.c = c
 

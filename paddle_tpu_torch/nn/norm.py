@@ -1,4 +1,4 @@
-"""RMSNorm (counterpart of paddle_tpu/nn/layer/norm.py)."""
+"""LayerNorm and RMSNorm (counterpart of paddle_tpu/nn/layer/norm.py)."""
 
 from __future__ import annotations
 
@@ -6,9 +6,41 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from .functional import rms_norm
+from .functional import layer_norm, rms_norm
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
+
+
+class LayerNorm(nn.Module):
+    """weight (ones) and bias (zeros) of shape ``normalized_shape``, each
+    left out when its ``*_attr`` is False; forward is
+    ``functional.layer_norm`` (the JAX layer's op order,
+    differentiable). The serving engine reads the parameters and calls
+    the ``ops.fused_layer_norm`` kernel itself; that kernel has no
+    backward."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, *,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self.normalized_shape = list(normalized_shape)
+        self.epsilon = epsilon
+        dev = resolve_device(device)
+        self.weight = None if weight_attr is False else nn.Parameter(
+            torch.ones(self.normalized_shape, device=dev, dtype=dtype))
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros(self.normalized_shape, device=dev, dtype=dtype))
+
+    def forward(self, x):
+        return layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                          self.epsilon)
+
+    def extra_repr(self):
+        return (f"normalized_shape={self.normalized_shape}, "
+                f"epsilon={self.epsilon}")
 
 
 class RMSNorm(nn.Module):

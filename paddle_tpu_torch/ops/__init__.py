@@ -7,7 +7,8 @@ from typing import Dict
 
 from .flash import (flash_kernel_eligible, flash_sdpa, flash_sdpa_bwd,
                     flash_sdpa_bwd_reference, flash_sdpa_reference)
-from .fused import (fused_rms_norm, fused_rope_append, rms_norm_reference,
+from .fused import (fused_layer_norm, fused_rms_norm, fused_rope_append,
+                    layer_norm_reference, rms_norm_reference,
                     rope_append_reference)
 from .megadecode import (fused_ffn, fused_oproj_norm, megadecode_eligible,
                          megadecode_ffn_reference, oproj_norm_reference)
@@ -24,7 +25,8 @@ from .quant import (int4_planes, weight_dequantize, weight_only_linear,
                     weight_only_linear_reference, weight_quantize)
 from .ragged import ragged_attention_reference, ragged_paged_attention
 
-__all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
+__all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
+           "layer_norm_reference", "fused_rope_append",
            "rope_append_reference", "ragged_paged_attention",
            "ragged_attention_reference", "fused_qkv_rope_append",
            "qkv_rope_append_reference", "megafront_eligible",

@@ -6,15 +6,16 @@
 //     (Pallas _qkv_rope_append_kernel, _qkv_rope_append_int4_kernel): qkv
 //     GEMM + bias + rope + paged K/V append;
 //   paddle_tpu/ops/pallas_megadecode.py:fused_oproj_norm
-//     (Pallas _oproj_norm_kernel, _oproj_norm_int4_kernel; rms norm):
-//     o-proj GEMM + bias + residual + rms norm, emitting both the new
-//     residual stream and its normed copy;
+//     (Pallas _oproj_norm_kernel, _oproj_norm_int4_kernel; rms and layer
+//     norm): o-proj GEMM + bias + residual + rms or layer norm, emitting
+//     both the new residual stream and its normed copy;
 //   paddle_tpu/ops/pallas_megadecode.py:fused_ffn
-//     (Pallas _ffn_kernel, _ffn_int4_kernel; swiglu): gate/up GEMM,
-//     silu(g) * u, down GEMM, residual;
+//     (Pallas _ffn_kernel, _ffn_int4_kernel; swiglu and tanh-gelu):
+//     gate/up GEMM, silu(g) * u (or one gate GEMM + b1, gelu(g)), down
+//     GEMM, b2, residual;
 //   paddle_tpu/ops/quant.py:weight_only_linear
 //     (Pallas _wol_kernel, _wol4_kernel): x @ dequant(W) * scale.
-// The MLA layout, layer norm and gelu are not here.
+// The MLA layout is not here.
 //
 // Bound on the H100: at the serving step's shapes (T = 132 token rows,
 // Llama-3-8B) the bf16 sites are bound by their weight bytes at 3.35 TB/s:
@@ -54,21 +55,27 @@
 //           offset; rows of one page land in disjoint slots, only the
 //           trash page 0 takes duplicates. Two CUDA kernels per call.
 //   o-proj: one block per row sums the partials, adds bias and residual
-//           in f32, stores x_new and rms-normalises the f32 sum (not the
-//           rounded x_new) in _norm_f32's op order. Two CUDA kernels.
+//           in f32, stores x_new and normalises the f32 sum (not the
+//           rounded x_new) in _norm_f32's op order: rms, or layer norm
+//           with its two passes (the f32 mean, then the centred variance
+//           mean((x - mu)^2); no one-pass E[x^2] - E[x]^2). Two CUDA
+//           kernels.
 //   FFN:    the [T, I] activation does not fit a block: the gate/up GEMM
-//           (two accumulators a block, no split) applies g * sigmoid(g)
-//           * u in f32 and writes it to a workspace in the working type.
-//           On the bf16 route that rounds the activation to bf16 before
-//           the down GEMM, where the TPU kernel fed the f32 activation to
-//           its down dot: one bf16 rounding (2^-9 relative) of each
-//           activation, which the bf16 output's own rounding (2^-9 of the
-//           residual sum) dominates; chip_smoke.py phase 2 reports the
-//           error against the plain f32 version. (Feeding it as two bf16
-//           planes, hi + lo, kept it exact to ~2^-17 but doubled the down
-//           GEMM's activation traffic, which made it the slower half.)
-//           The down GEMM splits K; a third kernel adds the partials, the
-//           bias and the residual. Three CUDA kernels per call.
+//           (two accumulators a block for swiglu, g * sigmoid(g) * u; one
+//           for gelu, the tanh form 0.5 g (1 + tanh(sqrt(2/pi) (g +
+//           0.044715 g^3))) with tanhf, as jax.nn.gelu(approximate=True);
+//           no split) computes the activation in f32, as the TPU kernel's
+//           f32 scratch holds it, and writes it to a workspace. The down
+//           GEMM must read it at that precision: on the f32 route the
+//           workspace is f32; on the bf16 route it is two bf16 planes, hi
+//           = bf16(a) and lo = bf16(a - hi), so hi + lo is a to ~2^-17
+//           relative, and the down GEMM multiplies both planes by each
+//           weight fragment into one f32 accumulator (two mma.sync a
+//           fragment). Rounding the activation to one bf16 plane instead
+//           put a 2^-9 error on every activation, ~40x the other sites'
+//           error against the plain f32 version. The down GEMM splits K;
+//           a third kernel adds the partials, the bias and the residual.
+//           Three CUDA kernels per call.
 //   weight_only_linear: the same split-K GEMM, then one thread per output
 //           sums the partials, applies the scale and stores. Two CUDA
 //           kernels per call.
@@ -88,7 +95,7 @@
 // to summation order, as for fp weights. The int4 down product reads the
 // [T, I] activation workspace as it is: the packed rows are in its column
 // order already (the TPU kernel split its f32 scratch into even and odd
-// columns instead).
+// columns instead). int4 takes swiglu only, as the TPU kernel does.
 // The wrappers allocate every workspace.
 
 #include <algorithm>
@@ -125,13 +132,15 @@ enum WFmt : int { kWFp = 0, kWInt8 = 1, kWInt4 = 2 };
 // two-accumulator gate/up product), so the activation tile, which every
 // column tile re-reads, is at most ~0.6 of the weight bytes that cross
 // into the SM with it. f32 tiles are 64 x 128. A ring stage holds the A
-// chunk and each weight chunk as it arrives: [BK][LDW] in the working
+// chunk of each of NA planes (2: the FFN's bf16 activation as hi + lo,
+// else 1) and each weight chunk as it arrives: [BK][LDW] in the working
 // type, or, quantized, the chunk's int8 rows (BK of them, or BK / 2 of
 // packed int4), BN bytes each; quantized weights also take one converted
 // [BK][LDW] tile per accumulator beside the ring.
-template <typename T, int NB, int WQ = kWFp>
+template <typename T, int NB, int WQ = kWFp, int NA = 1>
 struct Cfg {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static_assert(NA == 1 || (NA == 2 && kBf16), "two A planes are bf16's");
   static constexpr int MT = kBf16 ? 5 : 2;
   // threads: bf16 16 warps as 2 (rows) x 8 (columns), four a scheduler
   // to hide the ldmatrix -> mma latency; f32 a 16 x 16 grid
@@ -150,29 +159,33 @@ struct Cfg {
   static constexpr size_t RAW_BYTES = (size_t)W_ROWS * BN;
   static constexpr size_t W_BYTES =
       WQ == kWFp ? (size_t)W_ELEMS * sizeof(T) : RAW_BYTES;
-  static constexpr size_t STAGE_BYTES = A_BYTES + NB * W_BYTES;
+  static constexpr size_t STAGE_BYTES = NA * A_BYTES + NB * W_BYTES;
   static constexpr size_t CONV_BYTES =
       WQ == kWFp ? 0 : (size_t)NB * W_ELEMS * sizeof(T);
-  // cp.async ring depth: 4 stages where they fit, else 3
+  // cp.async ring depth: 4 stages where they fit, else 3, else 2 (the
+  // two-plane fp down GEMM: 2 x 78 KB, the accumulator tile is larger)
   static constexpr int STAGES =
-      4 * STAGE_BYTES + CONV_BYTES <= SMEM_MAX ? 4 : 3;
+      4 * STAGE_BYTES + CONV_BYTES <= SMEM_MAX   ? 4
+      : 3 * STAGE_BYTES + CONV_BYTES <= SMEM_MAX ? 3
+                                                 : 2;
   static constexpr size_t PIPE_BYTES = STAGES * STAGE_BYTES + CONV_BYTES;
   static constexpr size_t C_BYTES = (size_t)NB * BM * LDC * sizeof(float);
   static constexpr size_t SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 };
 
-enum Epi : int { kEpiSwiglu = 0, kEpiPartial = 1 };
+enum Epi : int { kEpiSwiglu = 0, kEpiPartial = 1, kEpiGelu = 2 };
 
 struct Args {
-  const void* a;          // A [M, K]
+  const void* a;          // A [NA, M, K]: its planes, summed
   const void* w[2];       // W [K, N] (int4: [K/2, N]), one accumulator each
   const float* scale[2];  // [N] per-column scales of quantized W, or null
   int M, N, K;
   int kc_split;           // BK chunks per grid.z slice of K
   int w_vec;              // quantized W rows copied in 16-byte pieces
-  const float* bias;      // [N] or null (kEpiSwiglu)
+  const float* bias;      // [N] or null (kEpiSwiglu, kEpiGelu)
   float* partial;         // [gridDim.z, M, N] (kEpiPartial)
-  void* act;              // [M, N] activation (kEpiSwiglu)
+  void* act;              // activation (kEpiSwiglu, kEpiGelu): f32 [M, N],
+                          // bf16 [2, M, N] (hi, lo)
 };
 
 template <typename T>
@@ -180,24 +193,28 @@ struct alignas(4 * sizeof(T)) Vec4 {
   T v[4];
 };
 
-// One K chunk [k0, k0 + BK) of the A tile and every W tile into a stage.
-template <typename T, typename C, int NB, int WQ>
+// One K chunk [k0, k0 + BK) of every A plane's tile and every W tile into
+// a stage.
+template <typename T, typename C, int NB, int WQ, int NA>
 __device__ __forceinline__ void load_stage(unsigned char* st, const Args& p,
                                            int m0, int n0, int k0,
                                            int kend) {
   constexpr int VE = 16 / sizeof(T);
   constexpr int AROW = C::BK / VE;
-  const T* A = static_cast<const T*>(p.a);
-  T* sa = reinterpret_cast<T*>(st);
-  for (int c = threadIdx.x; c < C::BM * AROW; c += C::NT) {
-    const int r = c / AROW, kc = (c % AROW) * VE;
-    const int m = m0 + r, k = k0 + kc;
-    const bool ok = m < p.M && k < kend;
-    cp_async16(sa + r * C::LDA + kc, ok ? A + (size_t)m * p.K + k : A, ok);
+#pragma unroll
+  for (int pl = 0; pl < NA; ++pl) {
+    const T* A = static_cast<const T*>(p.a) + (size_t)pl * p.M * p.K;
+    T* sa = reinterpret_cast<T*>(st) + pl * C::A_ELEMS;
+    for (int c = threadIdx.x; c < C::BM * AROW; c += C::NT) {
+      const int r = c / AROW, kc = (c % AROW) * VE;
+      const int m = m0 + r, k = k0 + kc;
+      const bool ok = m < p.M && k < kend;
+      cp_async16(sa + r * C::LDA + kc, ok ? A + (size_t)m * p.K + k : A, ok);
+    }
   }
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
-    unsigned char* dst = st + C::A_BYTES + b * C::W_BYTES;
+    unsigned char* dst = st + NA * C::A_BYTES + b * C::W_BYTES;
     if constexpr (WQ == kWFp) {
       constexpr int WROW = C::BN / VE;
       const T* W = static_cast<const T*>(p.w[b]);
@@ -281,8 +298,9 @@ __device__ __forceinline__ void convert_stage(const unsigned char* raw,
 
 // bf16 on the tensor cores: warp (wm, wn) owns rows wm * 16 MT + 16 i
 // (i < MT) and columns wn * BN / WARPS_N + 8 j (j < WN) of every
-// accumulator.
-template <typename C, int NB>
+// accumulator; each of NA A planes multiplies every B fragment into the
+// same accumulator.
+template <typename C, int NB, int NA>
 struct MmaBf16 {
   static constexpr int MT = C::MT;
   static constexpr int WN = C::BN / (8 * C::WARPS_N);  // n8 tiles a warp
@@ -300,10 +318,9 @@ struct MmaBf16 {
   }
 
   // One chunk, 16 deep at a time: the warp's B fragments first, then its
-  // row tiles, the A fragment of tile i + 1 loading while tile i
-  // multiplies (ldmatrix and mma issue in program order). a: the A tile
-  // [BM][LDA]; w: the NB weight tiles [BK][LDW]. live: the block's 16-row
-  // tiles that hold rows (a warp-uniform skip).
+  // row tiles (ldmatrix and mma issue in program order). a: the NA A
+  // tiles [BM][LDA], A_ELEMS apart; w: the NB weight tiles [BK][LDW].
+  // live: the block's 16-row tiles that hold rows (a warp-uniform skip).
   __device__ void step(const bf16* a, const bf16* w, int wm, int wn,
                        int live) {
     const int lane = threadIdx.x & 31;
@@ -322,22 +339,34 @@ struct MmaBf16 {
                                         (kk + lr) * C::LDW +
                                         wn * (C::BN / C::WARPS_N) + jp * 16 +
                                         lc);
-      unsigned af[2][4];
-      ldsm_x4(af[0], arow + kk);
+      // one plane: tile i + 1's fragment loads while tile i multiplies;
+      // two planes: each tile loads its own (a second buffer would spill)
+      constexpr int BUF = NA == 1 ? 2 : 1;
+      unsigned af[BUF][NA][4];
+      if constexpr (BUF == 2) ldsm_x4(af[0][0], arow + kk);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         if (i >= tiles) break;
-        if (i + 1 < tiles)
-          ldsm_x4(af[(i + 1) & 1], arow + (i + 1) * 16 * C::LDA + kk);
+        if constexpr (BUF == 2) {
+          if (i + 1 < tiles)
+            ldsm_x4(af[(i + 1) & 1][0], arow + (i + 1) * 16 * C::LDA + kk);
+        } else {
 #pragma unroll
-        for (int b = 0; b < NB; ++b)
+          for (int pl = 0; pl < NA; ++pl)
+            ldsm_x4(af[0][pl], arow + pl * C::A_ELEMS + i * 16 * C::LDA + kk);
+        }
+        const int cur = BUF == 2 ? (i & 1) : 0;
 #pragma unroll
-          for (int jp = 0; jp < WN / 2; ++jp) {
-            mma_bf16(acc[b][i][2 * jp], af[i & 1], bfr[b][jp][0],
-                     bfr[b][jp][1]);
-            mma_bf16(acc[b][i][2 * jp + 1], af[i & 1], bfr[b][jp][2],
-                     bfr[b][jp][3]);
-          }
+        for (int pl = 0; pl < NA; ++pl)
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int jp = 0; jp < WN / 2; ++jp) {
+              mma_bf16(acc[b][i][2 * jp], af[cur][pl], bfr[b][jp][0],
+                       bfr[b][jp][1]);
+              mma_bf16(acc[b][i][2 * jp + 1], af[cur][pl], bfr[b][jp][2],
+                       bfr[b][jp][3]);
+            }
       }
     }
   }
@@ -410,30 +439,58 @@ struct FmaF32 {
 };
 
 // ------------------------------------------------------------ epilogues
-// Both epilogues walk the tile's live rows 4 columns a thread. The swiglu
-// one takes N % 8 == 0 (4 columns are all inside N or all past it); the
-// partial one stores N's ragged tail column by column.
-template <typename T, typename C>
-__device__ void epi_swiglu(const Args& p, const float* Cs, int m0, int n0) {
+// Every epilogue walks the tile's live rows 4 columns a thread. The
+// activation ones take N % 8 == 0 (4 columns are all inside N or all past
+// it); the partial one stores N's ragged tail column by column.
+
+// tanh-GELU in jax.nn.gelu(approximate=True)'s op order; tanhf, not
+// tanh.approx.f32 (whose ~2^-11 error the plain version would not share)
+__device__ __forceinline__ float gelu_tanh(float g) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return g * (0.5f * (1.f + tanhf(k * (g + 0.044715f * (g * g * g)))));
+}
+
+// The activation in f32 (swiglu: g * sigmoid(g) * u from the two
+// accumulators; gelu: gelu(g) from one), scales before the bias, then
+// stored as the down GEMM reads it: f32, or bf16 hi and lo planes.
+template <typename T, typename C, int EPI>
+__device__ void epi_act(const Args& p, const float* Cs, int m0, int n0) {
   const float* Cg = Cs;
-  const float* Cu = Cs + C::BM * C::LDC;
+  const float* Cu = Cs + C::BM * C::LDC;  // swiglu's second accumulator
   const int rows = min(C::BM, p.M - m0);
+  const size_t plane = (size_t)p.M * p.N;
   for (int i = threadIdx.x; i < rows * (C::BN / 4); i += C::NT) {
     const int r = i / (C::BN / 4), c = (i % (C::BN / 4)) * 4;
     const int n = n0 + c;
     if (n >= p.N) continue;
-    Vec4<T> out;
+    float a[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float g = Cg[r * C::LDC + c + e];
-      float u = Cu[r * C::LDC + c + e];
       if (p.scale[0]) g *= p.scale[0][n + e];
-      if (p.scale[1]) u *= p.scale[1][n + e];
       if (p.bias) g += p.bias[n + e];
-      out.v[e] = from_f32<T>(g * (1.f / (1.f + expf(-g))) * u);
+      if constexpr (EPI == kEpiSwiglu) {
+        float u = Cu[r * C::LDC + c + e];
+        if (p.scale[1]) u *= p.scale[1][n + e];
+        a[e] = g * (1.f / (1.f + expf(-g))) * u;
+      } else {
+        a[e] = gelu_tanh(g);
+      }
     }
-    *reinterpret_cast<Vec4<T>*>(static_cast<T*>(p.act) +
-                                (size_t)(m0 + r) * p.N + n) = out;
+    const size_t at = (size_t)(m0 + r) * p.N + n;
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.act) + at) =
+          make_float4(a[0], a[1], a[2], a[3]);
+    } else {
+      Vec4<T> hi, lo;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi.v[e] = from_f32<T>(a[e]);
+        lo.v[e] = from_f32<T>(a[e] - to_f32(hi.v[e]));
+      }
+      *reinterpret_cast<Vec4<T>*>(static_cast<T*>(p.act) + at) = hi;
+      *reinterpret_cast<Vec4<T>*>(static_cast<T*>(p.act) + plane + at) = lo;
+    }
   }
 }
 
@@ -456,11 +513,11 @@ __device__ void epi_partial(const Args& p, const float* Cs, int m0, int n0) {
 }
 
 // ------------------------------------------------------------ GEMM core
-template <typename T, int NB, int EPI, int WQ>
-__global__ void __launch_bounds__(Cfg<T, NB, WQ>::NT)
+template <typename T, int NB, int EPI, int WQ, int NA>
+__global__ void __launch_bounds__(Cfg<T, NB, WQ, NA>::NT)
     gemm_kernel(const Args p) {
-  using C = Cfg<T, NB, WQ>;
-  using Mma = typename std::conditional<C::kBf16, MmaBf16<C, NB>,
+  using C = Cfg<T, NB, WQ, NA>;
+  using Mma = typename std::conditional<C::kBf16, MmaBf16<C, NB, NA>,
                                         FmaF32<C, NB>>::type;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* conv = reinterpret_cast<T*>(smem_raw + C::STAGES * C::STAGE_BYTES);
@@ -478,8 +535,8 @@ __global__ void __launch_bounds__(Cfg<T, NB, WQ>::NT)
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
     if (s < nk)
-      load_stage<T, C, NB, WQ>(smem_raw + s * C::STAGE_BYTES, p, m0, n0,
-                               (c0 + s) * C::BK, kend);
+      load_stage<T, C, NB, WQ, NA>(smem_raw + s * C::STAGE_BYTES, p, m0,
+                                   n0, (c0 + s) * C::BK, kend);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -487,15 +544,17 @@ __global__ void __launch_bounds__(Cfg<T, NB, WQ>::NT)
     __syncthreads();              // ... for every thread; kt-1 is consumed
     const int nxt = kt + C::STAGES - 1;
     if (nxt < nk)
-      load_stage<T, C, NB, WQ>(smem_raw + (nxt % C::STAGES) * C::STAGE_BYTES,
-                               p, m0, n0, (c0 + nxt) * C::BK, kend);
+      load_stage<T, C, NB, WQ, NA>(
+          smem_raw + (nxt % C::STAGES) * C::STAGE_BYTES, p, m0, n0,
+          (c0 + nxt) * C::BK, kend);
     cp_async_commit();
     const unsigned char* st = smem_raw + (kt % C::STAGES) * C::STAGE_BYTES;
     const T* a = reinterpret_cast<const T*>(st);
     if constexpr (WQ == kWFp) {
-      mma.step(a, reinterpret_cast<const T*>(st + C::A_BYTES), wm, wn, live);
+      mma.step(a, reinterpret_cast<const T*>(st + NA * C::A_BYTES), wm, wn,
+               live);
     } else {
-      convert_stage<T, C, NB, WQ>(st + C::A_BYTES, conv);
+      convert_stage<T, C, NB, WQ>(st + NA * C::A_BYTES, conv);
       __syncthreads();            // the converted chunk, for every warp
       mma.step(a, conv, wm, wn, live);
     }
@@ -505,21 +564,21 @@ __global__ void __launch_bounds__(Cfg<T, NB, WQ>::NT)
   float* Cs = reinterpret_cast<float*>(smem_raw);
   mma.store(Cs, wm, wn);
   __syncthreads();
-  if constexpr (EPI == kEpiSwiglu)
-    epi_swiglu<T, C>(p, Cs, m0, n0);
-  else
+  if constexpr (EPI == kEpiPartial)
     epi_partial<C>(p, Cs, m0, n0);
+  else
+    epi_act<T, C, EPI>(p, Cs, m0, n0);
 }
 
-template <typename T, int NB, int EPI, int WQ>
+template <typename T, int NB, int EPI, int WQ, int NA>
 static cudaError_t launch_gemm(const Args& p, int splits, cudaStream_t st) {
-  using C = Cfg<T, NB, WQ>;
+  using C = Cfg<T, NB, WQ, NA>;
   const int kc_total = (p.K + C::BK - 1) / C::BK;
   // every grid.z slice holds at least one chunk, and they cover K
   if (splits < 1 || p.kc_split < 1 || (splits - 1) * p.kc_split >= kc_total ||
       splits * p.kc_split < kc_total || (EPI != kEpiPartial && splits != 1))
     return cudaErrorInvalidValue;
-  auto kern = gemm_kernel<T, NB, EPI, WQ>;
+  auto kern = gemm_kernel<T, NB, EPI, WQ, NA>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e != cudaSuccess) return e;
@@ -529,12 +588,14 @@ static cudaError_t launch_gemm(const Args& p, int splits, cudaStream_t st) {
 }
 
 // launch_gemm for the weight layout `wq` (a WFmt).
-template <typename T, int NB, int EPI>
+template <typename T, int NB, int EPI, int NA = 1>
 static cudaError_t launch_gemm_w(const Args& p, int splits, int wq,
                                  cudaStream_t st) {
-  if (wq == kWFp) return launch_gemm<T, NB, EPI, kWFp>(p, splits, st);
-  if (wq == kWInt8) return launch_gemm<T, NB, EPI, kWInt8>(p, splits, st);
-  if (wq == kWInt4) return launch_gemm<T, NB, EPI, kWInt4>(p, splits, st);
+  if (wq == kWFp) return launch_gemm<T, NB, EPI, kWFp, NA>(p, splits, st);
+  if (wq == kWInt8)
+    return launch_gemm<T, NB, EPI, kWInt8, NA>(p, splits, st);
+  if (wq == kWInt4)
+    return launch_gemm<T, NB, EPI, kWInt4, NA>(p, splits, st);
   return cudaErrorInvalidValue;
 }
 
@@ -636,20 +697,22 @@ __global__ void qkv_finalize_kernel(const float* partial, int splits,
 
 // One block of 1024 threads per row t (a row's splits * N partials are
 // read with every thread's loads in flight): x_new = x + (scaled sum of
-// partials + bias) in f32; h = rms_norm(that f32 sum) * nw + nb. Split 0's
-// row holds the f32 sum between the two passes.
+// partials + bias) in f32; h = norm(that f32 sum) * nw + nb, the norm
+// rms (layer 0) or layer norm (layer 1: the mean, then the centred
+// variance over a second pass). Split 0's row holds the f32 sum between
+// the passes; each thread reads back only the entries it wrote.
 template <typename T>
 __global__ void oproj_norm_finalize_kernel(float* partial, int splits,
                                            const float* scale,
                                            const float* bias, const T* x,
                                            const float* nw, const float* nb,
                                            T* x_new, T* h, int M, int N,
-                                           float eps) {
+                                           float eps, int layer) {
   __shared__ float red[33];
   const int t = blockIdx.x;
   const size_t total = (size_t)M * N, base = (size_t)t * N;
   float* row = partial + base;
-  float ss = 0.f;
+  float acc = 0.f;  // layer: the sum; rms: the sum of squares
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float pv = row[n];
 #pragma unroll 4
@@ -659,11 +722,23 @@ __global__ void oproj_norm_finalize_kernel(float* partial, int splits,
     const float xs = to_f32(x[base + n]) + pv;
     row[n] = xs;
     x_new[base + n] = from_f32<T>(xs);
-    ss += xs * xs;
+    acc += layer ? xs : xs * xs;
   }
-  const float r = rsqrtf(block_sum(ss, red) / (float)N + eps);
+  const float tot = block_sum(acc, red) / (float)N;
+  float mu = 0.f, r;
+  if (layer) {
+    mu = tot;
+    float ss = 0.f;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      const float c = row[n] - mu;
+      ss += c * c;
+    }
+    r = rsqrtf(block_sum(ss, red) / (float)N + eps);
+  } else {
+    r = rsqrtf(tot + eps);
+  }
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float y = row[n] * r;
+    float y = (row[n] - mu) * r;
     if (nw) y *= nw[n];
     if (nb) y += nb[n];
     h[base + n] = from_f32<T>(y);
@@ -709,21 +784,26 @@ static int qkv(const Args& p, int splits, int wq, const float* cosv,
 template <typename T>
 static int oproj_norm(const Args& p, int splits, int wq, const T* x,
                       const float* nw, const float* nb, T* x_new, T* h,
-                      float eps, cudaStream_t st) {
+                      float eps, int layer, cudaStream_t st) {
   cudaError_t e = launch_gemm_w<T, 1, kEpiPartial>(p, splits, wq, st);
   if (e != cudaSuccess) return (int)e;
   oproj_norm_finalize_kernel<T><<<p.M, 1024, 0, st>>>(
       p.partial, splits, p.scale[0], p.bias, x, nw, nb, x_new, h, p.M, p.N,
-      eps);
+      eps, layer);
   return (int)cudaGetLastError();
 }
 
+// gelu 0: swiglu over the two accumulators; 1: gelu over one. The down
+// GEMM reads the bf16 activation as its hi + lo planes.
 template <typename T>
 static int ffn(const Args& up, const Args& down, int splits, int wq,
-               const T* x, T* out, cudaStream_t st) {
-  cudaError_t e = launch_gemm_w<T, 2, kEpiSwiglu>(up, 1, wq, st);
+               int gelu, const T* x, T* out, cudaStream_t st) {
+  constexpr int NA = std::is_same<T, bf16>::value ? 2 : 1;
+  cudaError_t e =
+      gelu ? launch_gemm_w<T, 1, kEpiGelu>(up, 1, wq, st)
+           : launch_gemm_w<T, 2, kEpiSwiglu>(up, 1, wq, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_w<T, 1, kEpiPartial>(down, splits, wq, st);
+  e = launch_gemm_w<T, 1, kEpiPartial, NA>(down, splits, wq, st);
   if (e != cudaSuccess) return (int)e;
   residual_finalize_kernel<T>
       <<<grid_for((size_t)down.M * down.N), 256, 0, st>>>(
@@ -834,16 +914,18 @@ int ptt_qkv_rope_append(const void* h, const void* w, const void* scale,
 }
 
 // o [T, Ko]; x [T, H]; w [Ko, H] (int4 [Ko/2, H]); scale [H] f32 or null;
-// bias/nw/nb [H] f32 or null; partial [splits, T, H] f32 workspace ->
-// x_new, h [T, H]
+// bias/nw/nb [H] f32 or null; partial [splits, T, H] f32 workspace;
+// layer 0: rms norm, 1: layer norm -> x_new, h [T, H]
 int ptt_oproj_norm(const void* o, const void* x, const void* w,
                    const void* scale, const void* bias, const void* nw,
                    const void* nb, void* partial, void* x_new, void* h,
                    int T, int Ko, int H, int kc_split, int splits, float eps,
-                   int wfmt, int dtype, int device, void* stream) {
+                   int layer, int wfmt, int dtype, int device,
+                   void* stream) {
   PTT_SET_DEVICE(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T == 0) return (int)cudaSuccess;
+  if (layer != 0 && layer != 1) return (int)cudaErrorInvalidValue;
   Args p{};
   p.a = o;
   p.M = T;
@@ -860,27 +942,30 @@ int ptt_oproj_norm(const void* o, const void* x, const void* w,
     return mega::oproj_norm<float>(p, splits, wfmt,
                                    static_cast<const float*>(x), g, be,
                                    static_cast<float*>(x_new),
-                                   static_cast<float*>(h), eps, st);
+                                   static_cast<float*>(h), eps, layer, st);
   if (dtype == kBF16)
     return mega::oproj_norm<bf16>(p, splits, wfmt,
                                   static_cast<const bf16*>(x), g, be,
                                   static_cast<bf16*>(x_new),
-                                  static_cast<bf16*>(h), eps, st);
+                                  static_cast<bf16*>(h), eps, layer, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // h, x [T, H]; wg, wu [H, I] (int4 [H/2, I]); wd [I, H] (int4 [I/2, H]);
 // sg, su [I] / sd [H] f32 (quantized) or null; b1 [I] / b2 [H] f32 or
-// null; act [T, I] workspace in h's dtype; partial [splits, T, H] f32
-// workspace -> out [T, H] = x + ffn(h)
+// null; gelu 0: swiglu (wg, wu), 1: gelu (wg alone; not int4); act
+// workspace, f32 [T, I] or, bf16, [2, T, I] (hi, lo); partial [splits, T,
+// H] f32 workspace -> out [T, H] = x + ffn(h)
 int ptt_ffn(const void* h, const void* x, const void* wg, const void* wu,
             const void* wd, const void* sg, const void* su, const void* sd,
             const void* b1, const void* b2, void* act, void* partial,
             void* out, int T, int H, int I, int kc_split, int splits,
-            int wfmt, int dtype, int device, void* stream) {
+            int gelu, int wfmt, int dtype, int device, void* stream) {
   PTT_SET_DEVICE(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T == 0) return (int)cudaSuccess;
+  if ((gelu != 0 && gelu != 1) || (gelu && wfmt == mega::kWInt4))
+    return (int)cudaErrorInvalidValue;
   Args up{};
   up.a = h;
   up.M = T;
@@ -895,7 +980,7 @@ int ptt_ffn(const void* h, const void* x, const void* wg, const void* wu,
   down.M = T;
   down.N = H;
   down.K = I;
-  if (!mega::set_weights(up, wfmt, 2, wgu, sgu) ||
+  if (!mega::set_weights(up, wfmt, gelu ? 1 : 2, wgu, sgu) ||
       !mega::set_weights(down, wfmt, 1, &wd, &sd))
     return (int)cudaErrorInvalidValue;
   down.kc_split = kc_split;
@@ -903,13 +988,13 @@ int ptt_ffn(const void* h, const void* x, const void* wg, const void* wu,
   down.partial = static_cast<float*>(partial);
   if (dtype == kF32) {
     up.kc_split = mega::chunks<float>(H);
-    return mega::ffn<float>(up, down, splits, wfmt,
+    return mega::ffn<float>(up, down, splits, wfmt, gelu,
                             static_cast<const float*>(x),
                             static_cast<float*>(out), st);
   }
   if (dtype == kBF16) {
     up.kc_split = mega::chunks<bf16>(H);
-    return mega::ffn<bf16>(up, down, splits, wfmt,
+    return mega::ffn<bf16>(up, down, splits, wfmt, gelu,
                            static_cast<const bf16*>(x),
                            static_cast<bf16*>(out), st);
   }

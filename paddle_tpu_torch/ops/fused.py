@@ -1,8 +1,10 @@
-"""RMSNorm and rope + paged append (counterpart of paddle_tpu/ops/fused.py).
+"""RMSNorm, LayerNorm and rope + paged append (counterpart of
+paddle_tpu/ops/fused.py).
 
-``fused_rms_norm`` and ``fused_rope_append`` launch the hand-written CUDA
-kernels of ``csrc/fused.cu`` on CUDA tensors and run their plain PyTorch
-versions (``rms_norm_reference``, ``rope_append_reference``, from
+``fused_rms_norm``, ``fused_layer_norm`` and ``fused_rope_append``
+launch the hand-written CUDA kernels of ``csrc/fused.cu`` on CUDA
+tensors and run their plain PyTorch versions (``rms_norm_reference``,
+``layer_norm_reference``, ``rope_append_reference``, from
 paddle_tpu/ops/references.py) on CPU tensors. A CUDA tensor launches the
 kernel or raises; nothing falls back. Each wrapper counts its kernel
 launches in ``.launches`` and its plain-version calls in
@@ -18,7 +20,8 @@ import torch
 from . import _build
 from .oracles import register_oracle
 
-__all__ = ["fused_rms_norm", "rms_norm_reference", "fused_rope_append",
+__all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
+           "layer_norm_reference", "fused_rope_append",
            "rope_append_reference"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -64,6 +67,58 @@ def fused_rms_norm(x, weight, eps: float = 1e-6):
 
 fused_rms_norm.launches = 0
 fused_rms_norm.plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# layer_norm (scale and bias)
+# ---------------------------------------------------------------------------
+
+def layer_norm_reference(x, weight, bias, eps: float = 1e-5):
+    """Plain version: the f32 mean, the centred variance mean((x -
+    mu)^2), then (x - mu) * rsqrt(var + eps) * w + b in f32 and one cast
+    to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def fused_layer_norm(x, weight, bias, eps: float = 1e-5):
+    """x [..., H] layer-normalized in f32, scaled by weight [H] and
+    shifted by bias [H] (both f32 or both x's dtype); returns x's
+    dtype."""
+    name = "fused_layer_norm"
+    if x.device.type == "cpu" and weight.device.type == "cpu" \
+            and bias.device.type == "cpu":
+        fused_layer_norm.plain_calls += 1
+        return layer_norm_reference(x, weight, bias, eps)
+    dev = _build.require_cuda(name, x, weight, bias)
+    H = x.shape[-1]
+    if weight.shape != (H,) or bias.shape != (H,):
+        raise ValueError(f"{name}: weight {tuple(weight.shape)}, bias "
+                         f"{tuple(bias.shape)} for rows of width {H}")
+    if weight.dtype != bias.dtype:
+        raise TypeError(f"{name}: weight and bias share one dtype")
+    T = x.numel() // H if H else 0
+    out = torch.empty_like(x)
+    vec = 16 // x.element_size()
+    use_vec = int(H % vec == 0 and x.data_ptr() % 16 == 0
+                  and out.data_ptr() % 16 == 0)
+    fn = _build.kernel("ptt_layer_norm",
+                       [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P])
+    err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+             out.data_ptr(), T, H, float(eps), _build.dtype_code(x),
+             _build.dtype_code(weight), use_vec, dev.index or 0,
+             _build.stream(x))
+    _build.check(name, err)
+    fused_layer_norm.launches += 1
+    return out
+
+
+fused_layer_norm.launches = 0
+fused_layer_norm.plain_calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +201,10 @@ fused_rope_append.plain_calls = 0
 register_oracle(
     "fused_rms_norm", kernel=fused_rms_norm, reference=rms_norm_reference,
     parity_test="tests/test_torch_ops.py::TestRmsNormParity")
+register_oracle(
+    "fused_layer_norm", kernel=fused_layer_norm,
+    reference=layer_norm_reference,
+    parity_test="tests/test_torch_gpt.py::TestLayerNormParity")
 register_oracle(
     "fused_rope_append", kernel=fused_rope_append,
     reference=rope_append_reference,

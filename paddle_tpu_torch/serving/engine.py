@@ -1,5 +1,6 @@
 """Continuous-batching serving engine over the paged KV cache
-(counterpart of paddle_tpu/serving/engine.py, llama family).
+(counterpart of paddle_tpu/serving/engine.py: the llama family, with
+Qwen2's q/k/v biases, and the gpt family).
 
 Two dispatch paths, as in the JAX engine:
 
@@ -33,7 +34,16 @@ the JAX engine) that body is the fused chain
 
 five kernel-wrapper calls per layer and no matmul inside a layer, plus
 a final fused_rms_norm before the LM head (layers + 1 rms_norm and
-layers each of the other four per step). ``megafront=False`` and
+layers each of the other four per step). The gpt family runs the same
+chain with ``fused_layer_norm`` in place of ``fused_rms_norm``, the
+layer-norm site of ``fused_oproj_norm`` (with the o-proj bias) and the
+gelu site of ``fused_ffn`` (with b1 and b2); it has no rope, so its
+qkv kernels take identity trig (cos ones, sin zeros), and its split
+chain is ``fused_layer_norm`` -> the fused qkv matmul + bias ->
+``fused_rope_append`` -> attention -> o-proj + bias + residual ->
+``fused_layer_norm`` -> the GELU MLP (2 * layers + 1 layer norms a
+step), its alternating path the same with ``append_to_cache`` and
+``paged_attention``. ``megafront=False`` and
 ``megadecode=False`` keep the split chain
 
     fused_rms_norm -> q/k/v matmuls -> fused_rope_append
@@ -87,9 +97,10 @@ import torch
 from .. import resilience as _res
 from ..device import DeviceLike, resolve_device
 from ..flags import flag
-from ..generation import _SUFFIX, _ffn_apply, _head, \
-    _llama_decode_params, _llama_weights, _mm_w, _walgo, _wq2
-from ..ops.fused import fused_rms_norm, fused_rope_append
+from ..generation import _SUFFIX, _decode_params, _ffn_apply, _head, \
+    _kv_geometry, _llama_weights, _mm_w, _walgo, _wq2
+from ..nn.functional import gelu
+from ..ops.fused import fused_layer_norm, fused_rms_norm, fused_rope_append
 from ..ops.megadecode import (fused_ffn, fused_oproj_norm,
                               megadecode_eligible)
 from ..ops.megafront import fused_qkv_rope_append, megafront_eligible
@@ -109,13 +120,20 @@ def _lcp(a: np.ndarray, b: np.ndarray) -> int:
     return int(neq[0]) if neq.size else n
 
 
+def _split_qkv(qkv):
+    """q, k, v of a fused qkv product [..., 3 H], each contiguous (the
+    kernels take contiguous tensors; chunks of the last axis are not)."""
+    return tuple(t.contiguous() for t in qkv.chunk(3, dim=-1))
+
+
 def _unported(feature: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported yet (ROADMAP.md queue A item {item})")
 
 
 class ServingEngine:
-    """Continuous-batching engine for the llama family.
+    """Continuous-batching engine for the llama family (Qwen2 included)
+    and the gpt family.
 
     Typical loop::
 
@@ -176,7 +194,7 @@ class ServingEngine:
         if slo_targets is not None:
             raise _unported("the SLO autopilot (slo_targets)", 6)
         self.device = resolve_device(device)
-        p = _llama_decode_params(model, weight_only_int8, weight_only_quant)
+        p = _decode_params(model, weight_only_int8, weight_only_quant)
         if p["embed"].device != self.device:
             raise ValueError(
                 f"model parameters live on {p['embed'].device}, the engine "
@@ -184,6 +202,8 @@ class ServingEngine:
         cfg = p["cfg"]
         self._p = p
         self._w = _llama_weights(p)
+        self._family = p["family"]
+        gpt = self._family == "gpt"
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
         self.max_context = int(max_context or cfg.max_position_embeddings)
@@ -212,7 +232,7 @@ class ServingEngine:
 
         # device page pools, one (K, V) pair per layer, updated in place
         dt = p["embed"].dtype
-        kv, d = cfg.num_key_value_heads, cfg.head_dim
+        kv, d = _kv_geometry(p)
         shape = (kv, self.num_pages, self.page_size, d)
         self._pools = [(torch.zeros(shape, dtype=dt, device=self.device),
                         torch.zeros(shape, dtype=dt, device=self.device))
@@ -239,16 +259,21 @@ class ServingEngine:
         if self.megafront:
             self._concat_qkv_weights()
         #: kernel-wrapper calls before attention, per layer per step
-        #: (norm + fused, vs norm + q/k/v matmuls + rope_append)
-        self.front_half_launches = 2 if self.megafront else 5
+        #: (norm + fused, vs norm + the q/k/v matmuls (gpt: one fused
+        #: qkv matmul) + rope_append)
+        self.front_half_launches = 2 if self.megafront else (
+            3 if gpt else 5)
         #: FLAGS_paged_impl of the alternating path, pinned now as the JAX
         #: engine pins it when it builds its programs (None: unified step)
         self.paged_impl = None if self.ragged else flag("FLAGS_paged_impl")
         if self.ragged:
-            self._body = self._llama_unified_body()
+            self._body = (self._gpt_unified_body if gpt
+                          else self._llama_unified_body)()
         else:
-            self._decode_body = self._llama_decode_body()
-            self._prefill_body = self._llama_prefill_body()
+            self._decode_body = (self._gpt_decode_body if gpt
+                                 else self._llama_decode_body)()
+            self._prefill_body = (self._gpt_prefill_body if gpt
+                                  else self._llama_prefill_body)()
         #: device launches run by THIS engine: unified steps, or prefill
         #: chunks plus decode steps on the alternating path
         self.launches = 0
@@ -547,11 +572,14 @@ class ServingEngine:
         weight column, so the math is the three products'; int4 packs
         along the contraction axis, so the concatenation is layout-safe
         there too), payloads and scales alike (``wqkv_q`` / ``wqkv_q4``
-        and ``wqkv_s``). The fp slab is a copy made once here; the model
-        keeps its own q/k/v weights, so the engine holds both (1.61 GB
-        more at Llama-3-8B in bf16). The consumed entries leave the
-        engine's weight tree: a megafront engine never runs the split
-        front."""
+        and ``wqkv_s``), Qwen2's biases too (``bqkv``). The fp slab is a
+        copy made once here; the model keeps its own q/k/v weights, so
+        the engine holds both (1.61 GB more at Llama-3-8B in bf16). The
+        consumed entries leave the engine's weight tree: a megafront
+        engine never runs the split front. The gpt family ships ``wqkv``
+        already."""
+        if self._family == "gpt":
+            return
         layers = []
         for L in self._p["layers"]:
             L = dict(L)
@@ -561,6 +589,9 @@ class ServingEngine:
             if suffix:
                 L["wqkv_s"] = torch.cat(
                     [L.pop(k + "_s") for k in ("wq", "wk", "wv")], dim=-1)
+            if "bq" in L:
+                L["bqkv"] = torch.cat(
+                    [L.pop(k) for k in ("bq", "bk", "bv")], dim=-1)
             layers.append(L)
         self._p = dict(self._p, layers=layers)
         self._w = dict(self._w, layers=layers)
@@ -591,12 +622,14 @@ class ServingEngine:
                 if megafront:
                     wp, ws = _wq2(L, "wqkv")
                     q, kp, vp = fused_qkv_rope_append(
-                        h[0], wp, ws, None, c, s, kp, vp, tok_page, tok_off,
-                        heads=Hh, kv_heads=KV, head_dim=D,
+                        h[0], wp, ws, L.get("bqkv"), c, s, kp, vp, tok_page,
+                        tok_off, heads=Hh, kv_heads=KV, head_dim=D,
                         algo=_walgo(L, "wqkv"))
                 else:
                     q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
                                _mm_w(h, L, "wv"))
+                    if "bq" in L:                # Qwen2 qkv biases
+                        q, k, v = q + L["bq"], k + L["bk"], v + L["bv"]
                     q, kp, vp = fused_rope_append(
                         q.reshape(T, Hh, D), k.reshape(T, KV, D),
                         v.reshape(T, KV, D), c, s, kp, vp, tok_page,
@@ -654,9 +687,13 @@ class ServingEngine:
 
             for L, (kp, vp) in zip(w["layers"], pools):
                 h = fused_rms_norm(x, L["ln1"], eps)
-                q = rope(_mm_w(h, L, "wq").reshape(B, 1, Hh, D))
-                k = rope(_mm_w(h, L, "wk").reshape(B, 1, KV, D))
-                v = _mm_w(h, L, "wv").reshape(B, 1, KV, D)
+                q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
+                           _mm_w(h, L, "wv"))
+                if "bq" in L:                    # Qwen2 qkv biases
+                    q, k, v = q + L["bq"], k + L["bk"], v + L["bv"]
+                q = rope(q.reshape(B, 1, Hh, D))
+                k = rope(k.reshape(B, 1, KV, D))
+                v = v.reshape(B, 1, KV, D)
                 append_to_cache(kp, vp, k[:, 0], v[:, 0], lengths, tables)
                 o = paged_attention(q[:, 0], kp, vp, lengths + 1, tables,
                                     scale=D ** -0.5, impl=paged_impl)
@@ -711,9 +748,13 @@ class ServingEngine:
             vis = pos_t[None, :] <= pos[:, None]          # [C, T]
             for L, (kp, vp) in zip(w["layers"], pools):
                 h = fused_rms_norm(x, L["ln1"], eps)
-                q = rope(_mm_w(h, L, "wq").reshape(1, C, Hh, D))
-                k = rope(_mm_w(h, L, "wk").reshape(1, C, KV, D))
-                v = _mm_w(h, L, "wv").reshape(1, C, KV, D)
+                q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
+                           _mm_w(h, L, "wv"))
+                if "bq" in L:                    # Qwen2 qkv biases
+                    q, k, v = q + L["bq"], k + L["bk"], v + L["bv"]
+                q = rope(q.reshape(1, C, Hh, D))
+                k = rope(k.reshape(1, C, KV, D))
+                v = v.reshape(1, C, KV, D)
                 kp[:, pg, off] = k[0].transpose(0, 1)
                 vp[:, pg, off] = v[0].transpose(0, 1)
                 ks = kp[:, tab].reshape(KV, T, D)
@@ -730,6 +771,147 @@ class ServingEngine:
                 h2 = fused_rms_norm(x, L["ln2"], eps)
                 x = x + _ffn_apply(L, h2)
             x = fused_rms_norm(x, w["norm"], eps)
+            return _head(x[0, n_valid - 1][None], w), pools
+
+        return prefill
+
+    # ------------------------------------------------------- gpt bodies
+    def _gpt_unified_body(self):
+        """The gpt family's unified step, the JAX ``_gpt_unified_body``:
+        token + learned position embeddings, identity trig (cos ones, sin
+        zeros, [T, hd/2] in the model dtype: the rope of the qkv kernels
+        is exact on q / k), ``fused_layer_norm`` with bias for every norm
+        (layers + 1 a step on the fused chain, 2 * layers + 1 on the
+        split chain); on the fused chain the layer-norm site of
+        ``fused_oproj_norm`` (o-proj bias) and the gelu site of
+        ``fused_ffn`` (b1, b2)."""
+        cfg = self._p["cfg"]
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        eps = cfg.layer_norm_eps
+        mega, megafront = self.megadecode, self.megafront
+        B, C = self.max_slots, self.prefill_chunk
+        T = B + C
+        seq_start = torch.arange(B + 1, dtype=torch.int32,
+                                 device=self.device)
+        dt = self._p["embed"].dtype
+        c = torch.ones(T, hd // 2, dtype=dt, device=self.device)
+        s = torch.zeros(T, hd // 2, dtype=dt, device=self.device)
+
+        def step(w, tok, pools, positions, num_tokens, kv_lengths,
+                 tables, tok_page, tok_off):
+            x = (w["embed"][tok.long()] + w["pos"][positions.long()])[None]
+            for L, (kp, vp) in zip(w["layers"], pools):
+                h = fused_layer_norm(x, L["ln1w"], L["ln1b"], eps)
+                if megafront:
+                    q, kp, vp = fused_qkv_rope_append(
+                        h[0], L["wqkv"], None, L["bqkv"], c, s, kp, vp,
+                        tok_page, tok_off, heads=nh, kv_heads=nh,
+                        head_dim=hd)
+                else:
+                    q, k, v = _split_qkv(h[0] @ L["wqkv"] + L["bqkv"])
+                    q, kp, vp = fused_rope_append(
+                        q.reshape(T, nh, hd), k.reshape(T, nh, hd),
+                        v.reshape(T, nh, hd), c, s, kp, vp, tok_page,
+                        tok_off)
+                o = ragged_paged_attention(q, kp, vp, seq_start,
+                                           num_tokens, kv_lengths, tables,
+                                           scale=hd ** -0.5)
+                if mega:
+                    xn, h2 = fused_oproj_norm(
+                        o.reshape(T, nh * hd), x[0], L["wo"], None, L["bo"],
+                        L["ln2w"], L["ln2b"], eps=eps, norm="layer")
+                    x = fused_ffn(h2, xn, L["wi"], None, None, None,
+                                  L["wf"], None, L["bi"], L["bf"],
+                                  act="gelu")[None]
+                else:
+                    x = x + (o.reshape(1, T, nh * hd) @ L["wo"] + L["bo"])
+                    h2 = fused_layer_norm(x, L["ln2w"], L["ln2b"], eps)
+                    x = x + (gelu(h2 @ L["wi"] + L["bi"], approximate=True)
+                             @ L["wf"] + L["bf"])
+            x = fused_layer_norm(x, w["normw"], w["normb"], eps)
+            last = x[0, (seq_start + num_tokens - 1).clamp(0, T - 1).long()]
+            return _head(last, w), pools
+
+        return step
+
+    def _gpt_decode_body(self):
+        """The gpt family's alternating decode step (the JAX
+        ``_gpt_decode_body``): ``fused_layer_norm`` for every norm
+        (2 * layers + 1 a launch), the fused qkv matmul + bias, no rope,
+        ``append_to_cache`` and ``paged_attention`` under the engine's
+        pinned FLAGS_paged_impl, the GELU MLP."""
+        cfg = self._p["cfg"]
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        eps = cfg.layer_norm_eps
+        paged_impl = self.paged_impl
+
+        def step(w, tok, pools, lengths, tables):
+            B = tok.shape[0]
+            x = (w["embed"][tok.long()] + w["pos"][lengths.long()])[:, None]
+            for L, (kp, vp) in zip(w["layers"], pools):
+                h = fused_layer_norm(x, L["ln1w"], L["ln1b"], eps)
+                q, k, v = _split_qkv(h @ L["wqkv"] + L["bqkv"])
+                q = q.reshape(B, 1, nh, hd)
+                k = k.reshape(B, 1, nh, hd)
+                v = v.reshape(B, 1, nh, hd)
+                append_to_cache(kp, vp, k[:, 0], v[:, 0], lengths, tables)
+                o = paged_attention(q[:, 0], kp, vp, lengths + 1, tables,
+                                    scale=hd ** -0.5, impl=paged_impl)
+                x = x + (o.reshape(B, 1, nh * hd) @ L["wo"] + L["bo"])
+                h2 = fused_layer_norm(x, L["ln2w"], L["ln2b"], eps)
+                x = x + (gelu(h2 @ L["wi"] + L["bi"], approximate=True)
+                         @ L["wf"] + L["bf"])
+            x = fused_layer_norm(x, w["normw"], w["normb"], eps)
+            return _head(x[:, -1], w), pools
+
+        return step
+
+    def _gpt_prefill_body(self):
+        """The gpt family's prefill chunk (the JAX ``_gpt_prefill_body``):
+        as `_llama_prefill_body` with learned positions, no rope,
+        ``fused_layer_norm`` with bias and the GELU MLP; MHA attention
+        over the sequence's gathered pages, dense, no kernel."""
+        cfg = self._p["cfg"]
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        eps = cfg.layer_norm_eps
+        C = self.prefill_chunk
+        ps, nj = self.page_size, self.pages_per_seq
+        T = nj * ps
+        dev = self.device
+        rows = torch.arange(C, device=dev)
+        pos_t = torch.arange(T, device=dev)
+
+        def prefill(w, ids, pools, table, start: int, n_valid: int):
+            pos = start + rows
+            posc = pos.clamp(0, w["pos"].shape[0] - 1)
+            x = w["embed"][ids.long()] + w["pos"][posc][None]  # [1, C, H]
+            valid = rows < n_valid
+            tab = table[0].long()
+            pg = torch.where(valid, tab[(pos // ps).clamp(0, nj - 1)], 0)
+            off = torch.where(valid, pos % ps, 0)
+            vis = pos_t[None, :] <= pos[:, None]          # [C, T]
+            for L, (kp, vp) in zip(w["layers"], pools):
+                h = fused_layer_norm(x, L["ln1w"], L["ln1b"], eps)
+                q, k, v = _split_qkv(h @ L["wqkv"] + L["bqkv"])
+                q = q.reshape(1, C, nh, hd)
+                k = k.reshape(1, C, nh, hd)
+                v = v.reshape(1, C, nh, hd)
+                kp[:, pg, off] = k[0].transpose(0, 1)
+                vp[:, pg, off] = v[0].transpose(0, 1)
+                ks = kp[:, tab].reshape(nh, T, hd)
+                vs = vp[:, tab].reshape(nh, T, hd)
+                scores = torch.einsum("bshd,htd->bhst", q, ks) \
+                    * (hd ** -0.5)
+                scores = torch.where(vis[None, None], scores.float(),
+                                     torch.tensor(-1e30, device=dev))
+                aw = torch.softmax(scores, dim=-1).to(vs.dtype)
+                o = torch.einsum("bhst,htd->bshd", aw, vs).reshape(
+                    1, C, nh * hd)
+                x = x + (o @ L["wo"] + L["bo"])
+                h2 = fused_layer_norm(x, L["ln2w"], L["ln2b"], eps)
+                x = x + (gelu(h2 @ L["wi"] + L["bi"], approximate=True)
+                         @ L["wf"] + L["bf"])
+            x = fused_layer_norm(x, w["normw"], w["normb"], eps)
             return _head(x[0, n_valid - 1][None], w), pools
 
         return prefill

@@ -2,12 +2,14 @@
 """Where one serving step's time goes, on the card.
 
     python3 profile_serving.py [--out serving_trace.json]
+                               [--model llama|gpt|qwen2]
                                [--chain fused|split|alternating]
                                [--quant int8|int4]
 
-Serves the same Llama-3-8B configuration and seeded traffic as
-chip_smoke.py's phase 4 (bf16, 4 slots, page_size 16, 128-token prefill
-chunks), on the engine's default fused chain, with ``--chain split`` on
+Serves the same configuration and seeded traffic as chip_smoke.py's
+phase 4 (Llama-3-8B; ``--model gpt``: GPT-3 6.7B, phase 10; ``--model
+qwen2``: Qwen2-7B, phase 11; bf16, 4 slots, page_size 16, 128-token
+prefill chunks), on the engine's default fused chain, with ``--chain split`` on
 the split chain of the unified step, or with ``--chain alternating`` on
 the alternating path (``ragged=False``: a prefill-chunk launch and a
 decode-step launch per engine step, paged decode attention), and records
@@ -36,16 +38,24 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import CHUNK, MAX_CTX, PSZ, SLOTS, trace
+from chip_smoke import CHUNK, MAX_CTX, PSZ, QWEN2_7B, SLOTS, trace
 from paddle_tpu_torch import card_report
+from paddle_tpu_torch.models import (GPTForCausalLM, Qwen2Config,
+                                     Qwen2ForCausalLM, gpt3_6_7b_config)
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b_config
 from paddle_tpu_torch.serving import ServingEngine
 
+#: --model: the model class and its full-width config, as chip_smoke.py
+#: builds them
+MODELS = {"llama": (LlamaForCausalLM, llama3_8b_config),
+          "gpt": (GPTForCausalLM, gpt3_6_7b_config),
+          "qwen2": (Qwen2ForCausalLM, lambda: Qwen2Config(**QWEN2_7B))}
+
 STEPS = 6                          # engine steps per profiled window
 #: kernel-name fragments of the port's own kernels (ops/csrc)
-PORT_KERNELS = ("rms_norm_kernel", "rope_append_kernel",
-                "ragged_attention_kernel", "mega::gemm_kernel",
-                "qkv_finalize_kernel", "oproj_norm_finalize_kernel",
+PORT_KERNELS = ("rms_norm_kernel", "ptt::layer_norm_kernel",
+                "rope_append_kernel", "ragged_attention_kernel",
+                "mega::gemm_kernel", "qkv_finalize_kernel", "oproj_norm_finalize_kernel",
                 "residual_finalize_kernel", "paged_v1_kernel",
                 "paged_v2_kernel", "paged_v2_mma_kernel")
 # (weight_only_linear runs mega::gemm_kernel and residual_finalize_kernel)
@@ -132,6 +142,7 @@ def summarize(kind, steps, kernels):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="serving_trace.json")
+    ap.add_argument("--model", choices=tuple(MODELS), default="llama")
     ap.add_argument("--chain", choices=("fused", "split", "alternating"),
                     default="fused")
     ap.add_argument("--quant", choices=("int8", "int4"), default=None)
@@ -143,9 +154,10 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     card = card_report()
-    cfg = llama3_8b_config()
-    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
-                             generator=torch.Generator("cuda").manual_seed(0))
+    cls, config = MODELS[args.model]
+    cfg = config()
+    model = cls(cfg, dtype=torch.bfloat16,
+                generator=torch.Generator("cuda").manual_seed(0))
     chain = {"fused": {}, "split": dict(megafront=False, megadecode=False),
              "alternating": dict(ragged=False)}[args.chain]
     eng = ServingEngine(model, max_slots=SLOTS, page_size=PSZ,
@@ -165,7 +177,8 @@ def main() -> int:
     results.append(summarize("decode", *window(eng, STEPS, out)))
     eng.run_to_completion()
     for r in results:
-        print(json.dumps({"card": card["nvidia_smi"], "chain": args.chain,
+        print(json.dumps({"card": card["nvidia_smi"], "model": args.model,
+                          "chain": args.chain,
                           "weight_only_quant": args.quant, **r}), flush=True)
     return 0
 

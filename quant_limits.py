@@ -75,8 +75,9 @@ FAULTS = {
         "(scale[b]);\n    p.scale[b] = nullptr;\n"
         "    if (wq != kWFp && !p.wscale[b]) return false;", 0,
         "T* conv) {", "T* conv, const Args& p, int n0) {", 0,
-        "convert_stage<T, C, NB, WQ>(st + C::A_BYTES, conv);",
-        "convert_stage<T, C, NB, WQ>(st + C::A_BYTES, conv, p, n0);", 0,
+        "convert_stage<T, C, NB, WQ>(st + NA * C::A_BYTES, conv);",
+        "convert_stage<T, C, NB, WQ>(st + NA * C::A_BYTES, conv, p, n0);",
+        0,
         "const unsigned byte = v >> (8 * e);",
         "const unsigned byte = v >> (8 * e);\n"
         "        const float sc = p.wscale[b][min(n0 + n + e, p.N - 1)];", 0,

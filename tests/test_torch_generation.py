@@ -133,10 +133,11 @@ class TestGreedyAgainstJax:
                                  max_new_tokens=10)
 
     def test_other_families_name_their_item(self):
-        class Gpt(torch.nn.Module):
-            gpt = object()
+        # a MoE / MLA model (backbone `model`); gpt and qwen2 are ported
+        class Moe(torch.nn.Module):
+            model = object()
         with pytest.raises(NotImplementedError, match="queue A item 5"):
-            tgen.generate_cached(Gpt(), np.zeros((1, 3), np.int32))
+            tgen.generate_cached(Moe(), np.zeros((1, 3), np.int32))
 
 
 @pytest.fixture(scope="module")

@@ -619,8 +619,10 @@ class TestEngineOptions:
             ServingEngine(tm, device="cpu", **kw)
 
     def test_other_families_name_their_item(self):
-        # a gpt/moe/mla model has no `llama` backbone: refused, not served
-        other = SimpleNamespace(config=llama_tiny_config(), gpt=object(),
+        # a MoE / MLA model (its backbone is `model`, as in the JAX
+        # package): refused, not served (gpt and qwen2 are served:
+        # test_torch_gpt.py, test_torch_qwen2.py)
+        other = SimpleNamespace(config=llama_tiny_config(), model=object(),
                                 lm_head=None)
         with pytest.raises(NotImplementedError, match="queue A item 5"):
             ServingEngine(other, device="cpu")

@@ -2,7 +2,9 @@
 
 For fused_qkv_rope_append, fused_oproj_norm and fused_ffn (rms norm,
 swiglu; fp weights, and in `TestQuantizedSitesParity` the int8 and
-packed-int4 deploy layouts), seeded numpy inputs go through the JAX kernel (Pallas
+packed-int4 deploy layouts; the layer-norm and gelu sites of the gpt
+family are held to JAX in test_torch_gpt.py), seeded numpy inputs go
+through the JAX kernel (Pallas
 in interpret mode on the CPU, as tests/test_megafront.py and
 tests/test_megadecode.py run it), the JAX reference and the port's
 wrapper on CPU tensors, which runs its plain PyTorch version. f32
@@ -21,11 +23,14 @@ atol 1e-4, rtol 1e-5; qkv 2e-5 as above).
 `TestKernelsOnCard` holds each CUDA kernel against its plain version on
 the card; it needs one and skips elsewhere. On the machine with the
 card, which has no JAX: python -m pytest --noconftest
-tests/test_torch_megakernels.py -m cuda. Its bf16 int8 / int4 cases are
-also held by relative errors over each site's outputs and over each
-token's row of them (`_site_rows`), within chip_smoke.py's
-QSITE_BF16_LIMITS, which sit between the sound kernels' readings and
-those of a scale folded into the bf16 weight (quant_limits.py)."""
+tests/test_torch_megakernels.py -m cuda. Its bf16 int8 / int4 cases, and
+the bf16 fp FFN (swiglu and gelu), are also held by relative errors over
+each site's outputs and over each token's row of them (`_site_rows`),
+within chip_smoke.py's QSITE_BF16_LIMITS, which sit between the sound
+kernels' readings and those of a scale folded into the bf16 weight
+(quant_limits.py). The layer-norm site of fused_oproj_norm and the gelu
+site of fused_ffn are held the same way as their rms / swiglu
+siblings."""
 
 import types
 
@@ -40,13 +45,13 @@ from paddle_tpu_torch.ops import (fused_ffn, fused_oproj_norm,
                                   weight_quantize)
 
 INT8, INT4 = "weight_only_int8", "weight_only_int4"
-#: (tensor, row) relative-error limits of the bf16 quantized sites,
-#: chip_smoke.py's (the FFN's sound kernel rounds its swiglu activation
-#: to bf16, the plain version keeps f32: 1.8e-3 tensor, up to 2.6e-3 a
-#: row at H 256; a scale folded into the bf16 weight reads 2.6e-3 and
-#: more over the tensor)
+#: (tensor, row) relative-error limits of the bf16 quantized sites and
+#: of the bf16 FFN, chip_smoke.py's: every site's sound kernel rounds only
+#: its outputs (the FFN feeds its f32 activation to the down product as
+#: bf16 hi + lo planes); a scale folded into the bf16 weight reads 2.6e-3
+#: and more over the tensor
 QSITE_BF16_LIMITS = {"qkv": (3e-4, 1e-3), "oproj": (3e-4, 1e-3),
-                     "ffn": (2.2e-3, 3e-3)}
+                     "ffn": (3e-4, 1e-3)}
 
 
 def _site_rows(outs, pg=None, off=None):
@@ -306,8 +311,9 @@ class TestQuantizedSitesParity:
                                    atol=atol, rtol=rtol)
 
     @pytest.mark.parametrize("call", [
-        # the three sites that named queue A item 4 before they were
-        # ported: each now runs its plain version on CPU tensors
+        # the sites that named queue A item 4 (quantized) or 5 (the gpt
+        # family's layer norm and gelu) before they were ported: each now
+        # runs its plain version on CPU tensors
         lambda t, q: fused_qkv_rope_append(
             t[0], q[INT8][0], q[INT8][1], None, t[3], t[3], t[4], t[4],
             t[5], t[5], heads=1, kv_heads=1, head_dim=4, algo=INT8),
@@ -316,6 +322,11 @@ class TestQuantizedSitesParity:
         lambda t, q: fused_ffn(t[1], t[1], q[INT8][2], q[INT8][3],
                                q[INT8][2], q[INT8][3], q[INT8][2],
                                q[INT8][3], algo=INT8),
+        lambda t, q: fused_oproj_norm(t[1], t[1], t[1][:, :4].T.contiguous()
+                                      @ t[1], norm="layer"),
+        lambda t, q: fused_ffn(t[1], t[1], q[INT8][2], q[INT8][3], None,
+                               None, q[INT8][2], q[INT8][3], act="gelu",
+                               algo=INT8),
     ])
     def test_formerly_refused_sites_run(self, call):
         rng = np.random.RandomState(11)
@@ -331,20 +342,26 @@ class TestQuantizedSitesParity:
 
 
 class TestRefusalsAndGates:
-    @pytest.mark.parametrize("call,item", [
+    @pytest.mark.parametrize("call,match", [
         (lambda t: fused_qkv_rope_append(*t[:10], heads=1, kv_heads=1,
-                                         head_dim=4, lora_rank=8), 5),
-        (lambda t: fused_oproj_norm(t[0], t[0], t[1], norm="layer"), 5),
-        (lambda t: fused_ffn(t[0], t[0], t[1], None, t[1], None, t[1],
-                             act="gelu"), 5),
+                                         head_dim=4, lora_rank=8),
+         "queue A item 5"),
         # the JAX package refuses int4 gelu too
         (lambda t: fused_ffn(t[0], t[0], t[1], None, t[1], None, t[1],
-                             act="gelu", algo=INT4), 5),
+                             act="gelu", algo=INT4), "swiglu-only"),
     ])
-    def test_unported_sites_name_their_item(self, call, item):
+    def test_unported_sites_name_their_item(self, call, match):
         t = [torch.zeros(2, 4)] * 2 + [None] * 8
-        with pytest.raises(NotImplementedError,
-                           match=f"queue A item {item}"):
+        with pytest.raises(NotImplementedError, match=match):
+            call(t)
+
+    @pytest.mark.parametrize("call", [
+        lambda t: fused_oproj_norm(t[0], t[0], t[1], norm="group"),
+        lambda t: fused_ffn(t[0], t[0], t[1], None, t[1], None, t[1],
+                            act="relu")])
+    def test_unknown_norm_or_activation_raises(self, call):
+        t = [torch.zeros(2, 4), torch.zeros(4, 4)]
+        with pytest.raises(ValueError, match="expected"):
             call(t)
 
     def test_gates(self):
@@ -359,6 +376,12 @@ class TestRefusalsAndGates:
         assert not megafront_eligible(4100, 6144, 128)
         assert not megafront_eligible(4096, 6148, 106)
         assert not megadecode_eligible(4096, 14330, 4096)
+        # GPT-3 6.7B (MHA qkv slab [4096, 12288], FFN 16384) and Qwen2-7B
+        # (H 3584, 28 / 4 heads x 128, FFN 18944)
+        assert megafront_eligible(4096, 3 * 32 * 128, 128)
+        assert megadecode_eligible(4096, 16384, 4096)
+        assert megafront_eligible(3584, (28 + 2 * 4) * 128, 128)
+        assert megadecode_eligible(3584, 18944, 28 * 128)
         # the plain versions take any geometry
         assert megafront_eligible(40, 60, 12, device="cpu")
         assert megadecode_eligible(40, 70, 12, device="cpu")
@@ -455,6 +478,70 @@ class TestKernelsOnCard:
                                            None, b1, b2)
         torch.testing.assert_close(got.float(), ref.float(),
                                    **self._tol(dtype))
+        if dtype == torch.bfloat16:
+            _hold_rel("ffn", got, ref)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("algo", [None, INT8, INT4])
+    @pytest.mark.parametrize("T,Ko,H", [(132, 512, 264), (37, 136, 512)])
+    def test_oproj_layer_norm(self, dtype, algo, T, Ko, H):
+        # the gpt family's site: o-proj bias, layer norm with its bias; the
+        # residual stream carries a mean of 30 (two-pass variance)
+        g = torch.Generator("cuda").manual_seed(15)
+        r = lambda *s, sc=1.0: (torch.randn(  # noqa: E731
+            *s, device="cuda", generator=g) * sc).to(dtype)
+        o, x, b, nw, nb = r(T, Ko), r(T, H), r(H), r(H), r(H)
+        x = (x.float() + 30.0).to(dtype)
+        w = r(Ko, H, sc=Ko ** -0.5)
+        s = None
+        if algo is not None:
+            w, s = weight_quantize(w.float(), algo)
+        n = fused_oproj_norm.launches
+        got = fused_oproj_norm(o, x, w, s, b, nw, nb, eps=1e-5,
+                               norm="layer", algo=algo)
+        torch.cuda.synchronize()
+        assert fused_oproj_norm.launches == n + 1
+        ref = ops.oproj_norm_reference(o, x, w, s, b, nw, nb, eps=1e-5,
+                                       norm="layer", algo=algo)
+        for a_, b_ in zip(got, ref):
+            torch.testing.assert_close(a_.float(), b_.float(),
+                                       **self._tol(dtype))
+        if dtype == torch.bfloat16:
+            _hold_rel("oproj", _site_rows(got), _site_rows(ref))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("algo", [None, INT8])
+    @pytest.mark.parametrize("T,H,I", [(132, 256, 1024), (37, 264, 136)])
+    def test_ffn_gelu(self, dtype, algo, T, H, I):
+        # the gpt family's site: one up matrix, b1 before tanh-GELU, b2
+        # after the down product; wu is not read
+        g = torch.Generator("cuda").manual_seed(16)
+        r = lambda *s, sc=1.0: (torch.randn(  # noqa: E731
+            *s, device="cuda", generator=g) * sc).to(dtype)
+        h, x, b1, b2 = r(T, H), r(T, H), r(I), r(H)
+        wi, wf = r(H, I, sc=H ** -0.5), r(I, H, sc=I ** -0.5)
+        si = sf = None
+        if algo is not None:
+            (wi, si), (wf, sf) = (weight_quantize(w_.float(), algo)
+                                  for w_ in (wi, wf))
+        n = fused_ffn.launches
+        got = fused_ffn(h, x, wi, si, None, None, wf, sf, b1, b2,
+                        act="gelu", algo=algo)
+        torch.cuda.synchronize()
+        assert fused_ffn.launches == n + 1
+        ref = ops.megadecode_ffn_reference(h, x, wi, si, None, None, wf, sf,
+                                           b1, b2, act="gelu", algo=algo)
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **self._tol(dtype))
+        if dtype == torch.bfloat16:
+            _hold_rel("ffn", got, ref)
+
+    def test_int4_gelu_raises_on_the_card(self):
+        x = torch.zeros(4, 16, device="cuda", dtype=torch.bfloat16)
+        q = torch.zeros(8, 16, device="cuda", dtype=torch.int8)
+        s = torch.ones(16, device="cuda")
+        with pytest.raises(NotImplementedError, match="swiglu-only"):
+            fused_ffn(x, x, q, s, None, None, q, s, act="gelu", algo=INT4)
 
     def test_refuses_what_it_cannot_take(self):
         x = torch.zeros(4, 12, device="cuda")

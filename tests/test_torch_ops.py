@@ -1,6 +1,8 @@
 """The port's three serving kernels against the JAX package.
 
-For fused_rms_norm, fused_rope_append and ragged_paged_attention, seeded
+(fused_layer_norm's parity with the JAX kernel is in test_torch_gpt.py;
+its card test is here.) For fused_rms_norm, fused_rope_append and
+ragged_paged_attention, seeded
 numpy inputs go through the JAX kernel (Pallas in interpret mode on the
 CPU, as tests/test_ragged_kernel.py runs it), the JAX reference and the
 port's wrapper on CPU tensors, which runs its plain PyTorch version. All
@@ -20,8 +22,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch import ops
-from paddle_tpu_torch.ops import (fused_rms_norm, fused_rope_append,
-                                  ragged_paged_attention)
+from paddle_tpu_torch.ops import (fused_layer_norm, fused_rms_norm,
+                                  fused_rope_append, ragged_paged_attention)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -276,6 +278,31 @@ class TestKernelsOnCard:
             **self._tol(dtype))
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("T,H,w_dtype", [
+        (132, 4096, None), (37, 200, None), (5, 1000, torch.float32)])
+    def test_layer_norm(self, dtype, T, H, w_dtype):
+        # H 4096: 16-byte pieces; 200 and 1000 rows take element loads in
+        # bf16 (200: no whole 16-byte pieces in f32 either); row 1 has a
+        # mean of 30 against a spread of 1: a one-pass E[x^2] - E[x]^2
+        # loses ~1e-3 of its variance in f32, the two passes keep the
+        # output within the f32 bar
+        g = torch.Generator("cuda").manual_seed(2)
+        x = torch.randn(T, H, device="cuda", generator=g)
+        x[1] += 30.0
+        x = x.to(dtype)
+        wd = w_dtype or dtype
+        w = torch.randn(H, device="cuda", generator=g).to(wd)
+        b = torch.randn(H, device="cuda", generator=g).to(wd)
+        n = fused_layer_norm.launches
+        got = fused_layer_norm(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        assert fused_layer_norm.launches == n + 1
+        assert got.dtype == dtype
+        torch.testing.assert_close(
+            got.float(), ops.layer_norm_reference(x, w, b, 1e-5).float(),
+            **self._tol(dtype))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_rope_append(self, dtype):
         g = torch.Generator("cuda").manual_seed(1)
         T, Hq, KV, D, P, psz = 20, 8, 2, 128, 9, 4
@@ -304,7 +331,9 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("T,S,H,KV,D,psz,pps", [
         (12, 3, 8, 2, 128, 16, 4), (9, 4, 4, 2, 64, 8, 2),
-        (20, 2, 4, 4, 32, 8, 4), (40, 3, 32, 8, 128, 16, 8)])
+        (20, 2, 4, 4, 32, 8, 4), (40, 3, 32, 8, 128, 16, 8),
+        # GPT-3 6.7B's heads (rep 1) and Qwen2-7B's (rep 7)
+        (40, 3, 32, 32, 128, 16, 8), (40, 3, 28, 4, 128, 16, 8)])
     def test_ragged(self, dtype, T, S, H, KV, D, psz, pps):
         args = [_t(a).cuda() for a in _ragged_inputs(T, S, H, KV, D, psz,
                                                       pps, seed=7)]

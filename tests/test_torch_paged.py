@@ -349,6 +349,9 @@ class TestPagedKernelsOnCard:
         ((2, 4, 2, 64, 4, 3), [12, 40], None),    # past the table
         ((4, 32, 8, 128, 16, 64), [300, 1024, 517, 1], None),
         ((2, 8, 1, 256, 16, 4), None, None), ((2, 8, 8, 32, 8, 4), None, 2),
+        # GPT-3 6.7B (rep 1, 32 KV heads) and Qwen2-7B (rep 7) heads
+        ((4, 32, 32, 128, 16, 64), [300, 1024, 517, 1], None),
+        ((4, 28, 4, 128, 16, 64), [300, 1024, 517, 1], None),
     ])
     def test_v1_and_v2(self, dtype, shape, lens, G):
         host = _inputs(*shape, seed=21, lens=lens)

@@ -56,7 +56,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.ops.megafront",
                 "paddle_tpu_torch.ops.megadecode",
                 "paddle_tpu_torch.ops._build", "paddle_tpu_torch.convert",
-                "paddle_tpu_torch.models.llama", "paddle_tpu_torch.device",
+                "paddle_tpu_torch.models.llama",
+                "paddle_tpu_torch.models.gpt", "paddle_tpu_torch.models.qwen2",
+                "paddle_tpu_torch.nn.norm", "paddle_tpu_torch.device",
                 "paddle_tpu_torch.resilience", "paddle_tpu_torch.ops.flash",
                 "paddle_tpu_torch.ops.flash_attention",
                 "paddle_tpu_torch.nn.functional",
@@ -124,7 +126,8 @@ def test_registry_names_the_ported_kernels():
     from paddle_tpu.ops.oracles import oracles as jax_oracles
     from paddle_tpu_torch.ops import launch_counts, oracles
     ported = oracles()
-    assert set(ported) == {"fused_rms_norm", "fused_rope_append",
+    assert set(ported) == {"fused_rms_norm", "fused_layer_norm",
+                           "fused_rope_append",
                            "ragged_paged_attention", "fused_qkv_rope_append",
                            "fused_oproj_norm", "fused_ffn", "flash_sdpa",
                            "paged_decode_attention",
