@@ -42,7 +42,16 @@ Phases, one line each on stdout:
    library_ms F.layer_norm; the layer-norm site of fused_oproj_norm with
    the o-proj bias, split_ms cuBLAS + fused_layer_norm; the gelu site of
    fused_ffn [4096 -> 16384 -> 4096] with b1 / b2, split_ms the cuBLAS +
-   F.gelu(approximate="tanh") chain);
+   F.gelu(approximate="tanh") chain); the grouped GEMM gmm (`check_gmm`)
+   at ERNIE-4.5-21B-A3B's serving step (132 tokens routed top-6 over 64
+   experts by a seeded router: M 792, [2560 -> 1536] and [1536 -> 2560])
+   as a decode step routes it (4 live tokens, the 128 padding rows in
+   the same 6 groups) and as a mixed step does (every token live), and
+   prefill (2048 tokens: M 12288), and at edge cases (empty groups,
+   one group holding every row, rows past the last group, N 64), bf16 by
+   relative errors within GMM_BF16_LIMITS (the edge cases by the tensor
+   error within GMM_EDGE_TENSOR_LIMIT), f32 at 2e-5, the tail rows
+   exactly zero; library_ms torch._grouped_mm;
 3. a tiny f32 Llama served on the CPU (plain versions) and on the card
    (kernels) over one seeded join/leave trace, on the fused and on the
    split chain and on the alternating path (ragged=False) under
@@ -55,7 +64,12 @@ Phases, one line each on stdout:
    (head dim 64) and a tiny Qwen2 with random biases the same way on
    the fused chain, the split chain and the alternating path under both
    paged impls, and generate_cached, at exact launch counts
-   (`tiny_family_parity`);
+   (`tiny_family_parity`); then a tiny f32 ERNIE 4.5 MoE (a dense first
+   layer, 8 routed experts, a shared one) the same way in fp, int8 and
+   int4 on all three paths, with 38-row unified steps and 36-row prefill
+   chunks (gmm three times a routed layer a launch) and 2-row decode
+   launches (every expert on every token), then generate (fp) and
+   generate_cached (fp, int8, int4) (`tiny_moe_parity`);
 4. Llama-3-8B at full width (32 layers, vocab 128256, bf16 weights drawn
    on the card from a seeded generator) serving 8 seeded requests
    (prompts 64-512 tokens, 32 new tokens each) through ServingEngine's
@@ -111,15 +125,27 @@ Phases, one line each on stdout:
    / 4 heads x 128, FFN 18944, vocab 152064, rope theta 1e6, untied;
    bf16 weights drawn on the card) on the same trace: the fused chain
    and the alternating path (v2);
-12. the ``{"kernels": [...]}`` line (launches from the run of the path
+12. ERNIE-4.5-21B-A3B's published widths (`ERNIE45_21B_A3B`: hidden 2560,
+   28 layers, the first dense (FFN 12288), 27 routed over 64 experts of
+   FFN 1536, top-6, a shared expert of 3072, 20 / 4 heads x 128, vocab
+   103424; the JAX family's untied head; bf16 weights, 22.1 B
+   parameters, drawn on the card) on the same trace: the fused chain
+   (gmm 3 x 27 a step), the alternating path (v2), generate_cached 4 x
+   512 + 32, and int8 weights on the fused chain; on the fused chain the
+   experts that each step's routing gave rows are read back after the
+   run (`GroupSizeLog`), and with them the weight bytes a decode step
+   and a mixed step read and the bound of their gmm work;
+13. the ``{"kernels": [...]}`` line (launches from the run of the path
    that uses each kernel: the fused chain, the split chain for
    rope_append, phase 6's two runs for paged v2 and v1, the 8B training
-   run for flash attention, phase 7c for weight_only_linear, phase 10's
+   run for flash attention, phase 7c for weight_only_linear (whose row
+   also gives the launches that do int4_dequantize's work on phase 3's
+   int4 MoE fused chain), phase 10's
    fused chain for fused_layer_norm; the three megakernels' rows carry
    their int8 / int4 readings and launches from phases 7a / 7b, and
    fused_oproj_norm's and fused_ffn's their layer / gelu readings and
-   launches from phase 10's fused chain), then the ``{"ok": true, ...}``
-   line.
+   launches from phase 10's fused chain; gmm's launches from phase 12's
+   fused chain), then the ``{"ok": true, ...}`` line.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
 against its plain version at the training shape (B 1, S 8192, 32 heads
@@ -136,6 +162,7 @@ nonzero; without a CUDA device it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -151,9 +178,12 @@ import torch
 
 from paddle_tpu_torch import card_report, generation, ops
 from paddle_tpu_torch.flags import flags_guard
-from paddle_tpu_torch.models import (GPTForCausalLM, Qwen2Config,
-                                     Qwen2ForCausalLM, gpt3_6_7b_config,
-                                     gpt_tiny_config, qwen2_tiny_config)
+from paddle_tpu_torch.incubate import moe as moe_ffn
+from paddle_tpu_torch.models import (GPTForCausalLM, MoEConfig,
+                                     MoEForCausalLM, Qwen2Config,
+                                     Qwen2ForCausalLM, ernie45_moe_config,
+                                     gpt3_6_7b_config, gpt_tiny_config,
+                                     qwen2_tiny_config)
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama3_8b_config,
                                            llama_tiny_config,
@@ -200,6 +230,21 @@ QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
                 num_key_value_heads=4, max_position_embeddings=131072,
                 rope_theta=1000000.0, rms_norm_eps=1e-6,
                 tie_word_embeddings=False)
+#: ERNIE-4.5-21B-A3B's published config (baidu/ERNIE-4.5-21B-A3B-PT
+#: config.json) in the JAX MoE family's terms: its two shared experts of
+#: 1536 are one SwiGLU FFN of 3072 over their concatenated columns; the
+#: family unties the head and has no routing-score correction bias
+ERNIE45_21B_A3B = dict(vocab_size=103424, hidden_size=2560,
+                       intermediate_size=12288, num_hidden_layers=28,
+                       num_attention_heads=20, num_key_value_heads=4,
+                       max_position_embeddings=131072, rope_theta=500000.0,
+                       rms_norm_eps=1e-5, num_experts=64, top_k=6,
+                       moe_intermediate_size=1536,
+                       shared_expert_intermediate_size=3072,
+                       first_k_dense_replace=1, moe_dropless=True)
+#: the MoE step's rows: the unified step's (4 slots + a 128-token chunk)
+#: and generate_cached's prefill (4 x 512) tokens
+MOE_STEP_TOKENS, MOE_PREFILL_TOKENS = SLOTS + CHUNK, 4 * 512
 
 
 def emit(phase: str, **fields) -> None:
@@ -375,6 +420,17 @@ QSITE_BF16_LIMITS = {"fused_qkv_rope_append": (3e-4, 1e-3),
                      "fused_oproj_norm": (3e-4, 1e-3),
                      "fused_ffn": (3e-4, 1e-3)}
 INT8, INT4 = "weight_only_int8", "weight_only_int4"
+#: bf16 gmm: the kernel and the plain version round the same f32 sums of
+#: exact bf16 products once, and differ in summation order only, so a
+#: sound kernel differs only where the two sums straddle a rounding
+#: boundary (one bf16 step). (tensor, row) limits at ERNIE's shapes
+#: (rows of 1536 / 2560): the sound kernel read at most 1.2e-4 / 8.3e-4,
+#: partial sums rounded to bf16 per K chunk at least 6.1e-3 / 6.6e-3
+#: (gmm_limits.py). The edge cases' rows of 64-256 outputs move by up to
+#: ~3e-3 with one such flip, so they are held by the tensor error alone:
+#: sound at most 2.4e-5, the per-chunk rounding at least 2.1e-3
+GMM_BF16_LIMITS = (3e-4, 2e-3)
+GMM_EDGE_TENSOR_LIMIT = 5e-4
 
 
 def row_rel_errors(got, want):
@@ -530,6 +586,7 @@ def check_kernels(timer: Timer):
     check_gpt_kernels(timer, rows, gc, mb)
     check_flash(timer, rows)
     check_weight_only_linear(timer, rows)
+    check_gmm(timer, rows)
     return rows
 
 
@@ -1166,6 +1223,136 @@ def check_weight_only_linear(timer, rows):
                                    "split_ms")})
 
 
+def routed_group_sizes(tokens: int, E: int, k: int, H_: int, seed: int,
+                       live=None):
+    """Group sizes [E] int32 of `tokens` tokens routed top-k over E
+    experts by a seeded f32 router on the card (x @ gate, softmax, the
+    experts in rank order), as the dropless FFN sorts its rows. With
+    `live`, the rows from `live` on are one repeated row: the engine's
+    unified step pads its rows past the live tokens with token 0 at
+    position 0, whose attention output is zero, so every padding row has
+    one FFN input and the router sends them all to the same k experts."""
+    g = torch.Generator(DEV).manual_seed(seed)
+    x = torch.randn(tokens, H_, device=DEV, generator=g)
+    if live is not None:
+        x[live:] = x[live]
+    gate = 0.02 * torch.randn(H_, E, device=DEV, generator=g)
+    gates = torch.softmax(x @ gate, -1)
+    topi = torch.sort(gates, dim=-1, descending=True, stable=True)[1][:, :k]
+    return torch.zeros(E, dtype=torch.int32, device=DEV).scatter_add_(
+        0, topi.reshape(-1), torch.ones(tokens * k, dtype=torch.int32,
+                                        device=DEV))
+
+
+def check_gmm(timer, rows, hold: bool = True):
+    """gmm against its plain version (each group's rows times its weight
+    in f32, one cast) at ERNIE-4.5-21B-A3B's experts, the gate / up
+    product [2560 -> 1536] and the down product [1536 -> 2560], under the
+    three routings the path gives it: a decode step of the unified engine
+    (MOE_STEP_TOKENS rows, SLOTS of them live, the rest padding that
+    routes as one row: ~6 groups of ~130 rows and ~24 single rows; M
+    792), a mixed step (all MOE_STEP_TOKENS rows live, a prefill chunk
+    with the decodes: ~12 rows a group over all 64 experts) and
+    generate_cached's prefill (M 12288); and edge cases with rows past
+    the last group, empty groups, one group holding every row and N 64
+    (the tiny preset's expert width). bf16 by `row_rel_errors` over the
+    grouped rows: the ERNIE cases within GMM_BF16_LIMITS, the edge cases
+    by their tensor error within GMM_EDGE_TENSOR_LIMIT; f32 at 2e-5; the
+    rows past the last group exactly zero. The ERNIE cases in bf16 (with
+    a `timer`) are timed beside the plain version, the bound (the lhs
+    rows, the weight slabs of the groups that hold rows, the output; or 2
+    M K N operations at the working type's peak) and torch._grouped_mm
+    over the same group ends (library_ms, bf16 on sm_90; a yardstick the
+    port never calls, first held to the plain version within 1e-2
+    relative). The row's headline numbers are the decode step's gate /
+    up product in bf16. `hold` False only reads (gmm_limits.py on
+    planted faults)."""
+    cfg = ERNIE45_21B_A3B
+    E, k = cfg["num_experts"], cfg["top_k"]
+    Hm, Im = cfg["hidden_size"], cfg["moe_intermediate_size"]
+    gc_ = torch.Generator(DEV).manual_seed(5)
+    decode = routed_group_sizes(MOE_STEP_TOKENS, E, k, Hm, 2, live=SLOTS)
+    mixed = routed_group_sizes(MOE_STEP_TOKENS, E, k, Hm, 0)
+    prefill = routed_group_sizes(MOE_PREFILL_TOKENS, E, k, Hm, 1)
+
+    def sizes(*n):
+        return torch.tensor(n, dtype=torch.int32, device=DEV)
+
+    cases = {"decode/up": (Hm, Im, decode, 0),
+             "decode/down": (Im, Hm, decode, 0),
+             "mixed/up": (Hm, Im, mixed, 0), "mixed/down": (Im, Hm, mixed, 0),
+             "prefill/up": (Hm, Im, prefill, 0),
+             "prefill/down": (Im, Hm, prefill, 0),
+             "edge/uneven": (128, 256, sizes(100, 0, 200, 150, 62), 88),
+             "edge/one_group": (128, 128, sizes(0, 300, 0), 0),
+             "edge/n64": (128, 64, sizes(10, 0, 25, 5), 30)}
+    lt, lr = GMM_BF16_LIMITS
+    r = rows.setdefault("gmm", {"cases": {}})
+    for key, (K, N, gs, tail) in cases.items():
+        M = int(gs.sum()) + tail
+        edge = key.startswith("edge")
+        for dtype in (torch.bfloat16, torch.float32):
+            lhs = torch.randn(M, K, device=DEV, generator=gc_).to(dtype)
+            rhs = (K ** -0.5 * torch.randn(gs.numel(), K, N, device=DEV,
+                                           generator=gc_)).to(dtype)
+            n0 = ops.gmm.launches
+            with torch.no_grad():
+                got = ops.gmm(lhs, rhs, gs)
+            torch.cuda.synchronize()
+            assert ops.gmm.launches == n0 + 1
+            want = ops.gmm_plain(lhs, rhs, gs)
+            end = M - tail
+            tail_zero = int(got[end:].count_nonzero()) == 0
+            finite = bool(torch.isfinite(got).all())
+            assert not hold or (tail_zero and finite), key
+            case = {"m": M, "k": K, "n": N, "groups": gs.numel(),
+                    "groups_with_rows": int((gs > 0).sum()),
+                    "largest_group": int(gs.max()),
+                    "max_abs_err": max_err(got, want),
+                    "tail_zero": tail_zero, "finite": finite}
+            tag = key + ("/bf16" if dtype == torch.bfloat16 else "/f32")
+            if dtype == torch.float32:
+                case["close_2e-5"] = bool(torch.isclose(
+                    got, want, atol=2e-5, rtol=2e-5).all())
+                if hold:
+                    torch.testing.assert_close(got, want, atol=2e-5,
+                                               rtol=2e-5)
+                r["cases"][tag] = case
+                continue
+            tensor, row = row_rel_errors(got[:end], want[:end])
+            case["rel_err_bf16"] = {"tensor": tensor, "row": row}
+            if edge:
+                assert not hold or tensor <= GMM_EDGE_TENSOR_LIMIT, \
+                    (tag, tensor)
+            else:
+                assert not hold or (tensor <= lt and row <= lr), \
+                    (tag, tensor, row)
+            if not edge and timer is not None:
+                live = int((gs > 0).sum())
+                b_, by = bound(nbytes(lhs, got, gs)
+                               + live * K * N * rhs.element_size(),
+                               2 * M * K * N, dtype)
+                ends = torch.cumsum(gs, 0, dtype=torch.int32)
+                lib = lambda: torch._grouped_mm(  # noqa: E731
+                    lhs, rhs, offs=ends)
+                lib_t, _ = row_rel_errors(lib(), want)
+                assert lib_t <= 1e-2, (tag, "library", lib_t)
+                case.update(
+                    bound_ms=b_, bound_by=by,
+                    ms=timer.ms(lambda: ops.gmm(lhs, rhs, gs)),
+                    plain_ms=timer.ms(lambda: ops.gmm_plain(lhs, rhs, gs)),
+                    library_ms=timer.ms(lib),
+                    library_rel_err_tensor=lib_t)
+                del lib
+            r["cases"][tag] = case
+            del lhs, rhs, got, want
+    if timer is not None:
+        head = r["cases"]["decode/up/bf16"]
+        r.update({k_: head[k_] for k_ in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+
+
 def causal_pairs(Sq: int, Sk: int) -> int:
     """(row, key) pairs a causal, bottom-right aligned mask leaves
     visible: row i sees min(Sk, i + Sk - Sq + 1) keys."""
@@ -1302,7 +1489,8 @@ def drive(eng, reqs, on_step=None):
 #: the two chains of the engine's unified step, and the kernels each
 #: launches per step (per layer, plus the final norm's rms_norm)
 SPLIT = dict(megafront=False, megadecode=False)
-NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0)}
+NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0),
+               "gmm": (0, 0)}
 NO_PAGED = {"paged_decode_attention": (0, 0),
             "paged_decode_attention_v2": (0, 0)}
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_layer_norm": (0, 0),
@@ -1325,22 +1513,39 @@ INT4_WOL = {"fused": (0, 1), "split": (7, 1)}
 
 def norm_kernel(model) -> str:
     """The norm kernel of a model's serving bodies: layer norm for the
-    gpt family, rms norm for the llama family (Qwen2 included)."""
+    gpt family, rms norm for the llama family (Qwen2 and MoE included)."""
     return "fused_layer_norm" if hasattr(model, "gpt") else "fused_rms_norm"
 
 
-def per_step_counts(chain: str, quant=None,
-                    norm: str = "fused_rms_norm") -> dict:
+def routed_layers(model) -> int:
+    """Layers of a model whose FFN is the routed MoE one (0 outside the
+    MoE family)."""
+    inner = getattr(model, "model", None)
+    return 0 if inner is None else sum(
+        1 for lyr in inner.layers if hasattr(lyr.mlp, "w_up"))
+
+
+def per_step_counts(chain: str, quant=None, norm: str = "fused_rms_norm",
+                    routed: int = 0) -> dict:
     """(per layer, per step) launches of every kernel on a unified-step
     chain ("fused" / "split") under weight_only_quant `quant`, with
-    `norm` the family's norm kernel."""
+    `norm` the family's norm kernel and `routed` MoE layers, whose FFN
+    is three gmm calls a step (the unified step has more than 32 rows)
+    and, on the fused chain, no fused_ffn; under int4 their shared
+    expert's three products go through weight_only_linear on either
+    chain (on the split chain they take the dense FFN's place)."""
     base = FUSED_PER_STEP if chain == "fused" else SPLIT_PER_STEP
     if norm == "fused_layer_norm":
         base = dict(base, fused_layer_norm=base["fused_rms_norm"],
                     fused_rms_norm=(0, 0))
+    base = dict(base, gmm=(0, 3 * routed))
+    if chain == "fused":
+        base["fused_ffn"] = (1, -routed)
     if quant != "int4":
         return base
-    return dict(base, weight_only_linear=INT4_WOL[chain])
+    a, b = INT4_WOL[chain]
+    return dict(base, weight_only_linear=(
+        a, b + (3 * routed if chain == "fused" else 0)))
 #: the alternating path (ragged=False) under each FLAGS_paged_impl: its
 #: decode launch's paged kernel and the one it must not launch
 ALTERNATING = {"intree": ("paged_decode_attention_v2",
@@ -1357,15 +1562,20 @@ def alternating_launches(steps):
 
 
 def expect_alternating(impl, layers, prefill, decode, quant=None,
-                       norm: str = "fused_rms_norm"):
+                       norm: str = "fused_rms_norm", routed: int = 0,
+                       chunk: int = 0):
     """Every kernel's launches in an alternating-path run: 2 * layers + 1
     of the family's `norm` kernel a launch, `layers` of the impl's paged
     kernel a decode launch, under int4 weights 7 * layers + 1
-    weight_only_linear a launch (every projection and the head), nothing
-    else."""
+    weight_only_linear a launch (every projection, a routed layer's
+    shared expert, and the head), three gmm calls a `routed` layer a
+    prefill launch of a `chunk` of more than 32 rows (a decode launch's
+    slots run every expert on every token), nothing else."""
     want = {name: 0 for name in ops.launch_counts()}
     want[norm] = (2 * layers + 1) * (prefill + decode)
     want[ALTERNATING[impl][0]] = layers * decode
+    if chunk > 32:
+        want["gmm"] = 3 * routed * prefill
     if quant == "int4":
         want["weight_only_linear"] = (7 * layers + 1) * (prefill + decode)
     return want
@@ -1428,6 +1638,7 @@ def tiny_engine_parity():
     out["generate"] = tiny_generate_parity()
     out["quantized"] = tiny_quant_parity()
     out["gpt_and_qwen2"] = tiny_family_parity()
+    out["moe"] = tiny_moe_parity()
     return out
 
 
@@ -1578,6 +1789,98 @@ def tiny_family_parity():
     return out
 
 
+def tiny_moe_parity():
+    """A tiny f32 ERNIE 4.5 MoE (hidden 128, 2 query heads of 64 on 1 KV
+    head, a dense first layer, one routed layer of 8 experts of 64, top-2,
+    a shared expert), CPU (plain versions) vs card (kernels): identical
+    greedy tokens on the fused chain, the split chain and the alternating
+    path in fp, int8 and int4, each card run at exactly its path's
+    launches: the unified step has 2 slots + a 36-row chunk > 32 rows, so
+    gmm runs three times a routed layer a step, as in each prefill chunk
+    of the alternating path, whose 2-row decode launches run every expert
+    on every token. Then generate (the buffer model routes dropless on
+    every forward) and generate_cached (fp, int8, int4; a 2 x 20-token
+    prefill > 32 rows): identical tokens, scores within 1e-5."""
+    cfg = ernie45_moe_config(num_attention_heads=2, num_key_value_heads=1,
+                             moe_dropless=True, max_position_embeddings=64)
+    cpu_model = MoEForCausalLM(cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    L, R = cfg.num_hidden_layers, routed_layers(cpu_model)
+    assert R == 1
+    reqs = trace(np.random.RandomState(1), cfg.vocab_size, 6, 2, 12, 2, 8, 4)
+    kw = dict(max_slots=2, page_size=4, prefill_chunk=36)
+    out = {}
+    for quant in (None, "int8", "int4"):
+        for chain, ckw in (("fused", {}), ("split", SPLIT),
+                           ("alternating", dict(ragged=False))):
+            qkw = dict(kw, weight_only_quant=quant, **ckw)
+            cpu_out, _, _ = drive(ServingEngine(cpu_model, device="cpu",
+                                                **qkw), reqs)
+            eng = ServingEngine(gpu_model, device=DEV, **qkw)
+            ops.reset_counts()
+            gpu_out, _, steps = drive(eng, reqs)
+            counts = ops.launch_counts()
+            assert set(cpu_out) == set(gpu_out) == set(range(len(reqs)))
+            for rid in cpu_out:
+                np.testing.assert_array_equal(gpu_out[rid], cpu_out[rid])
+            if chain == "alternating":
+                want = expect_alternating("intree", L,
+                                          *alternating_launches(steps),
+                                          quant, routed=R, chunk=36)
+            else:
+                want = {k: (a * L + b) * eng.launches for k, (a, b)
+                        in per_step_counts(chain, quant,
+                                           routed=R).items()}
+            for name, c in counts.items():
+                assert c == {"launches": want[name], "plain_calls": 0}, \
+                    (quant, chain, name, c, want[name])
+            out[f"{quant or 'fp'}/{chain}"] = {
+                "tokens": int(sum(len(v) for v in cpu_out.values())),
+                "identical": True,
+                "launches": {k: v for k, v in want.items() if v}}
+            if quant == "int4":
+                # the shared expert's three int4 products a routed layer a
+                # launch: the work JAX does through int4_dequantize
+                out[f"int4/{chain}"]["int4_dequantize_work"] = \
+                    3 * R * eng.launches
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 20))
+    new = 6
+    for name, quant in (("generate", None), ("generate_cached", None),
+                        ("generate_cached", "int8"),
+                        ("generate_cached", "int4")):
+        gkw = dict(max_new_tokens=new, decode_strategy="greedy_search")
+        if quant:
+            gkw["weight_only_quant"] = quant
+        fn = getattr(generation, name)
+        cpu_tok, cpu_sc = fn(cpu_model, ids[:, :7] if name == "generate"
+                             else ids, **gkw)
+        ops.reset_counts()
+        gpu_tok, gpu_sc = fn(gpu_model, ids[:, :7] if name == "generate"
+                             else ids, **gkw)
+        counts = ops.launch_counts()
+        np.testing.assert_array_equal(gpu_tok.cpu().numpy(),
+                                      cpu_tok.numpy())
+        dist = float((gpu_sc.cpu() - cpu_sc).abs().max())
+        assert dist <= 1e-5, (name, quant, dist)
+        if name == "generate":      # a dropless forward a new token
+            want = {"flash_sdpa": L * new, "gmm": 3 * R * new}
+        else:                       # the prefill only: 40 rows
+            # int4: four projections a layer, the dense FFN's three, the
+            # shared expert's three, the head, every call of the step
+            wol = (4 * L + 3 * (L - R) + 3 * R + 1) * new \
+                if quant == "int4" else 0
+            want = {"flash_sdpa": L, "gmm": 3 * R,
+                    "weight_only_linear": wol}
+        for kname, c in counts.items():
+            assert c == {"launches": want.get(kname, 0),
+                         "plain_calls": 0}, (name, quant, kname, c)
+        out[f"{quant or 'fp'}/{name}"] = {
+            "tokens": cpu_tok.numpy().tolist(), "score_max_abs_diff": dist,
+            "launches": want}
+    return out
+
+
 def tiny_generate_parity():
     """generate and generate_cached (greedy, f32) on a tiny Llama (head_dim
     64, 2 query heads on 1 KV head): CPU (plain versions) vs card (the
@@ -1609,25 +1912,118 @@ def tiny_generate_parity():
     return out
 
 
+def tree_nbytes(d) -> int:
+    """Bytes of every tensor of a (nested) weight dict."""
+    return sum(tree_nbytes(t) if isinstance(t, dict) else nbytes(t)
+               for t in d.values())
+
+
 def read_bytes(w) -> int:
     """Bytes of an engine's weight tree that one decode step reads: every
     layer tensor, the final norm and the LM head in its layout, which is
     the embedding for a tied head (otherwise not the embedding or the
     learned positions, of which a step gathers a few rows, nor the rope
-    tables)."""
+    tables). A MoE layer counts its whole expert stacks, as a launch on
+    the every-expert route (T <= 32) or a quantized tree's per-step
+    dequantize reads them; `GroupSizeLog` narrows a bf16 unified step's
+    to the experts that its routing gave rows."""
     heads = [t for k, t in w.items() if k.startswith("head")
              and t is not None]
-    return (sum(nbytes(t) for L in w["layers"] for t in L.values())
+    return (sum(tree_nbytes(L) for L in w["layers"])
             + sum(nbytes(t) for k, t in w.items() if k.startswith("norm"))
             + sum(nbytes(t) for t in heads)
             + (0 if heads else nbytes(w["embed"])))
 
 
+def expert_stack_bytes(L) -> int:
+    """Bytes of a decode-tree layer's routed expert stacks (wge / wup /
+    wdn, with their scales in a quantized layout; E leading), 0 for a
+    dense layer."""
+    mo = L.get("moe")
+    return 0 if mo is None else sum(
+        nbytes(t) for k, t in mo.items() if k[:3] in ("wge", "wup", "wdn"))
+
+
+class GroupSizeLog:
+    """Keeps, while it is entered, each group-size tensor that the
+    dropless FFN hands gmm (one a routed layer: its three products share
+    it), by reference: no copy and no read-back while a run is timed.
+    `mark` closes a step; `hits` reads, per step, the experts that hold
+    rows in each routed layer."""
+
+    def __init__(self):
+        self._gmm = moe_ffn.gmm
+        self.sizes, self.ends = [], []
+
+    def __enter__(self):
+        def recording(lhs, rhs, gs):
+            if not self.sizes or self.sizes[-1] is not gs:
+                self.sizes.append(gs)
+            return self._gmm(lhs, rhs, gs)
+        moe_ffn.gmm = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe_ffn.gmm = self._gmm
+
+    def mark(self):
+        self.ends.append(len(self.sizes))
+
+    def hits(self):
+        out, start = [], 0
+        for end in self.ends:
+            out.append((torch.stack(self.sizes[start:end]) > 0).sum(1)
+                       .tolist() if end > start else [])
+            start = end
+        return out
+
+
+def routed_step_reads(w, steps, hits, cfg, quant) -> dict:
+    """What a routed model's unified steps read, from the experts each
+    step's routing gave rows (`GroupSizeLog.hits`), for the decode steps
+    (no prefill chunk) and the mixed ones: the experts holding rows in a
+    routed layer (mean, min, max), the gmm launches' expert-slab bytes a
+    step (gmm multiplies the bf16 slabs, dequantized first in a quantized
+    layout) and their time at the HBM rate (the bound of a step's gmm
+    work), and, for bf16 weights, the bytes of the weight tree the step
+    reads
+    (`read_bytes` with each routed layer's stacks cut to the experts that
+    hold rows; a quantized tree is dequantized whole every step, so its
+    `weight_read_bytes` stays the whole tree's)."""
+    E = cfg.num_experts
+    stacks = [b for b in map(expert_stack_bytes, w["layers"]) if b]
+    dense_bytes = read_bytes(w) - sum(stacks)
+    expert_slabs = 3 * cfg.hidden_size * cfg.moe_intermediate_size \
+        * w["embed"].element_size()
+    out = {}
+    for kind in ("decode", "mixed"):
+        sel = [h for (_, o), h in zip(steps, hits)
+               if (o["prefill_tokens"] > 0) == (kind == "mixed")
+               and o["decoded"] + o["prefill_tokens"] > 0]
+        flat = [n for h in sel for n in h]
+        if not flat:
+            continue
+        assert all(len(h) == len(stacks) for h in sel), (kind, len(stacks))
+        slab = statistics.median(sum(h) for h in sel) * expert_slabs
+        r = {"steps": len(sel), "experts_with_rows_mean":
+             statistics.mean(flat), "experts_with_rows_min": min(flat),
+             "experts_with_rows_max": max(flat),
+             "gmm_slab_bytes": slab,
+             "gmm_slab_ms": slab / HBM_BYTES_PER_S * 1e3}
+        if quant is None:
+            assert sum(stacks) == len(stacks) * E * expert_slabs
+            r["weight_read_bytes"] = dense_bytes + slab
+            r["weight_read_ms"] = r["weight_read_bytes"] \
+                / HBM_BYTES_PER_S * 1e3
+        out[f"routed_{kind}_steps"] = r
+    return out
+
+
 def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
                 quant=None):
     """Serve the seeded trace (8 requests, prompts of 64-512 tokens, 32
-    new tokens each) with a full-width model (Llama-3-8B, GPT-3 6.7B or
-    Qwen2-7B) through one chain of ServingEngine's
+    new tokens each) with a full-width model (Llama-3-8B, GPT-3 6.7B,
+    Qwen2-7B or ERNIE-4.5-21B-A3B) through one chain of ServingEngine's
     unified step ("fused", "split") or through the alternating path
     ("alternating", ragged=False, with FLAGS_paged_impl `impl` pinned:
     the v2 paged kernel under "intree", v1 under "intree_v1"), with the
@@ -1637,7 +2033,7 @@ def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
     alternating, no other paged route)."""
     cfg = model.config
     layers = cfg.num_hidden_layers
-    norm = norm_kernel(model)
+    norm, routed = norm_kernel(model), routed_layers(model)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     alt = chain == "alternating"
@@ -1682,7 +2078,13 @@ def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
         eng._prefill_body = timed(eng._prefill_body, "prefill")
         eng._decode_body = timed(eng._decode_body, "decode")
 
+    # a routed model's unified steps: which experts each step's routing
+    # gave rows (a decode step's padding rows all route alike)
+    glog = GroupSizeLog() if routed and not alt else None
+
     def on_step(e, handles):
+        if glog is not None:
+            glog.mark()
         finite.append(bool(torch.isfinite(e.last_logits).all()))
         now = time.perf_counter()
         for rid, (req, t_sub) in handles.items():
@@ -1694,7 +2096,8 @@ def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
     steps0 = eng.launches
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out, handles, steps = drive(eng, reqs, on_step)
+    with glog or contextlib.nullcontext():
+        out, handles, steps = drive(eng, reqs, on_step)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     n_steps = eng.launches - steps0
@@ -1706,15 +2109,18 @@ def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
     if alt:
         pre, dec = alternating_launches(steps)
         assert n_steps == pre + dec, (n_steps, pre, dec)
-        expect = expect_alternating(impl, layers, pre, dec, quant, norm)
+        expect = expect_alternating(impl, layers, pre, dec, quant, norm,
+                                    routed, CHUNK)
         assert paged_routes.route_counts == dict(
             {k: 0 for k in paged_routes.route_counts},
             **{"paged_" + impl: layers * dec}), paged_routes.route_counts
         per_launch = {"decode": {ALTERNATING[impl][0]: layers,
                                  norm: 2 * layers + 1},
                       "prefill": {norm: 2 * layers + 1}}
+        if routed:
+            per_launch["prefill"]["gmm"] = 3 * routed
     else:
-        per_step = per_step_counts(chain, quant, norm)
+        per_step = per_step_counts(chain, quant, norm, routed)
         expect = {name: (a * layers + b) * n_steps
                   for name, (a, b) in per_step.items()}
         per_launch = {k: v // n_steps for k, v in expect.items()}
@@ -1748,6 +2154,9 @@ def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
         "launches_per_step" if not alt else "launches_per_launch":
             per_launch,
     }
+    if glog is not None:
+        res.update(routed_step_reads(eng._w, steps, glog.hits(), cfg,
+                                     quant))
     if alt:
         res.update(paged_impl=impl, prefill_launches=pre,
                    decode_launches=dec,
@@ -1762,9 +2171,10 @@ def generate_cached_run(model):
     """generate_cached at full width: GEN_BATCH seeded prompts of
     GEN_PROMPT tokens, GEN_NEW greedy new tokens. Every call of the cached
     step is timed alone (a synchronize on both sides); the prefill must
-    run the flash kernel once a layer and nothing else may launch."""
+    run the flash kernel once a layer (and, for a MoE model, gmm three
+    times a routed layer) and nothing else may launch."""
     cfg = model.config
-    L = cfg.num_hidden_layers
+    L, routed = cfg.num_hidden_layers, routed_layers(model)
     g = torch.Generator(DEV).manual_seed(3)
     ids = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
                         device=DEV, generator=g)
@@ -1773,8 +2183,8 @@ def generate_cached_run(model):
     calls = []
     make = generation._make_cached_step
 
-    def timed_make(p, max_len):
-        call = make(p, max_len)
+    def timed_make(p, max_len, *args):
+        call = make(p, max_len, *args)
 
         def run(ids_, caches, start):
             torch.cuda.synchronize()
@@ -1798,9 +2208,13 @@ def generate_cached_run(model):
     finally:
         generation._make_cached_step = make
     counts = ops.launch_counts()
+    # the prefill: the flash kernel once a layer, and a MoE model's routed
+    # layers three grouped GEMMs each (GEN_BATCH x GEN_PROMPT rows > 32;
+    # a decode step's GEN_BATCH rows run every expert on every token)
+    wants = {"flash_sdpa": L, "gmm": 3 * routed}
     for name, c in counts.items():
-        want = L if name == "flash_sdpa" else 0
-        assert c == {"launches": want, "plain_calls": 0}, (name, c)
+        assert c == {"launches": wants.get(name, 0), "plain_calls": 0}, \
+            (name, c)
     assert dict(attn_routes.route_counts) == {
         "flash": L, "flash_segmented": 0, "composite": 0}
     assert tuple(tok.shape) == (GEN_BATCH, GEN_NEW)
@@ -1812,7 +2226,8 @@ def generate_cached_run(model):
             "decode_token_ms_median": statistics.median(decode),
             "wall_s": wall, "tokens_per_s": GEN_BATCH * GEN_NEW / wall,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "flash_launches": counts["flash_sdpa"]["launches"]}
+            "flash_launches": counts["flash_sdpa"]["launches"],
+            "gmm_launches": counts["gmm"]["launches"]}
 
 
 # ------------------------------------------------------------- phase 6/7
@@ -1998,6 +2413,8 @@ SOURCES = {
                                   "paddle_tpu/ops/pallas_paged.py:201"),
     "weight_only_linear": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
                            "paddle_tpu/ops/quant.py:227"),
+    "gmm": ("paddle_tpu_torch/ops/csrc/gmm.cu",
+            "paddle_tpu/ops/pallas_gmm.py:204"),
 }
 #: the megakernels' quantized sites, reported inside their rows
 QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
@@ -2026,7 +2443,8 @@ def main() -> int:
     rows = check_kernels(Timer())
     emit("2 kernels", card=card["nvidia_smi"], kernels=rows)
 
-    emit("3 tiny engine and generation cpu vs card", **tiny_engine_parity())
+    tiny = tiny_engine_parity()
+    emit("3 tiny engine and generation cpu vs card", **tiny)
 
     # the main path: Llama-3-8B on the default fused chain; then the
     # split chain, the alternating path and generate_cached on the same
@@ -2138,13 +2556,48 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ERNIE-4.5-21B-A3B's widths at full depth (44.2 GB of bf16 weights
+    # drawn on the card): the fused chain, the alternating path,
+    # generate_cached, then int8 weights on the fused chain (the int8 tree
+    # beside the bf16 model: ~67 GB)
+    t0 = time.perf_counter()
+    model = MoEForCausalLM(MoEConfig(**ERNIE45_21B_A3B), device=DEV,
+                           dtype=torch.bfloat16,
+                           generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    moe_launches: dict = {}
+    moe_out, res = serve_trace(model, "fused", moe_launches)
+    emit("12 ernie45-21b-a3b serving, fused chain", card=card["nvidia_smi"],
+         model_init_s=init_s,
+         gmm_launches_per_step=moe_launches["gmm"] / res["launches"], **res)
+    torch.cuda.empty_cache()
+    out, res = serve_trace(model, "alternating", {})
+    emit("12 ernie45-21b-a3b serving, alternating path",
+         card=card["nvidia_smi"],
+         identical_token_share_vs_fused=same_share(moe_out, out), **res)
+    torch.cuda.empty_cache()
+    emit("12 ernie45-21b-a3b generate_cached", card=card["nvidia_smi"],
+         **generate_cached_run(model))
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    out, res = serve_trace(model, "fused", launches, quant="int8")
+    emit("12 ernie45-21b-a3b serving, int8 weights, fused chain",
+         card=card["nvidia_smi"], quantize_s=res.pop("engine_build_s"),
+         identical_token_share_vs_fused=same_share(moe_out, out),
+         gmm_launches_per_step=launches["gmm"] / res["launches"], **res)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
     kernels = []
     paths = (("fused", fused_launches), ("split", split_launches),
              ("alternating", alt_launches),
              ("alternating, intree_v1", v1_launches),
              ("train", train_launches),
              ("int4 split", quant_launches["int4 split"]),
-             ("gpt3-6.7b fused", gpt_launches))
+             ("gpt3-6.7b fused", gpt_launches),
+             ("ernie45-21b-a3b fused", moe_launches))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         path, launches = next((p, c[name]) for p, c in paths if name in c)
@@ -2170,12 +2623,25 @@ def main() -> int:
                     "heads", "kv_heads", "max_abs_err", "ms", "plain_ms",
                     "bound_ms", "bound_by")}
         if name == "weight_only_linear":
+            # int4_dequantize's work on the MoE int4 path runs here
+            row["int4_dequantize"] = {
+                "replaces": "paddle_tpu/ops/quant.py:83",
+                "site": "the int4 MoE shared expert",
+                "path": "phase 3 tiny ERNIE 4.5 MoE, int4 fused",
+                "launches": tiny["moe"]["int4/fused"][
+                    "int4_dequantize_work"]}
             row["cases"] = {k: {f: v[f] for f in ("ms", "bound_ms",
                                                   "bound_by", "split_ms",
                                                   "library_ms",
                                                   "rel_err_bf16")}
                             for k, v in r["cases"].items()
                             if k.endswith("bf16")}
+        if name == "gmm":
+            row["cases"] = {k: {f: v.get(f) for f in (
+                "m", "k", "n", "groups_with_rows", "largest_group", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "rel_err_bf16")}
+                for k, v in r["cases"].items() if k.endswith("bf16")}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,14 @@ flags the port reads are defined:
   plain gather composite). The JAX package's "bundled" names
   jax.experimental's TPU kernel, which has no counterpart here: it is
   refused with a message that says so.
+- ``FLAGS_gmm_impl``: kept under the JAX package's name for the MoE
+  experts' grouped GEMM. The port has one route, ``ops.gmm.gmm`` (the
+  hand-written kernel on CUDA tensors, its plain version on CPU
+  tensors), which "auto" (the default) and "intree" both name. The JAX
+  package's "einsum" (a one-hot composite; ``ops.gmm.gmm_plain`` is the
+  port's reference), "xla" (XLA's ``ragged_dot``) and "bundled"
+  (jax.experimental's megablox kernel) have no counterpart here and are
+  refused.
 """
 
 from __future__ import annotations
@@ -154,3 +162,26 @@ define_flag("FLAGS_paged_impl", "intree",
             "kernel, kept for comparison) or 'reference' (the plain gather "
             "composite)",
             validator=_paged_impl_ok)
+
+
+#: the names of the port's one grouped-GEMM route, ops.gmm.gmm
+GMM_IMPLS = ("auto", "intree")
+_GMM_ABSENT = {"einsum": "the one-hot composite (ops.gmm.gmm_plain is the "
+                         "port's reference)",
+               "xla": "XLA's ragged_dot",
+               "bundled": "jax.experimental's megablox TPU kernel"}
+
+
+def _gmm_impl_ok(value: str) -> bool:
+    if value in _GMM_ABSENT:
+        raise ValueError(
+            f"FLAGS_gmm_impl={value!r} names {_GMM_ABSENT[value]}, which "
+            f"has no counterpart in the PyTorch port; choose one of "
+            f"{GMM_IMPLS}")
+    return value in GMM_IMPLS
+
+
+define_flag("FLAGS_gmm_impl", "auto",
+            "grouped GEMM of the MoE experts: 'auto' and 'intree' both name "
+            "the gmm kernel (ops/gmm.py), the port's one route",
+            validator=_gmm_impl_ok)

@@ -1,6 +1,6 @@
 """Text generation and the decode weight tree (counterpart of
-paddle_tpu/generation.py: the llama family, with Qwen2, and the gpt
-family).
+paddle_tpu/generation.py: the llama family, with Qwen2, the gpt family
+and the MoE family).
 
 Ported:
 
@@ -17,17 +17,23 @@ Ported:
 - `_decode_params`, `_llama_decode_params` (Llama and Qwen2, whose
   q/k/v biases ride as ``bq`` / ``bk`` / ``bv``), `_gpt_decode_params`
   (fused ``wqkv`` + ``bqkv``, LayerNorms with biases, the GELU MLP,
-  learned positions ``pos``), `_llama_weights`, `_mm_w`, `_dq`,
-  `_ffn_apply` (dense SwiGLU): the weight tree the serving engine reads
-  too, in the fp layout or, with ``weight_only_int8=True`` /
-  ``weight_only_quant="int8"|"int4"``, the JAX package's weight-only
-  deploy layouts byte for byte (`_woq_algo`, `_q8`): every 2-D matmul
-  weight of the layers and the LM head as ``key_q`` (int8 [K, N]) or
-  ``key_q4`` (packed int4 [K/2, N]) beside its f32 scale ``key_s``. The
-  gpt family stays fp, as in JAX (its quant knobs raise). The MoE and
-  MLA families (and their 3-D expert stacks and 2-D int4 whole reads)
-  raise naming item 5. `generate_compiled` and the beam searches are
-  not ported yet (queue A item 3).
+  learned positions ``pos``), `_moe_decode_params` (the MoE family:
+  the llama attention backbone, and per layer the dense SwiGLU or the
+  routed ``moe`` subtree with its f32-read router ``gate``, the expert
+  stacks ``wge`` / ``wup`` / ``wdn`` and the ``shared`` expert, plus the
+  per-layer routing knobs ``moe_static``), `_llama_weights`, `_mm_w`,
+  `_dq`, `_ffn_apply` (dense SwiGLU, or the routed experts: every
+  expert on every token at T <= 32, else dropless through the grouped
+  GEMM): the weight tree the serving engine reads too, in the fp layout
+  or, with ``weight_only_int8=True`` / ``weight_only_quant="int8"|
+  "int4"``, the JAX package's weight-only deploy layouts byte for byte
+  (`_woq_algo`, `_q8`): every 2-D matmul weight of the layers and the
+  LM head as ``key_q`` (int8 [K, N]) or ``key_q4`` (packed int4 [K/2,
+  N]) beside its f32 scale ``key_s``, the 3-D expert stacks per expert
+  with scales [E, N] (the router stays fp). The gpt family stays fp, as
+  in JAX (its quant knobs raise). The MLA family and its 2-D int4 whole
+  reads raise naming item 5c. `generate_compiled` and the beam searches
+  are not ported yet (queue A item 3).
 
 PyTorch idiom: an eager Python loop, no jit. Inputs move to the model's
 device, so the model decides where the call runs (a model built with
@@ -41,6 +47,7 @@ or a temperature <= 0) matches the JAX package token for token.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -259,17 +266,20 @@ def _wq2(d, key):
 def _q8(d, key, enabled: bool = True, algo: str = "weight_only_int8"):
     """Quantize d[key] in place to (int8 or packed-int4 values,
     per-out-channel f32 scale), the weight-only deploy transform: int8
-    stores key_q [K, N], int4 key_q4 [K/2, N], both key_s [N]. None
-    entries and disabled calls are no-ops."""
+    stores key_q [K, N], int4 key_q4 [K/2, N], both key_s [N]. A 3-D
+    expert stack [E, K, N] quantizes expert by expert (the JAX package's
+    vmap; one expert's f32 copy at a time) into [E, K(/2), N] with
+    scales [E, N]. None entries and disabled calls are no-ops."""
     if not enabled or d.get(key) is None:
         return
     from .ops.quant import weight_quantize
     w = d.pop(key)
-    if w.ndim != 2:
-        raise NotImplementedError(
-            "quantized expert stacks (the MoE family) are not ported yet "
-            "(ROADMAP.md queue A item 5)")
-    qw, sc = weight_quantize(w, algo)
+    if w.ndim == 3:
+        per_expert = [weight_quantize(we, algo) for we in w]
+        qw = torch.stack([q for q, _ in per_expert])
+        sc = torch.stack([s for _, s in per_expert])
+    else:
+        qw, sc = weight_quantize(w, algo)
     d[key + _SUFFIX[algo]] = qw
     d[key + "_s"] = sc.float()
 
@@ -351,51 +361,141 @@ def _gpt_decode_params(model):
                 normb=gpt.ln_f.bias.detach(), head=head)
 
 
+def _mlp_params(lyr, enabled: bool = False,
+                algo: str = "weight_only_int8"):
+    """A layer's FFN weights: (weight dict, static routing knobs or
+    None). Dense SwiGLU (the llama layout) or the routed MoE subtree
+    ``moe``: the router ``gate`` [H, E] (always fp: a flipped top-k is a
+    different program, not a rounding error), the expert stacks ``wge``
+    / ``wup`` [E, H, I] and ``wdn`` [E, I, H] and the ``shared`` expert
+    (``sg`` / ``su`` / ``sd``), quantized per expert / per matrix when
+    ``enabled``; the knobs (top_k, renorm) stay out of the tree. Serving
+    always routes dropless: a model trained in capacity mode warns."""
+    from .incubate.moe import MoELayer
+    m = lyr.mlp
+    if isinstance(m, MoELayer):
+        if m.activation != "swiglu":
+            raise NotImplementedError(
+                "cached MoE decode supports swiglu experts (the LM configs)")
+        if not m.dropless:
+            warnings.warn(
+                "cached/compiled MoE decode always routes DROPLESS (no "
+                "capacity drops — serving never discards tokens); this "
+                "model trains in capacity mode, so cached decode can "
+                "diverge from generate() near capacity overflow. Exactness "
+                "vs the buffer path holds for moe_dropless=True models.",
+                stacklevel=4)
+        mo = dict(gate=m.gate_weight.detach(), wge=m.w_gate.detach(),
+                  wup=m.w_up.detach(), wdn=m.w_down.detach())
+        for k in ("wge", "wup", "wdn"):
+            _q8(mo, k, enabled, algo)
+        if m.shared_up is not None:
+            sh = dict(sg=m.shared_gate.weight.detach(),
+                      su=m.shared_up.weight.detach(),
+                      sd=m.shared_down.weight.detach())
+            for k in ("sg", "su", "sd"):
+                _q8(sh, k, enabled, algo)
+            mo["shared"] = sh
+        return dict(moe=mo), dict(top_k=m.top_k, renorm=m.renormalize)
+    d = dict(wg=m.gate_proj.weight.detach(), wu=m.up_proj.weight.detach(),
+             wd=m.down_proj.weight.detach())
+    for k in ("wg", "wu", "wd"):
+        _q8(d, k, enabled, algo)
+    return d, None
+
+
+def _moe_decode_params(model, enabled: bool = False,
+                       algo: str = "weight_only_int8"):
+    """The cached-decode weight tree of a MoEForCausalLM: the llama
+    attention backbone and, per layer, `_mlp_params`'s dense or routed
+    FFN; ``moe_static`` holds each layer's routing knobs (None for a
+    dense layer). Quantized like `_llama_decode_params`, the expert
+    stacks per expert."""
+    inner = model.model
+    layers, moe_static = [], []
+    for lyr in inner.layers:
+        a = lyr.self_attn
+        d = dict(
+            ln1=lyr.input_layernorm.weight.detach(),
+            wq=a.q_proj.weight.detach(), wk=a.k_proj.weight.detach(),
+            wv=a.v_proj.weight.detach(), wo=a.o_proj.weight.detach(),
+            ln2=lyr.post_attention_layernorm.weight.detach())
+        for k in ("wq", "wk", "wv", "wo"):
+            _q8(d, k, enabled, algo)
+        mlp_w, mlp_st = _mlp_params(lyr, enabled, algo)
+        d.update(mlp_w)
+        layers.append(d)
+        moe_static.append(mlp_st)
+    p = dict(cfg=model.config, family="moe",
+             embed=inner.embed_tokens.weight.detach(),
+             layers=layers, norm=inner.norm.weight.detach(),
+             head=model.lm_head.weight.detach(),
+             cos=inner.rope_cos, sin=inner.rope_sin,
+             moe_static=tuple(moe_static))
+    if enabled:
+        _q8(p, "head", True, algo)
+        p["head"] = None
+    return p
+
+
 def _decode_params(model, weight_only_int8: bool = False,
                    weight_only_quant=None):
     """Family dispatch of the cached decode path: the gpt family (fp
-    only, as in JAX), the llama family with Qwen2; the MoE and MLA
-    families (``model.model``) are ROADMAP.md queue A item 5."""
-    _, enabled = _woq_algo(weight_only_int8, weight_only_quant)
+    only, as in JAX), the MoE family (``model.model`` a MoEModel), the
+    llama family with Qwen2; the MLA family is ROADMAP.md queue A item
+    5c."""
+    algo, enabled = _woq_algo(weight_only_int8, weight_only_quant)
     if getattr(model, "gpt", None) is not None:
         if enabled:
             raise NotImplementedError(
-                "weight-only decode covers the llama family; the GPT "
-                "family is fp (its fused-qkv + bias layout is not wired "
+                "weight-only decode covers the llama and MoE families; the "
+                "GPT family is fp (its fused-qkv + bias layout is not wired "
                 "through the quant matmul helper), as in the JAX package")
         return _gpt_decode_params(model)
-    if getattr(model, "model", None) is not None:
+    inner = getattr(model, "model", None)
+    if inner is not None:
+        from .models.moe_llm import MoEModel
+        if isinstance(inner, MoEModel):
+            return _moe_decode_params(model, enabled, algo)
         raise NotImplementedError(
-            "cached decoding of the MoE and MLA families is not ported "
-            "yet (ROADMAP.md queue A item 5)")
+            "cached decoding of the MLA family (deepseek) is not ported "
+            "yet (ROADMAP.md queue A item 5c)")
     return _llama_decode_params(model, weight_only_int8, weight_only_quant)
 
 
 def _llama_weights(p):
-    """The tensor slice of a decode tree (no config, no family)."""
-    return {k: v for k, v in p.items() if k not in ("cfg", "family")}
+    """The tensor slice of a decode tree (no config, family or routing
+    knobs)."""
+    return {k: v for k, v in p.items()
+            if k not in ("cfg", "family", "moe_static")}
 
 
 def _dq(d, key, dtype):
     """A stored weight read WHOLE in `dtype`: fp as it is, int8 as the
     JAX package's ``q.astype(dtype) * s.astype(dtype)`` (which XLA fuses
     into the consuming matmul), here one elementwise pass ``q * s`` that
-    converts the int8 operand exactly on the fly and writes the [K, N]
-    weight in `dtype`. A 2-D packed-int4 whole read (the MLA absorbed
-    kv_b, through ``int4_dequantize``) and the 3-D expert stacks are the
-    MLA / MoE families' (ROADMAP.md queue A item 5)."""
+    converts the int8 operand exactly on the fly and writes the weight in
+    `dtype` (a 3-D expert stack with its [E, N] scales per expert). A
+    3-D packed-int4 stack [E, K/2, N] interleaves its sign-extended
+    nibble planes back to source-row order and scales in f32, as the JAX
+    body does (plain array code there too). A 2-D packed-int4 whole read
+    (the MLA absorbed kv_b, through ``int4_dequantize``) is the MLA
+    family's (ROADMAP.md queue A item 5c)."""
     algo = _walgo(d, key)
     if algo == "weight_only_int4":
-        raise NotImplementedError(
-            "a packed-int4 weight read whole (int4_dequantize, the MLA "
-            "family) is not ported yet (ROADMAP.md queue A item 5)")
+        q4, s = d[key + "_q4"], d[key + "_s"]
+        if q4.ndim != 3:
+            raise NotImplementedError(
+                "a packed-int4 weight read whole (int4_dequantize, the MLA "
+                "family) is not ported yet (ROADMAP.md queue A item 5c)")
+        from .ops.quant import int4_planes
+        lo, hi = int4_planes(q4)                        # [E, K/2, N]
+        E, K2, N = q4.shape
+        w = torch.stack([lo, hi], dim=2).reshape(E, 2 * K2, N)
+        return (w.float() * s[:, None, :].float()).to(dtype)
     if algo == "weight_only_int8":
         q, s = d[key + "_q"], d[key + "_s"].to(dtype)
-        if q.ndim != 2:
-            raise NotImplementedError(
-                "quantized expert stacks (the MoE family) are not ported "
-                "yet (ROADMAP.md queue A item 5)")
-        return q * s
+        return q * (s[:, None, :] if q.ndim == 3 else s)
     return d[key]
 
 
@@ -419,22 +519,52 @@ def _head(last, w):
     return last @ (w["head"] if w["head"] is not None else w["embed"].T)
 
 
-def _ffn_apply(L, h2):
-    """Dense SwiGLU FFN on [B, S, H]: down(silu(gate(h)) * up(h))."""
-    return _mm_w(F.silu(_mm_w(h2, L, "wg")) * _mm_w(h2, L, "wu"), L, "wd")
+def _ffn_apply(L, h2, st=None):
+    """A layer's FFN on [..., H]: dense SwiGLU, down(silu(gate(h)) *
+    up(h)), or the routed experts (``L["moe"]``, routing knobs ``st``):
+    the f32 router, then every expert on every token at T <= 32 tokens
+    (`dense_expert_ffn`, the JAX body's switch) or the dropless grouped
+    GEMMs above (the ``gmm`` kernel on the card), then the shared
+    expert. The JAX body reads the shared expert's weights whole
+    (``h @ _dq``); its int4 layout there goes through int4_dequantize and
+    a matmul, here through `_mm_w` (``weight_only_linear``, the same
+    function), so no int4 weight is read whole."""
+    if "moe" not in L:
+        return _mm_w(F.silu(_mm_w(h2, L, "wg")) * _mm_w(h2, L, "wu"), L,
+                     "wd")
+    from .incubate.moe import dense_expert_ffn, dropless_expert_ffn
+    mo = L["moe"]
+    H = h2.shape[-1]
+    xt = h2.reshape(-1, H)
+    gates = torch.softmax(xt.float() @ mo["gate"].float(), -1)
+    dt = h2.dtype
+    w = (_dq(mo, "wge", dt), _dq(mo, "wup", dt), _dq(mo, "wdn", dt))
+    kw = dict(top_k=st["top_k"], renormalize=st["renorm"])
+    if xt.shape[0] <= 32:
+        y, _ = dense_expert_ffn(xt, gates, *w, **kw)
+    else:
+        y, _ = dropless_expert_ffn(xt, gates, *w, **kw)
+    y = y.reshape(h2.shape).to(dt)
+    if "shared" in mo:
+        sh = mo["shared"]
+        s = F.silu(_mm_w(h2, sh, "sg")) * _mm_w(h2, sh, "su")
+        y = y + _mm_w(s, sh, "sd")
+    return y
 
 
 # ---------------------------------------------------------------------------
 # KV-cache decoding
 # ---------------------------------------------------------------------------
-def _llama_cached_step_body(cfg, max_len: int):
+def _llama_cached_step_body(cfg, max_len: int, moe_static=None):
     """(weights, ids [B, S], caches, start) -> (last logits [B, V],
-    caches). Writes the window's K/V into the caches at [start, start +
-    S) in place. A multi-token window at start 0 (the prefill) attends
-    causally over its fresh K/V through `sdpa_prefill`; any other window
-    attends densely over the whole cache with positions past start + i
-    masked, the GQA query heads grouped over their KV head so the cache
-    is read once (no repeat)."""
+    caches); the MoE family's too (``moe_static``: each layer's routing
+    knobs). Writes the
+    window's K/V into the caches at [start, start + S) in place. A
+    multi-token window at start 0 (the prefill) attends causally over its
+    fresh K/V through `sdpa_prefill`; any other window attends densely
+    over the whole cache with positions past start + i masked, the GQA
+    query heads grouped over their KV head so the cache is read once (no
+    repeat)."""
     from .models.llama import apply_rope
     from .ops.flash_attention import sdpa_prefill
     Hh, KV, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -455,7 +585,8 @@ def _llama_cached_step_body(cfg, max_len: int):
         pos_k = torch.arange(max_len, device=dev)
         q_pos = start + torch.arange(S, device=dev)
         vis = pos_k[None, :] <= q_pos[:, None]            # [S, max_len]
-        for L, (ck, cv) in zip(w["layers"], caches):
+        sts = moe_static or (None,) * len(w["layers"])
+        for L, (ck, cv), st in zip(w["layers"], caches, sts):
             h = rms(x, L["ln1"])
             q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
                        _mm_w(h, L, "wv"))
@@ -489,7 +620,7 @@ def _llama_cached_step_body(cfg, max_len: int):
                     B, S, Hh * D)
             x = x + _mm_w(o, L, "wo")
             h2 = rms(x, L["ln2"])
-            x = x + _ffn_apply(L, h2)
+            x = x + _ffn_apply(L, h2, st)
         x = rms(x, w["norm"])
         return _head(x[:, -1], w), caches
 
@@ -551,7 +682,7 @@ def _gpt_cached_step_body(cfg, max_len: int):
 def _cached_step_body(p, max_len: int):
     if p["family"] == "gpt":
         return _gpt_cached_step_body(p["cfg"], max_len)
-    return _llama_cached_step_body(p["cfg"], max_len)
+    return _llama_cached_step_body(p["cfg"], max_len, p.get("moe_static"))
 
 
 def _kv_geometry(p):
@@ -595,9 +726,9 @@ def generate_cached(model, input_ids, max_new_tokens: int = 20,
                     weight_only_quant=None,
                     deadline_s: Optional[float] = None,
                     generator: Optional[torch.Generator] = None):
-    """KV-cache generation for LlamaForCausalLM, Qwen2ForCausalLM and
-    GPTForCausalLM: prefill once over the prompt, then O(1) work per new
-    token. Returns (generated_ids,
+    """KV-cache generation for LlamaForCausalLM, Qwen2ForCausalLM,
+    GPTForCausalLM and MoEForCausalLM (routed dropless): prefill once
+    over the prompt, then O(1) work per new token. Returns (generated_ids,
     scores) as `generate` does, on the model's device; ``deadline_s`` as
     in `generate`. Greedy tokens equal `generate`'s under f32 (summation
     order aside, near-tied logits may flip in bf16)."""

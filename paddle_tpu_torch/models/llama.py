@@ -189,8 +189,8 @@ class LlamaModel(nn.Module):
             self.embed_tokens.weight.normal_(
                 0.0, config.initializer_range, generator=kw["generator"])
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, **kw)
-             for _ in range(config.num_hidden_layers)])
+            [self._layer(config, i, **kw)
+             for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=kw["device"], dtype=kw["dtype"])
         cos, sin = precompute_rope(config.head_dim,
@@ -200,6 +200,11 @@ class LlamaModel(nn.Module):
         # persistable=False): they are recomputed, never loaded
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
+
+    def _layer(self, config, index: int, **kw) -> nn.Module:
+        """Decoder layer `index` (a family with other layers overrides
+        this)."""
+        return LlamaDecoderLayer(config, **kw)
 
     def forward(self, input_ids, attn_mask=None, remat=None):
         """Final-normed hidden states [B, S, hidden]. `remat` is the

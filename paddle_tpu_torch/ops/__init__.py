@@ -7,6 +7,7 @@ from typing import Dict
 
 from .flash import (flash_kernel_eligible, flash_sdpa, flash_sdpa_bwd,
                     flash_sdpa_bwd_reference, flash_sdpa_reference)
+from .gmm import gmm, gmm_kernel_eligible, gmm_plain
 from .fused import (fused_layer_norm, fused_rms_norm, fused_rope_append,
                     layer_norm_reference, rms_norm_reference,
                     rope_append_reference)
@@ -39,7 +40,8 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
            "paged_kernel_eligible", "default_pages_per_group",
            "paged_attention_reference", "append_to_cache",
            "weight_quantize", "weight_dequantize", "int4_planes",
-           "weight_only_linear", "weight_only_linear_reference", "oracles",
+           "weight_only_linear", "weight_only_linear_reference", "gmm",
+           "gmm_plain", "gmm_kernel_eligible", "oracles",
            "launch_counts", "reset_counts"]
 
 

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the paged KV cache
 (counterpart of paddle_tpu/serving/engine.py: the llama family, with
-Qwen2's q/k/v biases, and the gpt family).
+Qwen2's q/k/v biases, the gpt family and the MoE family).
 
 Two dispatch paths, as in the JAX engine:
 
@@ -80,6 +80,15 @@ split chain's and the alternating path's int4 products go through
 ``ops.quant.weight_only_linear`` and their int8 products through
 ``h @ (q * s)`` (``generation._mm_w``), and so does a quantized LM head.
 
+The MoE family (``MoEForCausalLM``, the tree of
+``generation._moe_decode_params``) runs the llama bodies: its dense
+first layers as llama's, its routed layers through
+``generation._ffn_apply`` on every path (on the fused chain after
+``fused_oproj_norm``, as the JAX body does: routing is data-dependent,
+so no fused FFN kernel covers it). A step of more than 32 token rows
+routes dropless through three grouped GEMMs a routed layer (the ``gmm``
+kernel on the card), a smaller one runs every expert on every token.
+
 Greedy decoding only: engine tokens equal the JAX engine's tokens per
 request on the same weights and trace, on either chain and on the
 alternating path, in the fp, int8 and int4 layouts, and the solo
@@ -132,8 +141,8 @@ def _unported(feature: str, item: int) -> NotImplementedError:
 
 
 class ServingEngine:
-    """Continuous-batching engine for the llama family (Qwen2 included)
-    and the gpt family.
+    """Continuous-batching engine for the llama family (Qwen2 included),
+    the gpt family and the MoE family.
 
     Typical loop::
 
@@ -596,6 +605,10 @@ class ServingEngine:
         self._p = dict(self._p, layers=layers)
         self._w = dict(self._w, layers=layers)
 
+    def _moe_static(self) -> tuple:
+        """Each layer's routing knobs (None for a dense layer)."""
+        return self._p.get("moe_static") or (None,) * len(self._p["layers"])
+
     # ------------------------------------------------------ unified body
     def _llama_unified_body(self):
         """The per-step function over tensors (the JAX engine's jitted
@@ -611,13 +624,14 @@ class ServingEngine:
         T = B + C
         seq_start = torch.arange(B + 1, dtype=torch.int32,
                                  device=self.device)
+        sts = self._moe_static()
 
         def step(w, tok, pools, positions, num_tokens, kv_lengths,
                  tables, tok_page, tok_off):
             x = w["embed"][tok.long()][None]             # [1, T, H]
             c = w["cos"][positions.long()]               # [T, D/2] f32
             s = w["sin"][positions.long()]
-            for L, (kp, vp) in zip(w["layers"], pools):
+            for L, (kp, vp), st in zip(w["layers"], pools, sts):
                 h = fused_rms_norm(x, L["ln1"], eps)
                 if megafront:
                     wp, ws = _wq2(L, "wqkv")
@@ -642,15 +656,18 @@ class ServingEngine:
                     xn, h2 = fused_oproj_norm(
                         o.reshape(T, Hh * D), x[0], wp, ws, None, L["ln2"],
                         None, eps=eps, algo=_walgo(L, "wo"))
-                    gp, gs = _wq2(L, "wg")
-                    up, us = _wq2(L, "wu")
-                    dp, ds = _wq2(L, "wd")
-                    x = fused_ffn(h2, xn, gp, gs, up, us, dp, ds,
-                                  algo=_walgo(L, "wg"))[None]
+                    if "moe" in L:         # routed: no fused FFN kernel
+                        x = (xn + _ffn_apply(L, h2, st))[None]
+                    else:
+                        gp, gs = _wq2(L, "wg")
+                        up, us = _wq2(L, "wu")
+                        dp, ds = _wq2(L, "wd")
+                        x = fused_ffn(h2, xn, gp, gs, up, us, dp, ds,
+                                      algo=_walgo(L, "wg"))[None]
                 else:
                     x = x + _mm_w(o.reshape(1, T, Hh * D), L, "wo")
                     h2 = fused_rms_norm(x, L["ln2"], eps)
-                    x = x + _ffn_apply(L, h2)
+                    x = x + _ffn_apply(L, h2, st)
             x = fused_rms_norm(x, w["norm"], eps)
             # each sequence's logits come from its LAST flat row; idle
             # slots (num_tokens 0) index garbage the host ignores
@@ -671,6 +688,7 @@ class ServingEngine:
                      cfg.head_dim)
         eps = cfg.rms_norm_eps
         paged_impl = self.paged_impl
+        sts = self._moe_static()
 
         def step(w, tok, pools, lengths, tables):
             B = tok.shape[0]
@@ -685,7 +703,7 @@ class ServingEngine:
                 ss = s[:, None, None, :].to(t.dtype)
                 return torch.cat([t1 * cc - t2 * ss, t2 * cc + t1 * ss], -1)
 
-            for L, (kp, vp) in zip(w["layers"], pools):
+            for L, (kp, vp), st in zip(w["layers"], pools, sts):
                 h = fused_rms_norm(x, L["ln1"], eps)
                 q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
                            _mm_w(h, L, "wv"))
@@ -699,7 +717,7 @@ class ServingEngine:
                                     scale=D ** -0.5, impl=paged_impl)
                 x = x + _mm_w(o.reshape(B, 1, Hh * D), L, "wo")
                 h2 = fused_rms_norm(x, L["ln2"], eps)
-                x = x + _ffn_apply(L, h2)
+                x = x + _ffn_apply(L, h2, st)
             x = fused_rms_norm(x, w["norm"], eps)
             return _head(x[:, -1], w), pools
 
@@ -724,6 +742,7 @@ class ServingEngine:
         dev = self.device
         rows = torch.arange(C, device=dev)
         pos_t = torch.arange(T, device=dev)
+        sts = self._moe_static()
 
         def prefill(w, ids, pools, table, start: int, n_valid: int):
             x = w["embed"][ids.long()]                    # [1, C, H]
@@ -746,7 +765,7 @@ class ServingEngine:
             pg = torch.where(valid, tab[(pos // ps).clamp(0, nj - 1)], 0)
             off = torch.where(valid, pos % ps, 0)
             vis = pos_t[None, :] <= pos[:, None]          # [C, T]
-            for L, (kp, vp) in zip(w["layers"], pools):
+            for L, (kp, vp), st in zip(w["layers"], pools, sts):
                 h = fused_rms_norm(x, L["ln1"], eps)
                 q, k, v = (_mm_w(h, L, "wq"), _mm_w(h, L, "wk"),
                            _mm_w(h, L, "wv"))
@@ -769,7 +788,7 @@ class ServingEngine:
                     1, C, Hh * D)
                 x = x + _mm_w(o, L, "wo")
                 h2 = fused_rms_norm(x, L["ln2"], eps)
-                x = x + _ffn_apply(L, h2)
+                x = x + _ffn_apply(L, h2, st)
             x = fused_rms_norm(x, w["norm"], eps)
             return _head(x[0, n_valid - 1][None], w), pools
 

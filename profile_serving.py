@@ -2,13 +2,14 @@
 """Where one serving step's time goes, on the card.
 
     python3 profile_serving.py [--out serving_trace.json]
-                               [--model llama|gpt|qwen2]
+                               [--model llama|gpt|qwen2|moe]
                                [--chain fused|split|alternating]
                                [--quant int8|int4]
 
 Serves the same configuration and seeded traffic as chip_smoke.py's
 phase 4 (Llama-3-8B; ``--model gpt``: GPT-3 6.7B, phase 10; ``--model
-qwen2``: Qwen2-7B, phase 11; bf16, 4 slots, page_size 16, 128-token
+qwen2``: Qwen2-7B, phase 11; ``--model moe``: ERNIE-4.5-21B-A3B's
+widths, phase 12; bf16, 4 slots, page_size 16, 128-token
 prefill chunks), on the engine's default fused chain, with ``--chain split`` on
 the split chain of the unified step, or with ``--chain alternating`` on
 the alternating path (``ragged=False``: a prefill-chunk launch and a
@@ -19,7 +20,8 @@ int4 layout of the same weights (quantized on the card as the engine is
 built). Prints one JSON line per window: host wall
 ms per step, device busy ms per step (the union of kernel intervals in
 the trace), the device's idle share, device time by kernel group (the
-port's kernels, cuBLAS GEMMs, PyTorch's gathers / scatters, concatenations
+port's kernels, the routed experts' grouped GEMM ``gmm``, cuBLAS GEMMs,
+PyTorch's gathers / scatters, concatenations
 and other elementwise passes, everything else) and the ten kernels with
 the most device time. Needs one CUDA card; the trace of the last window
 goes to ``--out``.
@@ -38,9 +40,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import CHUNK, MAX_CTX, PSZ, QWEN2_7B, SLOTS, trace
+from chip_smoke import (CHUNK, ERNIE45_21B_A3B, MAX_CTX, PSZ, QWEN2_7B,
+                        SLOTS, trace)
 from paddle_tpu_torch import card_report
-from paddle_tpu_torch.models import (GPTForCausalLM, Qwen2Config,
+from paddle_tpu_torch.models import (GPTForCausalLM, MoEConfig,
+                                     MoEForCausalLM, Qwen2Config,
                                      Qwen2ForCausalLM, gpt3_6_7b_config)
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b_config
 from paddle_tpu_torch.serving import ServingEngine
@@ -49,7 +53,8 @@ from paddle_tpu_torch.serving import ServingEngine
 #: builds them
 MODELS = {"llama": (LlamaForCausalLM, llama3_8b_config),
           "gpt": (GPTForCausalLM, gpt3_6_7b_config),
-          "qwen2": (Qwen2ForCausalLM, lambda: Qwen2Config(**QWEN2_7B))}
+          "qwen2": (Qwen2ForCausalLM, lambda: Qwen2Config(**QWEN2_7B)),
+          "moe": (MoEForCausalLM, lambda: MoEConfig(**ERNIE45_21B_A3B))}
 
 STEPS = 6                          # engine steps per profiled window
 #: kernel-name fragments of the port's own kernels (ops/csrc)
@@ -67,6 +72,8 @@ TORCH_GROUPS = (("index", "index"), ("catarray", "cat"),
 
 
 def group(name: str) -> str:
+    if "gmm::gmm_kernel" in name:       # ops/csrc/gmm.cu
+        return "gmm"
     for k in PORT_KERNELS:
         if k in name:
             return k

@@ -17,7 +17,8 @@
   `generate` and `generate_cached` greedy tokens identical (scores within
   1e-5, JAX at "highest" matmul precision); quantized GPT raises in both;
 - `ServingEngine` greedy tokens identical to the JAX engine's over the
-  seeded join/leave trace of test_torch_llama_serving.py on the fused
+  seeded join/leave trace of test_torch_llama_serving.py (its three
+  requests that share a prefix and two seeded ones) on the fused
   chain, the split chain and the alternating path under both paged
   impls, with every kernel wrapper's calls per step: fused_layer_norm
   layers + 1 (fused) or 2 * layers + 1 (split, and every alternating
@@ -307,15 +308,18 @@ ALT = {"intree": "paged_decode_attention_v2",
        "intree_v1": "paged_decode_attention"}
 
 
-def _run(models, chain, impl="intree"):
+def _run(models, chain, impl, jax_runs):
     """Both engines over the seeded serving trace on `chain` ("fused",
     "split" or "alternating" under FLAGS_paged_impl `impl`); the port's
-    counts, launches and decode launches."""
+    counts, launches and decode launches. The JAX engine's run is shared
+    by the runs that differ only on the port's side (its paged impl)."""
     jm, tm, _ = models
-    trace = _serving_trace(jm.config.vocab_size)
+    trace = _serving_trace(jm.config.vocab_size, seeded=2)
     kw = dict(CHAINS.get(chain, dict(ragged=False)), **ENGINE_KW)
-    jeng = JaxEngine(jm, enable_prefix_cache=False, **kw)
-    jres, _ = _drive(jeng, trace)
+    if chain not in jax_runs:
+        jeng = JaxEngine(jm, enable_prefix_cache=False, **kw)
+        jax_runs[chain] = jeng, _drive(jeng, trace)[0]
+    jeng, jres = jax_runs[chain]
     ops.reset_counts()
     routes.reset_route_counts()
     with flags_guard(paged_impl=impl):
@@ -340,7 +344,8 @@ RUNS = [("fused", "intree"), ("split", "intree"),
 
 @pytest.fixture(scope="module")
 def runs(models):
-    return {run: _run(models, *run) for run in RUNS}
+    jax_runs = {}
+    return {run: _run(models, *run, jax_runs) for run in RUNS}
 
 
 class TestEngineAgainstJax:

@@ -59,18 +59,19 @@ def _trace(V, n, seed, smin=2, smax=11, mmin=2, mmax=7):
             for _ in range(n)]
 
 
-def _serving_trace(V):
+def _serving_trace(V, seeded: int = 5):
     """Three requests sharing a prompt prefix, then a seeded join/leave
-    trace. Request 1 joins while request 0 decodes and forks its
-    prefilled pages (live-donor prefix sharing, with a partially shared
-    page that both copy on their next write); request 2 later forks
-    request 1's."""
+    trace of `seeded` requests. Request 1 joins while request 0 decodes
+    and forks its prefilled pages (live-donor prefix sharing, with a
+    partially shared page that both copy on their next write); request
+    2 later forks request 1's."""
     rng = np.random.RandomState(7)
     a = rng.randint(0, V, 6).astype(np.int32)
     tail = rng.randint(0, V, 3).astype(np.int32)
     shared = [(a, 6, 0), (np.concatenate([a, tail]), 4, 2),
               (np.concatenate([a[:5], tail[:1]]), 3, 3)]
-    return shared + [(p, m, at + 3) for p, m, at in _trace(V, 5, seed=1)]
+    return shared + [(p, m, at + 3)
+                     for p, m, at in _trace(V, seeded, seed=1)]
 
 
 def _drive(eng, trace):
@@ -291,14 +292,12 @@ class TestFusedEngineAgainstJax:
             rtol=0, atol=0)
 
 
-def _run_alternating(models, impl):
+def _jax_alternating(models):
     """The JAX alternating engine (ragged=False, its default
     FLAGS_paged_impl "intree": the v2 Pallas kernel in interpret mode)
-    and the port's under `impl`, over the seeded serving trace, with
-    every launch's logits captured on both sides."""
-    from paddle_tpu_torch.flags import flags_guard
-    from paddle_tpu_torch.ops import paged_attention as routes
-    jm, tm, _ = models
+    over the seeded serving trace, every launch's logits captured:
+    (results, logits, trace)."""
+    jm, _, _ = models
     trace = _serving_trace(jm.config.vocab_size)
     jeng = JaxEngine(jm, enable_prefix_cache=False, ragged=False,
                      **ENGINE_KW)
@@ -314,6 +313,18 @@ def _run_alternating(models, impl):
     jeng._jit_prefill = capture(jeng._jit_prefill)
     jeng._jit_decode = capture(jeng._jit_decode)
     jres, _ = _drive(jeng, trace)
+    return jres, jax_logits, trace
+
+
+def _run_alternating(models, impl, jax_side):
+    """The port's alternating engine under `impl` over the trace of the
+    JAX run `jax_side` (`_jax_alternating`, shared by both impls: the
+    JAX engine is the same for either), every launch's logits
+    captured."""
+    from paddle_tpu_torch.flags import flags_guard
+    from paddle_tpu_torch.ops import paged_attention as routes
+    _, tm, _ = models
+    jres, jax_logits, trace = jax_side
 
     ops.reset_counts()
     routes.reset_route_counts()
@@ -341,7 +352,8 @@ def _run_alternating(models, impl):
 @pytest.fixture(scope="module")
 def alt_runs(models):
     """The alternating path on both impls of the port."""
-    return {impl: _run_alternating(models, impl)
+    jax_side = _jax_alternating(models)
+    return {impl: _run_alternating(models, impl, jax_side)
             for impl in ("intree", "intree_v1")}
 
 

@@ -29,7 +29,7 @@ for n in names:
     importlib.import_module(n)
 # imports only: the scripts run under __main__
 import chip_smoke, flash_limits, paged_limits, profile_serving, profile_training
-import quant_limits
+import gmm_limits, quant_limits
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -70,7 +70,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.generation", "paddle_tpu_torch.flags",
                 "paddle_tpu_torch.ops.paged",
                 "paddle_tpu_torch.ops.paged_attention",
-                "paddle_tpu_torch.ops.quant"):
+                "paddle_tpu_torch.ops.quant", "paddle_tpu_torch.ops.gmm",
+                "paddle_tpu_torch.ops.grouped_gemm",
+                "paddle_tpu_torch.incubate.moe",
+                "paddle_tpu_torch.models.moe_llm",
+                "paddle_tpu_torch.models.ernie"):
         assert mod in res["modules"]
 
 
@@ -83,6 +87,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(cfg)
+    from paddle_tpu_torch.models import MoEForCausalLM, qwen2_moe_tiny_config
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoEForCausalLM(qwen2_moe_tiny_config(num_hidden_layers=1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -118,6 +125,7 @@ def test_engine_refuses_a_model_on_another_device():
 def test_registry_names_the_ported_kernels():
     import paddle_tpu.ops.fused  # noqa: F401  (registers its kernels)
     import paddle_tpu.ops.pallas_flash  # noqa: F401
+    import paddle_tpu.ops.pallas_gmm  # noqa: F401
     import paddle_tpu.ops.pallas_megadecode  # noqa: F401
     import paddle_tpu.ops.pallas_megafront  # noqa: F401
     import paddle_tpu.ops.pallas_paged  # noqa: F401
@@ -131,7 +139,8 @@ def test_registry_names_the_ported_kernels():
                            "ragged_paged_attention", "fused_qkv_rope_append",
                            "fused_oproj_norm", "fused_ffn", "flash_sdpa",
                            "paged_decode_attention",
-                           "paged_decode_attention_v2", "weight_only_linear"}
+                           "paged_decode_attention_v2", "weight_only_linear",
+                           "gmm"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
@@ -150,8 +159,9 @@ def test_registry_names_the_ported_kernels():
 def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["flash_attention.cu", "fused.cu", "megakernels.cu",
-                     "paged_attention.cu", "ragged_attention.cu"]
+    assert names == ["flash_attention.cu", "fused.cu", "gmm.cu",
+                     "megakernels.cu", "paged_attention.cu",
+                     "ragged_attention.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     for p in _build.CSRC.glob("*.cu"):

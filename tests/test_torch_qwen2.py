@@ -12,7 +12,8 @@ initializer leaves at 0) carries its weights into the port's model
   biases included, in the fp, int8 and int4 layouts, and so does the
   engine's concatenated qkv slab with its bias (`bqkv`);
 - `ServingEngine` greedy tokens identical to the JAX engine's over the
-  seeded join/leave trace of test_torch_llama_serving.py on the fused
+  seeded join/leave trace of test_torch_llama_serving.py (its three
+  requests that share a prefix and two seeded ones) on the fused
   chain, the split chain and the alternating path under both paged
   impls, with every kernel wrapper's calls per step; with
   weight_only_quant "int8" and "int4" on the fused and the split chain;
@@ -156,12 +157,17 @@ RUNS = [("fused", "intree", None), ("split", "intree", None),
         ("fused", "intree", "int4"), ("split", "intree", "int4")]
 
 
-def _run(models, chain, impl, quant):
+def _run(models, chain, impl, quant, jax_runs):
+    """Both engines over the serving trace; the JAX engine's run is
+    shared by the runs that differ only on the port's side (its
+    FLAGS_paged_impl, which the JAX engine does not read here)."""
     jm, tm, _ = models
-    trace = _serving_trace(jm.config.vocab_size)
+    trace = _serving_trace(jm.config.vocab_size, seeded=2)
     kw = dict(CHAINS[chain], weight_only_quant=quant, **ENGINE_KW)
-    jeng = JaxEngine(jm, enable_prefix_cache=False, **kw)
-    jres, _ = _drive(jeng, trace)
+    if (chain, quant) not in jax_runs:
+        jeng = JaxEngine(jm, enable_prefix_cache=False, **kw)
+        jax_runs[(chain, quant)] = jeng, _drive(jeng, trace)[0]
+    jeng, jres = jax_runs[(chain, quant)]
     ops.reset_counts()
     routes.reset_route_counts()
     with flags_guard(paged_impl=impl):
@@ -182,7 +188,8 @@ def _run(models, chain, impl, quant):
 
 @pytest.fixture(scope="module")
 def runs(models):
-    return {run: _run(models, *run) for run in RUNS}
+    jax_runs = {}
+    return {run: _run(models, *run, jax_runs) for run in RUNS}
 
 
 class TestEngineAgainstJax:
