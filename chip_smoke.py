@@ -47,11 +47,16 @@ Phases, one line each on stdout:
    experts by a seeded router: M 792, [2560 -> 1536] and [1536 -> 2560])
    as a decode step routes it (4 live tokens, the 128 padding rows in
    the same 6 groups) and as a mixed step does (every token live), and
-   prefill (2048 tokens: M 12288), and at edge cases (empty groups,
-   one group holding every row, rows past the last group, N 64), bf16 by
-   relative errors within GMM_BF16_LIMITS (the edge cases by the tensor
-   error within GMM_EDGE_TENSOR_LIMIT), f32 at 2e-5, the tail rows
-   exactly zero; library_ms torch._grouped_mm;
+   prefill (2048 tokens: M 12288), training (4096 tokens: M 24576), and
+   at edge cases (empty groups, one group holding every row, rows past
+   the last group, N 64), bf16 by relative errors within GMM_BF16_LIMITS
+   (the edge cases by the tensor error within GMM_EDGE_TENSOR_LIMIT),
+   f32 at 2e-5, the tail rows exactly zero; library_ms torch._grouped_mm;
+   gmm's backward kernels (`check_gmm_backward`: dlhs and tgmm) the same
+   way at the training routing, both directions, and at edge cases with
+   empty first, middle and last groups, dlhs's tail rows and the empty
+   groups' drhs slabs exactly zero, timed beside torch._grouped_mm where
+   it takes the case;
 3. a tiny f32 Llama served on the CPU (plain versions) and on the card
    (kernels) over one seeded join/leave trace, on the fused and on the
    split chain and on the alternating path (ragged=False) under
@@ -104,6 +109,12 @@ Phases, one line each on stdout:
 8. a tiny Llama (head_dim 64, GQA) takes 3 pretraining steps on the
    CPU (plain versions) and on the card (kernels), in f32 and in bf16
    compute: losses and grad norms agree within TINY_TRAIN_LIMITS;
+8b. a tiny ERNIE 4.5 MoE (a dense first layer, 2 routed layers of 8
+   experts, top-2, a shared expert, dropless) takes 3 eager AdamW steps
+   (clip 1.0) on the CPU and on the card from the same weights, in f32
+   and in bf16 through amp.decorate O2: losses, aux losses and grad norms
+   within TINY_MOE_TRAIN_LIMITS, and on the card exactly 3 gmm, 3
+   gmm_dlhs and 3 tgmm a routed layer a step, no plain call;
 9. pretraining at Llama-3-8B width (hidden 4096, 32/8 heads x 128, FFN
    14336, vocab 128256; depth cut from 32 to 4 layers), batch 1 x 8192
    tokens, bf16 compute over f32 master weights and f32 AdamW moments
@@ -135,6 +146,17 @@ Phases, one line each on stdout:
    experts that each step's routing gave rows are read back after the
    run (`GroupSizeLog`), and with them the weight bytes a decode step
    and a mixed step read and the bound of their gmm work;
+12b. MoE training at ERNIE-4.5-21B-A3B's widths with the depth cut to
+   MOE_TRAIN_LAYERS (4 of 28: layer 0 dense, 3 routed), batch 1 x 4096,
+   bf16 through amp.decorate O2 over f32 master weights and AdamW
+   moments (lr 3e-4, weight decay 0.1, ClipGradByGlobalNorm(1.0), aux
+   weight 0.01), weights drawn on the card: 2 warm-up and 5 timed eager
+   steps; median step ms, tokens/s, train_mfu (6 N_active a token, the
+   embedding left out), peak memory, the loss and aux-loss trajectories
+   and the experts holding rows in each routed layer a step; the loss
+   must be finite and fall, and every timed step must launch 3 gmm, 3
+   gmm_dlhs and 3 tgmm a routed layer and the flash forward and backward
+   once a layer, nothing else;
 13. the ``{"kernels": [...]}`` line (launches from the run of the path
    that uses each kernel: the fused chain, the split chain for
    rope_append, phase 6's two runs for paged v2 and v1, the 8B training
@@ -145,7 +167,8 @@ Phases, one line each on stdout:
    their int8 / int4 readings and launches from phases 7a / 7b, and
    fused_oproj_norm's and fused_ffn's their layer / gelu readings and
    launches from phase 10's fused chain; gmm's launches from phase 12's
-   fused chain), then the ``{"ok": true, ...}`` line.
+   fused chain beside its training launches from phase 12b, gmm_dlhs's
+   and tgmm's from phase 12b), then the ``{"ok": true, ...}`` line.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
 against its plain version at the training shape (B 1, S 8192, 32 heads
@@ -176,10 +199,13 @@ import time
 import numpy as np
 import torch
 
-from paddle_tpu_torch import card_report, generation, ops
+from paddle_tpu_torch import amp, card_report, generation, ops
+from paddle_tpu_torch import optimizer as optim
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.flags import flags_guard
 from paddle_tpu_torch.incubate import moe as moe_ffn
-from paddle_tpu_torch.models import (GPTForCausalLM, MoEConfig,
+from paddle_tpu_torch.models import (Ernie45MoEForCausalLM,
+                                     GPTForCausalLM, MoEConfig,
                                      MoEForCausalLM, Qwen2Config,
                                      Qwen2ForCausalLM, ernie45_moe_config,
                                      gpt3_6_7b_config, gpt_tiny_config,
@@ -245,6 +271,10 @@ ERNIE45_21B_A3B = dict(vocab_size=103424, hidden_size=2560,
 #: the MoE step's rows: the unified step's (4 slots + a 128-token chunk)
 #: and generate_cached's prefill (4 x 512) tokens
 MOE_STEP_TOKENS, MOE_PREFILL_TOKENS = SLOTS + CHUNK, 4 * 512
+#: MoE training at ERNIE-4.5-21B-A3B's widths: depth cut from 28 to 4
+#: layers (layer 0 dense, 3 routed), batch 1 x 4096 tokens (M = 4096 x 6
+#: = 24576 routed rows a layer), no recompute (it fits on 80 GB)
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_RECOMPUTE = 4, 4096, False
 
 
 def emit(phase: str, **fields) -> None:
@@ -431,6 +461,12 @@ INT8, INT4 = "weight_only_int8", "weight_only_int4"
 #: sound at most 2.4e-5, the per-chunk rounding at least 2.1e-3
 GMM_BF16_LIMITS = (3e-4, 2e-3)
 GMM_EDGE_TENSOR_LIMIT = 5e-4
+#: gmm's backward kernels, bf16, held the same way: (tensor, row) relative
+#: errors at the training routing (dlhs over its [M, K] rows, tgmm over
+#: the K rows of each slab that holds rows), the edge cases by the tensor
+#: error alone; sound and planted readings: gmm_limits.py, PERF.md
+GMM_BWD_BF16_LIMITS = {"gmm_dlhs": (3e-4, 2e-3), "tgmm": (3e-4, 2e-3)}
+GMM_BWD_EDGE_TENSOR_LIMIT = 5e-4
 
 
 def row_rel_errors(got, want):
@@ -587,6 +623,7 @@ def check_kernels(timer: Timer):
     check_flash(timer, rows)
     check_weight_only_linear(timer, rows)
     check_gmm(timer, rows)
+    check_gmm_backward(timer, rows)
     return rows
 
 
@@ -1253,7 +1290,9 @@ def check_gmm(timer, rows, hold: bool = True):
     routes as one row: ~6 groups of ~130 rows and ~24 single rows; M
     792), a mixed step (all MOE_STEP_TOKENS rows live, a prefill chunk
     with the decodes: ~12 rows a group over all 64 experts) and
-    generate_cached's prefill (M 12288); and edge cases with rows past
+    generate_cached's prefill (M 12288), and the training step's
+    (MOE_TRAIN_SEQ tokens: M 24576, routed as `check_gmm_backward`
+    routes them); and edge cases with rows past
     the last group, empty groups, one group holding every row and N 64
     (the tiny preset's expert width). bf16 by `row_rel_errors` over the
     grouped rows: the ERNIE cases within GMM_BF16_LIMITS, the edge cases
@@ -1274,6 +1313,7 @@ def check_gmm(timer, rows, hold: bool = True):
     decode = routed_group_sizes(MOE_STEP_TOKENS, E, k, Hm, 2, live=SLOTS)
     mixed = routed_group_sizes(MOE_STEP_TOKENS, E, k, Hm, 0)
     prefill = routed_group_sizes(MOE_PREFILL_TOKENS, E, k, Hm, 1)
+    train = routed_group_sizes(MOE_TRAIN_SEQ, E, k, Hm, 3)
 
     def sizes(*n):
         return torch.tensor(n, dtype=torch.int32, device=DEV)
@@ -1283,6 +1323,7 @@ def check_gmm(timer, rows, hold: bool = True):
              "mixed/up": (Hm, Im, mixed, 0), "mixed/down": (Im, Hm, mixed, 0),
              "prefill/up": (Hm, Im, prefill, 0),
              "prefill/down": (Im, Hm, prefill, 0),
+             "train/up": (Hm, Im, train, 0), "train/down": (Im, Hm, train, 0),
              "edge/uneven": (128, 256, sizes(100, 0, 200, 150, 62), 88),
              "edge/one_group": (128, 128, sizes(0, 300, 0), 0),
              "edge/n64": (128, 64, sizes(10, 0, 25, 5), 30)}
@@ -1351,6 +1392,148 @@ def check_gmm(timer, rows, hold: bool = True):
         r.update({k_: head[k_] for k_ in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
+
+
+def check_gmm_backward(timer, rows, hold: bool = True):
+    """gmm's backward kernels against their plain versions: dlhs
+    (`ops.gmm_dlhs`: dout [M, N] times each group's [K, N] slab read as
+    [N, K], against ``gmm_plain(dout, rhs.transpose(1, 2))``) and drhs
+    (`ops.tgmm`: [G, K, N], each group's lhs rows transposed times its
+    dout rows, against `ops.tgmm_plain`) at the training routing of
+    ERNIE-4.5-21B-A3B's experts (MOE_TRAIN_SEQ tokens top-6 over 64 by a
+    seeded router: M 24576) for the gate / up product [2560 -> 1536] and
+    the down product [1536 -> 2560], and at the edge cases (empty first,
+    middle and last groups with rows past the last group; one group
+    holding every row; N 64). bf16 by `row_rel_errors` within
+    GMM_BWD_BF16_LIMITS (the edge cases by the tensor error within
+    GMM_BWD_EDGE_TENSOR_LIMIT), f32 at 2e-5; dlhs's tail rows and the
+    empty groups' drhs slabs exactly zero (tgmm's output is drawn from
+    memory just filled with NaN, so a skipped slab shows). The training
+    cases in bf16 are timed (with a `timer`) beside the plain version,
+    the bound (the rows read and written, the slabs of the groups that
+    hold rows, or 2 M K N operations at the working type's peak) and
+    torch._grouped_mm where it takes the case (dlhs: rhs transposed;
+    drhs: the 2-D x 2-D case over the group ends; a refusal is
+    recorded with its reason). The rows' headline numbers are the gate /
+    up product's in bf16. `hold` False only reads (gmm_limits.py)."""
+    cfg = ERNIE45_21B_A3B
+    E, k = cfg["num_experts"], cfg["top_k"]
+    Hm, Im = cfg["hidden_size"], cfg["moe_intermediate_size"]
+    gc_ = torch.Generator(DEV).manual_seed(6)
+    train = routed_group_sizes(MOE_TRAIN_SEQ, E, k, Hm, 3)
+
+    def sizes(*n):
+        return torch.tensor(n, dtype=torch.int32, device=DEV)
+
+    cases = {"train/up": (Hm, Im, train, 0), "train/down": (Im, Hm, train, 0),
+             "edge/empties": (128, 256, sizes(0, 100, 0, 200, 150, 0), 88),
+             "edge/one_group": (128, 128, sizes(0, 300, 0), 0),
+             "edge/n64": (128, 64, sizes(10, 0, 25, 5), 30)}
+    out = {n: rows.setdefault(n, {"cases": {}}) for n in ("gmm_dlhs", "tgmm")}
+    for key, (K, N, gs, tail) in cases.items():
+        M = int(gs.sum()) + tail
+        G, end = gs.numel(), M - tail
+        edge = key.startswith("edge")
+        empty = gs == 0
+        for dtype in (torch.bfloat16, torch.float32):
+            lhs = torch.randn(M, K, device=DEV, generator=gc_).to(dtype)
+            rhs = (K ** -0.5 * torch.randn(G, K, N, device=DEV,
+                                           generator=gc_)).to(dtype)
+            dout = (0.05 * torch.randn(M, N, device=DEV,
+                                       generator=gc_)).to(dtype)
+            n0 = (ops.gmm_dlhs.launches, ops.tgmm.launches)
+            with torch.no_grad():
+                dl = ops.gmm_dlhs(dout, rhs, gs)
+                # freed at once: tgmm's torch.empty output takes its block
+                torch.full((G, K, N), float("nan"), dtype=dtype, device=DEV)
+                dr = ops.tgmm(lhs, dout, gs)
+            torch.cuda.synchronize()
+            assert (ops.gmm_dlhs.launches, ops.tgmm.launches) == \
+                (n0[0] + 1, n0[1] + 1)
+            plain = {"gmm_dlhs": lambda: ops.gmm_plain(
+                         dout, rhs.transpose(1, 2), gs),
+                     "tgmm": lambda: ops.tgmm_plain(lhs, dout, gs)}
+            for name, got in (("gmm_dlhs", dl), ("tgmm", dr)):
+                want = plain[name]()
+                zero = int(got[end:].count_nonzero()) == 0 \
+                    if name == "gmm_dlhs" else \
+                    int(got[empty].count_nonzero()) == 0
+                finite = bool(torch.isfinite(got).all())
+                assert not hold or (zero and finite), (name, key)
+                case = {"m": M, "k": K, "n": N, "groups": G,
+                        "groups_with_rows": int((~empty).sum()),
+                        "largest_group": int(gs.max()),
+                        "max_abs_err": max_err(got, want),
+                        "zero_where_due": zero, "finite": finite}
+                tag = key + ("/bf16" if dtype == torch.bfloat16 else "/f32")
+                if dtype == torch.float32:
+                    case["close_2e-5"] = bool(torch.isclose(
+                        got, want, atol=2e-5, rtol=2e-5).all())
+                    if hold:
+                        torch.testing.assert_close(got, want, atol=2e-5,
+                                                   rtol=2e-5)
+                    out[name]["cases"][tag] = case
+                    continue
+                held = (got[:end], want[:end]) if name == "gmm_dlhs" else \
+                    (got[~empty].reshape(-1, N), want[~empty].reshape(-1, N))
+                tensor, row = row_rel_errors(*held)
+                case["rel_err_bf16"] = {"tensor": tensor, "row": row}
+                lt, lr = GMM_BWD_BF16_LIMITS[name]
+                if edge:
+                    assert not hold or tensor <= GMM_BWD_EDGE_TENSOR_LIMIT, \
+                        (name, tag, tensor)
+                else:
+                    assert not hold or (tensor <= lt and row <= lr), \
+                        (name, tag, tensor, row)
+                if not edge and timer is not None:
+                    case.update(time_gmm_backward(timer, name, lhs, rhs, dout,
+                                                  gs, got, want, plain[name]))
+                out[name]["cases"][tag] = case
+            del lhs, rhs, dout, dl, dr
+    if timer is not None:
+        for name in out:
+            head = out[name]["cases"]["train/up/bf16"]
+            out[name].update({f: head[f] for f in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_note", "rel_err_bf16")})
+
+
+def time_gmm_backward(timer, name, lhs, rhs, dout, gs, got, want, plain):
+    """ms, plain_ms, bound and torch._grouped_mm's time (or why it
+    refused) of one backward kernel at a training case."""
+    M, K = lhs.shape
+    N = dout.shape[1]
+    live = int((gs > 0).sum())
+    slabs = live * K * N * rhs.element_size()
+    ends = torch.cumsum(gs, 0, dtype=torch.int32)
+    if name == "gmm_dlhs":
+        moved = nbytes(dout, got, gs) + slabs
+        run = lambda: ops.gmm_dlhs(dout, rhs, gs)          # noqa: E731
+        lib = lambda: torch._grouped_mm(                    # noqa: E731
+            dout, rhs.transpose(1, 2), offs=ends)
+        held = lambda o: o[:int(gs.sum())]                  # noqa: E731
+    else:
+        moved = nbytes(lhs, dout, gs) + got.numel() * got.element_size()
+        run = lambda: ops.tgmm(lhs, dout, gs)               # noqa: E731
+        lib = lambda: torch._grouped_mm(                    # noqa: E731
+            lhs.t(), dout, offs=ends)
+        held = lambda o: o[gs > 0].reshape(-1, N)           # noqa: E731
+    flops = 2 * int(gs.sum()) * K * N
+    b_, by = bound(moved, flops, lhs.dtype)
+    res = dict(bound_ms=b_, bound_by=by, ms=timer.ms(run),
+               plain_ms=timer.ms(plain), library_ms=None, library_note=None)
+    try:
+        lt, _ = row_rel_errors(held(lib()), held(want))
+    except (RuntimeError, TypeError, ValueError) as e:
+        res["library_note"] = f"torch._grouped_mm refuses: {e}"[:300]
+        return res
+    if lt > 1e-2:
+        res["library_note"] = (f"torch._grouped_mm disagrees with the "
+                               f"plain version: {lt:.3g} relative")
+        return res
+    res.update(library_ms=timer.ms(lib), library_rel_err_tensor=lt,
+               library_note="torch._grouped_mm")
+    return res
 
 
 def causal_pairs(Sq: int, Sk: int) -> int:
@@ -1490,7 +1673,7 @@ def drive(eng, reqs, on_step=None):
 #: launches per step (per layer, plus the final norm's rms_norm)
 SPLIT = dict(megafront=False, megadecode=False)
 NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0),
-               "gmm": (0, 0)}
+               "gmm": (0, 0), "gmm_dlhs": (0, 0), "tgmm": (0, 0)}
 NO_PAGED = {"paged_decode_attention": (0, 0),
             "paged_decode_attention_v2": (0, 0)}
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_layer_norm": (0, 0),
@@ -2378,6 +2561,218 @@ def train_8b(card):
     }, {k: v["launches"] for k, v in counts.items() if v["launches"]}
 
 
+#: phase 8b's tiny ERNIE 4.5 MoE: a dense first layer, 2 routed ones of
+#: 8 experts (top-2) with a shared expert, head_dim 64 (the flash
+#: kernel's), widths multiples of 8, dropless
+TINY_MOE_TRAIN = dict(num_hidden_layers=3, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=64,
+                      moe_dropless=True)
+#: phase 8b's limits on the card's losses, aux losses and grad norms
+#: against the CPU's, relative: f32 and the bf16 loss and grad norm as
+#: phase 8's; in bf16 the card and the CPU also round the activations that
+#: reach the f32 router at other places, which moves the aux loss with the
+#: gates (readings on the sound kernels, PERF.md: f32 7.5e-8 / 2.1e-7 /
+#: 2.2e-6, bf16 1.5e-4 / 3.2e-3 / 3.1e-3)
+TINY_MOE_TRAIN_LIMITS = {
+    "float32": {"loss": 1e-4, "aux": 1e-4, "grad_norm": 1e-4},
+    "bfloat16": {"loss": 2e-3, "aux": 1e-2, "grad_norm": 2e-2}}
+
+
+def moe_train_run(model, param_dtype: str, batches, lr: float = 1e-3):
+    """Eager AdamW steps (weight decay 0.1, ClipGradByGlobalNorm(1.0),
+    bf16 through amp.decorate O2 with f32 master weights): losses, aux
+    losses, grad norms and the launch counts of the run."""
+    clip = ClipGradByGlobalNorm(1.0)
+    opt = optim.AdamW(learning_rate=lr, parameters=model.parameters(),
+                      weight_decay=0.1, grad_clip=clip)
+    if param_dtype == "bfloat16":
+        model, opt = amp.decorate(model, opt, level="O2")
+    dev = next(model.parameters()).device
+    n0 = ops.launch_counts()
+    losses, auxes, norms = [], [], []
+    for ids, labels in batches:
+        loss, _ = model(torch.as_tensor(ids, device=dev),
+                        labels=torch.as_tensor(labels, device=dev))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        auxes.append(float(model.model.aux_loss().detach()))
+        norms.append(float(clip.last_norm))
+    n1 = ops.launch_counts()
+    delta = {k: {f: n1[k][f] - n0[k][f] for f in n1[k]} for k in n1}
+    return losses, auxes, norms, delta
+
+
+def moe_train_launches(layers: int, routed: int, steps: int,
+                       recompute: bool = False) -> dict:
+    """Launches of eager MoE training steps: the flash forward and
+    backward once a layer, a routed layer's three gmm, three gmm_dlhs and
+    three tgmm (with recompute each layer's forward runs twice: the flash
+    forward and gmm twice); nothing else."""
+    fwd = 2 if recompute else 1
+    return {"flash_sdpa": fwd * layers * steps,
+            "flash_sdpa_bwd": layers * steps,
+            "gmm": fwd * 3 * routed * steps,
+            "gmm_dlhs": 3 * routed * steps, "tgmm": 3 * routed * steps}
+
+
+def tiny_moe_train_parity():
+    """Phase 8b: a tiny ERNIE 4.5 MoE, 3 eager AdamW steps on the CPU
+    (plain versions) and on the card (kernels) from the same weights, in
+    f32 and in bf16 (amp.decorate O2): losses, aux losses and grad norms
+    within TINY_MOE_TRAIN_LIMITS; on the card every step launches the
+    flash forward and backward once a layer and 3 gmm, 3 gmm_dlhs and 3
+    tgmm a routed layer, with no plain call; on the CPU the same counts
+    as plain calls of the gmm family."""
+    cfg = ernie45_moe_config(**TINY_MOE_TRAIN)
+    L = cfg.num_hidden_layers
+    R = L - cfg.first_k_dense_replace
+    rng = np.random.RandomState(4)
+    batches = []
+    for _ in range(3):
+        ids = rng.randint(0, cfg.vocab_size, (2, 48))
+        batches.append((ids, np.roll(ids, -1, axis=1)))
+    want = moe_train_launches(L, R, len(batches))
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))
+
+    out = {}
+    for dt, lim in TINY_MOE_TRAIN_LIMITS.items():
+        cpu_model = Ernie45MoEForCausalLM(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        gpu_model = copy.deepcopy(cpu_model).to(DEV)
+        cpu = moe_train_run(cpu_model, dt, batches)
+        card = moe_train_run(gpu_model, dt, batches)
+        for name, c in card[3].items():
+            assert c == {"launches": want.get(name, 0), "plain_calls": 0}, \
+                (dt, name, c)
+        for name in ("gmm", "gmm_dlhs", "tgmm"):
+            assert cpu[3][name] == {"launches": 0,
+                                    "plain_calls": want[name]}, (dt, name)
+        r = {"steps": len(batches), "layers": L, "routed_layers": R,
+             "losses_cpu": cpu[0], "losses_card": card[0],
+             "aux_cpu": cpu[1], "aux_card": card[1],
+             "grad_norms_cpu": cpu[2], "grad_norms_card": card[2],
+             "loss_rel": rel(card[0], cpu[0]), "aux_rel": rel(card[1], cpu[1]),
+             "grad_norm_rel": rel(card[2], cpu[2]), "launches": want,
+             "limits": lim}
+        assert r["loss_rel"] <= lim["loss"], (dt, r)
+        assert r["aux_rel"] <= lim["aux"], (dt, r)
+        assert r["grad_norm_rel"] <= lim["grad_norm"], (dt, r)
+        out[dt] = r
+    return out
+
+
+def moe_active_params(cfg) -> int:
+    """N_active: the weights one token's products pass through in the
+    MoE model, the embedding lookup left out: the head, every layer's
+    attention projections, the dense layers' FFN, and in a routed layer
+    top_k experts, the shared expert and the router."""
+    Hh, D_ = cfg.hidden_size, cfg.head_dim
+    attn = Hh * cfg.num_attention_heads * D_ * 2 \
+        + Hh * cfg.num_key_value_heads * D_ * 2
+    dense = 3 * Hh * cfg.intermediate_size
+    routed = cfg.top_k * 3 * Hh * cfg.moe_intermediate_size \
+        + 3 * Hh * cfg.shared_expert_intermediate_size \
+        + Hh * cfg.num_experts
+    k = cfg.first_k_dense_replace
+    L = cfg.num_hidden_layers
+    return Hh * cfg.vocab_size + L * attn + k * dense + (L - k) * routed
+
+
+def train_moe(card):
+    """Phase 12b: eager MoE training at ERNIE-4.5-21B-A3B's widths, depth
+    cut to MOE_TRAIN_LAYERS (layer 0 dense, the rest routed), 1 x
+    MOE_TRAIN_SEQ tokens, f32 weights drawn on the card then put in bf16
+    by amp.decorate O2 (f32 master weights and AdamW moments), lr 3e-4,
+    weight decay 0.1, ClipGradByGlobalNorm(1.0), the config's aux weight
+    0.01: every timed step must launch the flash forward and backward
+    once a layer and 3 gmm, 3 gmm_dlhs and 3 tgmm a routed layer, no
+    plain version and no attention route but flash; the loss must be
+    finite and fall."""
+    cfg = MoEConfig(**dict(ERNIE45_21B_A3B,
+                           num_hidden_layers=MOE_TRAIN_LAYERS,
+                           recompute=MOE_TRAIN_RECOMPUTE))
+    L = cfg.num_hidden_layers
+    R = L - cfg.first_k_dense_replace
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MoEForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                           generator=torch.Generator(DEV).manual_seed(0))
+    clip = ClipGradByGlobalNorm(1.0)
+    opt = optim.AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                      weight_decay=0.1, grad_clip=clip)
+    model, opt = amp.decorate(model, opt, level="O2")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(DEV).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (1, MOE_TRAIN_SEQ), device=DEV,
+                        generator=g)
+    labels = torch.roll(ids, -1, dims=1)
+    losses, auxes, norms, times = [], [], [], []
+
+    def one_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = model(ids, labels=labels)
+        aux = model.model.aux_loss()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))      # waits for the step
+        times.append((time.perf_counter() - t) * 1e3)
+        auxes.append(float(aux.detach()))
+        norms.append(float(clip.last_norm))
+
+    for _ in range(WARMUP_STEPS):
+        one_step()
+    ops.reset_counts()
+    attn_routes.reset_route_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with GroupSizeLog() as glog:
+        for _ in range(TIMED_STEPS):
+            one_step()
+            glog.mark()
+    counts = ops.launch_counts()
+    routes = dict(attn_routes.route_counts)
+    n = TIMED_STEPS
+    want = moe_train_launches(L, R, n, MOE_TRAIN_RECOMPUTE)
+    for name, c in counts.items():
+        assert c == {"launches": want.get(name, 0), "plain_calls": 0}, \
+            (name, c)
+    assert routes == {"flash": want["flash_sdpa"], "flash_segmented": 0,
+                      "composite": 0}, routes
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms))
+    assert losses[-1] < losses[0], losses
+    step_ms = statistics.median(times[WARMUP_STEPS:])
+    tok_s = MOE_TRAIN_SEQ / (step_ms / 1e3)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = moe_active_params(cfg)
+    hits = glog.hits()
+    return {
+        "card": card["nvidia_smi"], "layers": L, "layers_published": 28,
+        "routed_layers": R, "hidden": cfg.hidden_size,
+        "heads": cfg.num_attention_heads,
+        "kv_heads": cfg.num_key_value_heads, "experts": cfg.num_experts,
+        "top_k": cfg.top_k, "expert_ffn": cfg.moe_intermediate_size,
+        "shared_ffn": cfg.shared_expert_intermediate_size,
+        "dense_ffn": cfg.intermediate_size, "vocab": cfg.vocab_size,
+        "batch": 1, "seq": MOE_TRAIN_SEQ, "recompute": MOE_TRAIN_RECOMPUTE,
+        "params": n_params, "n_active": n_active, "model_init_s": init_s,
+        "warmup_steps": WARMUP_STEPS, "timed_steps": n,
+        "step_ms_median": step_ms, "step_ms": times,
+        "tokens_per_s": tok_s,
+        "train_mfu": tok_s * 6 * n_active / PEAK_FLOPS_PER_S[torch.bfloat16],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "state_bytes_reckoned": n_params * (2 + 2 + 4 + 8),
+        "losses": losses, "aux_losses": auxes, "grad_norms": norms,
+        "experts_with_rows_per_layer": hits,
+        "launches_per_step": {k: v // n for k, v in want.items()},
+    }, {k: v["launches"] for k, v in counts.items() if v["launches"]}
+
+
 def same_share(a: dict, b: dict) -> float:
     """Share of greedy tokens of `b` equal to `a`'s, request by request."""
     toks = [(a[r], b[r]) for r in a]
@@ -2415,6 +2810,10 @@ SOURCES = {
                            "paddle_tpu/ops/quant.py:227"),
     "gmm": ("paddle_tpu_torch/ops/csrc/gmm.cu",
             "paddle_tpu/ops/pallas_gmm.py:204"),
+    "gmm_dlhs": ("paddle_tpu_torch/ops/csrc/gmm.cu",
+                 "paddle_tpu/ops/pallas_gmm.py:230"),
+    "tgmm": ("paddle_tpu_torch/ops/csrc/gmm.cu",
+             "paddle_tpu/ops/pallas_gmm.py:193"),
 }
 #: the megakernels' quantized sites, reported inside their rows
 QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
@@ -2507,6 +2906,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     emit("8 tiny training cpu vs card", **tiny_train_parity())
+    emit("8b tiny moe training cpu vs card", card=card["nvidia_smi"],
+         **tiny_moe_train_parity())
     res, train_launches = train_8b(card)
     emit("9 llama3-8b-width pretraining, 4 of 32 layers", **res)
     gc.collect()
@@ -2589,6 +2990,11 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    res, moe_train_launches_ = train_moe(card)
+    emit(f"12b ernie45-21b-a3b-width moe training, {MOE_TRAIN_LAYERS} of 28 "
+         f"layers", **res)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels = []
     paths = (("fused", fused_launches), ("split", split_launches),
@@ -2597,7 +3003,8 @@ def main() -> int:
              ("train", train_launches),
              ("int4 split", quant_launches["int4 split"]),
              ("gpt3-6.7b fused", gpt_launches),
-             ("ernie45-21b-a3b fused", moe_launches))
+             ("ernie45-21b-a3b fused", moe_launches),
+             ("ernie45-21b-a3b-width training", moe_train_launches_))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         path, launches = next((p, c[name]) for p, c in paths if name in c)
@@ -2637,6 +3044,13 @@ def main() -> int:
                             for k, v in r["cases"].items()
                             if k.endswith("bf16")}
         if name == "gmm":
+            # the forward's launches on phase 12b's training path, beside
+            # the backward kernels'
+            row["train_launches"] = {
+                k: moe_train_launches_[k] for k in ("gmm", "gmm_dlhs",
+                                                    "tgmm")}
+        if name in ("gmm", "gmm_dlhs", "tgmm"):
+            row["library_note"] = r.get("library_note")
             row["cases"] = {k: {f: v.get(f) for f in (
                 "m", "k", "n", "groups_with_rows", "largest_group", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Readings of the bf16 gmm checks on one NVIDIA card, for the sound
-kernel and for planted faults.
+"""Readings of the bf16 gmm checks on one NVIDIA card, forward and
+backward, for the sound kernels and for planted faults.
 
     python3 gmm_limits.py [--faults DIR [--only FAULT]] [--out FILE]
 
@@ -8,11 +8,16 @@ kernel and for planted faults.
 relative errors (`chip_smoke.row_rel_errors`: over the whole output, and
 the largest over each output row) at ERNIE-4.5-21B-A3B's expert shapes
 (GMM_BF16_LIMITS), and its edge cases by the first alone
-(GMM_EDGE_TENSOR_LIMIT). This script prints what those measures read at
+(GMM_EDGE_TENSOR_LIMIT); the backward kernels (dlhs, tgmm) the same way
+at the training routing and the edge cases (GMM_BWD_BF16_LIMITS,
+GMM_BWD_EDGE_TENSOR_LIMIT), with dlhs's tail rows and the empty groups'
+drhs slabs exactly zero. This script prints what those measures read at
 the cases phase 2 runs (`chip_smoke.check_gmm`: the decode step, the
-mixed step, the prefill, the edge cases), so that each limit can sit
-between the sound kernel's readings and a wrong kernel's, and the card
-tests of tests/test_torch_moe.py (``-m cuda``), passed and failed.
+mixed step, the prefill, the edge cases; `chip_smoke.check_gmm_backward`:
+training's gate / up and down products, the edge cases), so that each
+limit can sit between the sound kernels' readings and a wrong kernel's,
+and the card tests of tests/test_torch_moe.py (``-m cuda``), passed and
+failed.
 
 With ``--faults DIR``, each fault of `FAULTS` (``--only``: one of them;
 text substitutions in ``paddle_tpu_torch/ops/csrc/gmm.cu``) is planted
@@ -38,22 +43,51 @@ TEST = "tests/test_torch_moe.py"
 FILES = ("chip_smoke.py", "flash_limits.py", "gmm_limits.py", "pytest.ini",
          TEST)
 
+#: the end of an AccBf16 stage loop, then every accumulator rounded to bf16
+_ROUND_ACC = ("    }\n#pragma unroll\n    for (int i = 0; i < MT; ++i)\n"
+              "#pragma unroll\n      for (int j = 0; j < 4; ++j)\n"
+              "#pragma unroll\n        for (int e = 0; e < 4; ++e)\n"
+              "          acc[i][j][e] = "
+              "__bfloat162float(__float2bfloat16(acc[i][j][e]));\n")
 #: name -> (what it breaks, then one or more (text, replacement, which
 #: occurrence (0-based)) substitutions)
 FAULTS = {
     "partial_sums_bf16_per_k_chunk": (
-        "bf16: the f32 accumulators are rounded to bf16 after every 64-deep "
-        "K chunk, a lower-precision sum than one rounding at the end",
-        "    }\n  }\n\n  __device__ void store(bf16* out",
-        "    }\n#pragma unroll\n    for (int i = 0; i < MT; ++i)\n"
-        "#pragma unroll\n      for (int j = 0; j < 4; ++j)\n#pragma unroll\n"
-        "        for (int e = 0; e < 4; ++e)\n          acc[i][j][e] = "
-        "__bfloat162float(__float2bfloat16(acc[i][j][e]));\n  }\n\n"
-        "  __device__ void store(bf16* out", 0),
+        "bf16: the forward's and dlhs's f32 accumulators are rounded to "
+        "bf16 after every 64-deep K chunk, a lower-precision sum than one "
+        "rounding at the end",
+        "    }\n  }\n\n  // One stage of tgmm", _ROUND_ACC
+        + "  }\n\n  // One stage of tgmm", 0),
+    "tgmm_partial_sums_bf16_per_row_chunk": (
+        "bf16: tgmm's f32 accumulators are rounded to bf16 after every "
+        "64-row chunk of the group",
+        "    }\n  }\n\n  __device__ void store(bf16* out", _ROUND_ACC
+        + "  }\n\n  __device__ void store(bf16* out", 0),
     "last_k_chunk_dropped": (
         "the last K chunk of every row tile is loaded but never multiplied",
         "for (int kc = 0; kc < nk; ++kc) {",
         "for (int kc = 0; kc < nk - 1; ++kc) {", 0),
+    "tgmm_empty_group_not_zeroed": (
+        "tgmm: an empty group's blocks return without writing their zero "
+        "slab (its torch.empty output keeps what the memory held)",
+        "  // an empty group walks no chunk and writes its zero "
+        "accumulators\n",
+        "  if (row_end <= row_start) return;\n", 0),
+    "tgmm_row_chunk_dropped": (
+        "tgmm: the last reduction chunk of every group's rows (64 in bf16) "
+        "is loaded but never multiplied",
+        "for (int rc = 0; rc < nr; ++rc) {",
+        "for (int rc = 0; rc < nr - 1; ++rc) {", 0),
+    "tgmm_group_start_shifted": (
+        "tgmm: each group's rows start one row late (its first row adds to "
+        "no slab)",
+        "min(max(ends[g - 1], 0), row_end)",
+        "min(max(ends[g - 1] + 1, 0), row_end)", 0),
+    "dlhs_b_fragments_trans": (
+        "dlhs: the [N, K] weight chunk's B fragments read with the "
+        "forward's ldmatrix .trans",
+        "ldsm_x4(bfr[jp], w + jp * 16 * G::LDW + kk);",
+        "ldsm_x4_trans(bfr[jp], w + jp * 16 * G::LDW + kk);", 0),
 }
 
 
@@ -70,25 +104,29 @@ def readings() -> dict:
            "card": card_report()["nvidia_smi"]}
     rows = {}
     cs.check_gmm(None, rows, hold=False)
-    cases = rows["gmm"]["cases"]
-    keep = ("max_abs_err", "tail_zero", "finite", "close_2e-5",
-            "groups_with_rows", "largest_group")
-    out["cases"] = {k: dict(v.get("rel_err_bf16", {}),
-                            **{f: v[f] for f in keep if f in v})
-                    for k, v in cases.items()}
-    lt, lr = cs.GMM_BF16_LIMITS
+    cs.check_gmm_backward(None, rows, hold=False)
+    keep = ("max_abs_err", "tail_zero", "zero_where_due", "finite",
+            "close_2e-5", "groups_with_rows", "largest_group")
+    limits = {"gmm": (cs.GMM_BF16_LIMITS, cs.GMM_EDGE_TENSOR_LIMIT),
+              **{n: (cs.GMM_BWD_BF16_LIMITS[n], cs.GMM_BWD_EDGE_TENSOR_LIMIT)
+                 for n in ("gmm_dlhs", "tgmm")}}
 
-    def passes(k, v):
-        if not (v["tail_zero"] and v["finite"]):
+    def passes(name, k, v):
+        (lt, lr), edge = limits[name]
+        if not (v.get("tail_zero", v.get("zero_where_due")) and v["finite"]):
             return False
         if k.endswith("f32"):
             return v["close_2e-5"]
         if k.startswith("edge"):
-            return v["tensor"] <= cs.GMM_EDGE_TENSOR_LIMIT
+            return v["tensor"] <= edge
         return v["tensor"] <= lt and v["row"] <= lr
 
-    out["smoke_check_passes"] = {k: passes(k, v)
-                                 for k, v in out["cases"].items()}
+    for name in limits:
+        cases = {k: dict(v.get("rel_err_bf16", {}),
+                         **{f: v[f] for f in keep if f in v})
+                 for k, v in rows[name]["cases"].items()}
+        out[name] = {"cases": cases, "smoke_check_passes": {
+            k: passes(name, k, v) for k, v in cases.items()}}
     return out
 
 

@@ -19,14 +19,21 @@ dtype and reduces over k in rank order.
   select (the serving path at T <= 32); plain batched ``torch.matmul``
   over the experts, a large product the JAX package leaves to XLA;
 - ``dropless_expert_ffn``: (token, choice) rows sorted by expert, three
-  grouped GEMMs (``ops.gmm``: the hand-written kernel on the card),
-  unsorted, combined; nothing is read back to the host;
+  grouped GEMMs (``ops.gmm``: the hand-written kernels on the card,
+  forward and backward), unsorted, combined; nothing is read back to
+  the host;
 - ``MoELayer``: the capacity forward and the dropless forward, the aux
-  loss in ``l_aux``.
+  loss in ``l_aux``; both train: the dropless route's gradients run
+  through gmm's backward kernels (dlhs, tgmm), the capacity route's
+  through ``torch.einsum`` (the JAX package leaves it to XLA), and the
+  router's ``gate_weight`` takes gradients through the renormalised
+  top-k gates and through ``l_aux``;
+- ``SwitchMoELayer`` (top-1, gelu experts) and
+  ``ClipGradForMOEByGlobalNorm`` (a global-norm clip over every
+  parameter: on one device the expert weights are whole).
 
-``SwitchMoELayer``, ``global_scatter`` / ``global_gather`` (expert
-parallelism) and ``ClipGradForMOEByGlobalNorm`` are not ported yet
-(ROADMAP.md queue A items 8 and 7b).
+``global_scatter`` / ``global_gather`` (expert parallelism) are not
+ported yet (ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations
@@ -40,12 +47,14 @@ from torch.nn import functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..nn import Linear
+from ..nn.clip import clip_grad_norm_
 from ..nn.functional import gelu
 from ..ops.gmm import gmm
 from ..ops.grouped_gemm import sort_by_group, unsort_by_group
 
 __all__ = ["top_k_gating", "load_balance_loss", "router_z_loss",
-           "dense_expert_ffn", "dropless_expert_ffn", "MoELayer"]
+           "dense_expert_ffn", "dropless_expert_ffn", "MoELayer",
+           "SwitchMoELayer", "ClipGradForMOEByGlobalNorm"]
 
 
 def _top_k(gates, k: int):
@@ -54,6 +63,14 @@ def _top_k(gates, k: int):
     (a stable sort; ``torch.topk`` fixes no order among ties)."""
     v, i = torch.sort(gates, dim=-1, descending=True, stable=True)
     return v[..., :k], i[..., :k]
+
+
+def _one_hot(idx, n: int, dtype):
+    """``F.one_hot(idx, n).to(dtype)`` as a scatter: F.one_hot checks its
+    indices' range on the host, a read-back that would stall every
+    training step on its routing."""
+    out = torch.zeros(*idx.shape, n, dtype=dtype, device=idx.device)
+    return out.scatter_(-1, idx[..., None], 1)
 
 
 def _renorm(gv, renormalize: bool):
@@ -77,7 +94,7 @@ def top_k_gating(gates, k: int, capacity: int, *, renormalize: bool = True):
     before any second choice."""
     T, E = gates.shape
     topv, topi = _top_k(gates, k)                            # [T, k]
-    mask = F.one_hot(topi, E).to(gates.dtype)                # [T, k, E]
+    mask = _one_hot(topi, E, gates.dtype)                    # [T, k, E]
     # position of each (token, choice) in its expert's queue, choice-major
     mask_km = mask.transpose(0, 1).reshape(k * T, E)
     pos_km = torch.cumsum(mask_km, 0) - mask_km
@@ -88,7 +105,7 @@ def top_k_gating(gates, k: int, capacity: int, *, renormalize: bool = True):
     # aux load-balance loss on first choices (GShard eq. 13)
     aux = E * (gates.mean(0) * mask[:, 0, :].mean(0)).sum()
     gv = _renorm(topv * kept_any, renormalize)
-    oh_loc = F.one_hot(loc, capacity).to(gates.dtype) * kept_any[..., None]
+    oh_loc = _one_hot(loc, capacity, gates.dtype) * kept_any[..., None]
     dispatch = torch.einsum("tke,tkc->tec", keep, oh_loc)
     combine = torch.einsum("tk,tke,tkc->tec", gv, keep, oh_loc)
     return dispatch, combine, aux
@@ -225,7 +242,7 @@ class MoELayer(nn.Module):
                 xt, gates, self.w_gate, self.w_up, self.w_down,
                 top_k=self.top_k, renormalize=self.renormalize,
                 activation=self.activation)
-            mask1 = F.one_hot(topi[:, 0], self.num_experts).to(gates.dtype)
+            mask1 = _one_hot(topi[:, 0], self.num_experts, gates.dtype)
             aux = load_balance_loss(gates, mask1)
         else:
             dispatch, combine, aux = top_k_gating(
@@ -242,3 +259,32 @@ class MoELayer(nn.Module):
             s = F.silu(self.shared_gate(x)) * self.shared_up(x)
             out = out + self.shared_down(s)
         return out
+
+
+class SwitchMoELayer(MoELayer):
+    """Switch Transformer: top-1 routing, capacity_factor ~1.0-2.0, gelu
+    experts unless `activation` says otherwise."""
+
+    def __init__(self, d_model: int, d_hidden: int, num_experts: int,
+                 capacity_factor: float = 2.0, **kw):
+        kw.setdefault("activation", "gelu")
+        super().__init__(d_model, d_hidden, num_experts, top_k=1,
+                         capacity_factor=capacity_factor, **kw)
+
+
+class ClipGradForMOEByGlobalNorm:
+    """MoE-aware global-norm clip (ref: ClipGradForMOEByGlobalNorm): with
+    expert parallelism each expert shard's gradients enter the norm once;
+    on one device every expert weight is whole, so this is
+    ``nn.clip_grad_norm_`` over all the parameters that have a gradient
+    (scaled in place). `is_expert_param_fn` and `moe_group` are kept for
+    the signature."""
+
+    def __init__(self, clip_norm: float, is_expert_param_fn=None,
+                 moe_group=None):
+        self.clip_norm = float(clip_norm)
+        self.is_expert_param_fn = is_expert_param_fn
+
+    def __call__(self, params_grads):
+        clip_grad_norm_([p for p, _ in params_grads], self.clip_norm)
+        return params_grads

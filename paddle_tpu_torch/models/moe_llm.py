@@ -11,6 +11,15 @@ attribute name ``model``, so ``state_dict()`` keys equal
 Constructors take ``device``, ``dtype`` and ``generator`` like the
 port's Llama, so a 21B-parameter model is drawn directly in bf16 on the
 card.
+
+Training is the eager step: ``loss, _ = model(ids, labels=labels)`` (the
+mean token cross-entropy plus ``aux_loss_weight`` times the sum of the
+routed layers' ``l_aux``), ``loss.backward()`` (the dropless FFN through
+gmm's backward kernels, attention through the flash kernel's), then an
+eager optimizer's ``step()``. In training mode with ``config.recompute``
+each decoder layer is checkpointed (``LlamaModel.forward``'s decision,
+the JAX MoEModel's), so its forward, gmm included, runs again in the
+backward.
 """
 
 from __future__ import annotations

@@ -4,10 +4,13 @@ whose parameters keep Paddle's layout and names (a Linear weight is
 ``[in, out]`` and computes ``x @ weight``), so state dicts carry over
 key for key;
 ``functional`` holds the training path's ``rms_norm``, ``layer_norm``,
-``gelu`` and ``swiglu``."""
+``gelu`` and ``swiglu``; ``clip`` the eager optimizers' gradient clips
+``ClipGradByGlobalNorm`` and ``clip_grad_norm_``."""
 
-from . import functional
+from . import clip, functional
+from .clip import ClipGradByGlobalNorm, clip_grad_norm_
 from .common import Embedding, Linear
 from .norm import LayerNorm, RMSNorm
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "functional"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "functional",
+           "clip", "ClipGradByGlobalNorm", "clip_grad_norm_"]

@@ -7,7 +7,8 @@ from typing import Dict
 
 from .flash import (flash_kernel_eligible, flash_sdpa, flash_sdpa_bwd,
                     flash_sdpa_bwd_reference, flash_sdpa_reference)
-from .gmm import gmm, gmm_kernel_eligible, gmm_plain
+from .gmm import (gmm, gmm_dlhs, gmm_kernel_eligible, gmm_plain, tgmm,
+                  tgmm_plain)
 from .fused import (fused_layer_norm, fused_rms_norm, fused_rope_append,
                     layer_norm_reference, rms_norm_reference,
                     rope_append_reference)
@@ -41,17 +42,18 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
            "paged_attention_reference", "append_to_cache",
            "weight_quantize", "weight_dequantize", "int4_planes",
            "weight_only_linear", "weight_only_linear_reference", "gmm",
-           "gmm_plain", "gmm_kernel_eligible", "oracles",
+           "gmm_plain", "gmm_dlhs", "tgmm", "tgmm_plain",
+           "gmm_kernel_eligible", "oracles",
            "launch_counts", "reset_counts"]
 
 
 def _counted():
-    """(name, wrapper) of every counted wrapper: each registered kernel,
-    and ``<name>_bwd`` for a kernel's backward wrapper."""
+    """(name, wrapper) of every counted wrapper: each registered kernel
+    and each of its backward wrappers, under the wrapper's own name."""
     for name, e in oracles().items():
         yield name, e.kernel
-        if e.backward is not None:
-            yield name + "_bwd", e.backward
+        for fn in e.backward:
+            yield fn.__name__, fn
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:

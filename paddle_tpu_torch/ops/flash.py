@@ -274,5 +274,5 @@ flash_sdpa_bwd.plain_calls = 0
 
 register_oracle(
     "flash_sdpa", kernel=flash_sdpa, reference=flash_sdpa_reference,
-    backward=flash_sdpa_bwd,
+    backward=(flash_sdpa_bwd,),
     parity_test="tests/test_torch_flash.py::TestFlashParity")

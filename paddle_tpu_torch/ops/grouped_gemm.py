@@ -2,7 +2,9 @@
 (counterpart of paddle_tpu/ops/grouped_gemm.py).
 
 ``grouped_gemm`` is ``ops.gmm.gmm``: the kernel on CUDA tensors, its
-plain version on CPU tensors. The JAX package chooses among several
+plain version on CPU tensors, differentiable on both (its backward runs
+the dlhs and ``tgmm`` kernels on the card, their plain versions on the
+CPU). The JAX package chooses among several
 routes by ``FLAGS_gmm_impl``; the port has this one, which the flag's
 "auto" and "intree" name (its other values are refused when set).
 Nothing falls back: a shape the kernel refuses raises on the card.
@@ -26,7 +28,8 @@ __all__ = ["grouped_gemm", "sort_by_group", "unsort_by_group"]
 def grouped_gemm(lhs, rhs, group_sizes):
     """lhs [M, K] rows grouped contiguously; rhs [G, K, N]; group_sizes
     [G] (sum <= M). Returns [M, N] in lhs's dtype, row m multiplied by
-    its group's rhs (rows past the last group zero)."""
+    its group's rhs (rows past the last group zero); differentiable in
+    lhs and rhs."""
     return gmm(lhs, rhs, group_sizes)
 
 

@@ -6,9 +6,11 @@ wrapper (which launches the hand-written CUDA kernel on CUDA tensors)
 and its plain PyTorch version with the same signature (which the wrapper
 runs for CPU tensors, and which the CPU tests and ``chip_smoke.py`` hold
 the kernel against). A kernel with a gradient of its own names its
-backward wrapper as ``backward`` (with its own ``.launches`` and
-``.plain_calls``). ``parity_test`` names the pytest node that compares
-the plain version with the JAX kernel and reference.
+backward wrappers as ``backward`` (each with its own ``.launches`` and
+``.plain_calls``, counted under its own name). ``parity_test`` names the
+pytest node that compares the plain version with the JAX kernel and
+reference, ``backward_parity_test`` the one that holds the backward to
+the JAX kernel's VJP where another node does.
 
 The names registered here are the port's progress through the JAX
 registry; ``tests/test_torch_port_rules.py`` reads both.
@@ -17,7 +19,7 @@ registry; ``tests/test_torch_port_rules.py`` reads both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 __all__ = ["OracleEntry", "register_oracle", "oracles"]
 
@@ -28,7 +30,8 @@ class OracleEntry:
     kernel: Callable
     reference: Callable
     parity_test: str                    # pytest node id (file::name)
-    backward: Optional[Callable] = None  # backward wrapper, if any
+    backward: Tuple[Callable, ...] = ()  # backward wrappers, if any
+    backward_parity_test: Optional[str] = None
 
 
 _REGISTRY: Dict[str, OracleEntry] = {}
@@ -36,9 +39,12 @@ _REGISTRY: Dict[str, OracleEntry] = {}
 
 def register_oracle(name: str, kernel: Callable, reference: Callable, *,
                     parity_test: str,
-                    backward: Optional[Callable] = None) -> OracleEntry:
+                    backward: Tuple[Callable, ...] = (),
+                    backward_parity_test: Optional[str] = None
+                    ) -> OracleEntry:
     entry = OracleEntry(name=name, kernel=kernel, reference=reference,
-                        parity_test=parity_test, backward=backward)
+                        parity_test=parity_test, backward=tuple(backward),
+                        backward_parity_test=backward_parity_test)
     _REGISTRY[name] = entry
     return entry
 

@@ -25,11 +25,13 @@ def _f32(x: float) -> torch.Tensor:
 
 
 def adamw_kernel(w, g, m, v, t, *, lr, b1, b2, eps, weight_decay,
-                 do_decay=True):
+                 do_decay=True, vmax=None):
     """One decoupled-weight-decay Adam update of `w`, `m` and `v` in
     place, in f32 master precision and in the JAX kernel's op order. `t`
     is the 1-based step after this update; the scalars (lr, the bias
-    corrections) are f32, as in the JAX kernel. Returns (w, m, v)."""
+    corrections) are f32, as in the JAX kernel. Returns (w, m, v), and
+    with `vmax` (amsgrad: the denominator takes the running max of vhat,
+    kept in `vmax` in place) (w, m, v, vmax)."""
     g = g.to(w.dtype)
     lr = _f32(float(lr))    # 0-dim CPU scalars join CUDA ops as scalars
     if do_decay:
@@ -41,8 +43,11 @@ def adamw_kernel(w, g, m, v, t, *, lr, b1, b2, eps, weight_decay,
     bc2 = 1.0 - _f32(b2) ** tf
     mhat = m / bc1
     vhat = v / bc2
+    if vmax is not None:
+        vmax.copy_(torch.maximum(vmax, vhat))
+        vhat = vmax.clone()
     w.sub_(mhat.mul_(lr).div_(vhat.sqrt_().add_(eps)))
-    return w, m, v
+    return (w, m, v) if vmax is None else (w, m, v, vmax)
 
 
 def global_norm(grads: Tree) -> torch.Tensor:

@@ -37,7 +37,9 @@ rounding error), JAX at "highest" matmul precision.
 `TestGmmOnCard` holds the CUDA kernel against `gmm_plain` on the card
 at the serving shapes of ERNIE-4.5-21B-A3B (M 792 over 64 experts,
 [2560 -> 1536] and [1536 -> 2560]), its prefill (M 12288) and the edge
-cases; it skips without
+cases, the backward kernels (dlhs, tgmm) against their plain versions at
+the training routing (M 24576) and the edge cases, and a MoELayer's
+gradients on the card against the CPU; it skips without
 a card. On the machine with the card, which has no JAX: python -m pytest
 --noconftest tests/test_torch_moe.py -m cuda. bf16 is held by relative
 errors over the output and over each row (limits 3e-4 / 2e-3: both
@@ -47,6 +49,7 @@ within 2e-5.
 """
 
 import contextlib
+import copy
 import types
 
 import numpy as np
@@ -58,7 +61,8 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.flags import flags_guard, set_flags
 from paddle_tpu_torch.incubate.moe import (dense_expert_ffn,
                                            dropless_expert_ffn)
-from paddle_tpu_torch.ops.gmm import gmm, gmm_plain
+from paddle_tpu_torch.ops.gmm import (gmm, gmm_dlhs, gmm_plain, tgmm,
+                                      tgmm_plain)
 from paddle_tpu_torch.ops.grouped_gemm import grouped_gemm, sort_by_group
 
 #: chip_smoke.py's GMM_BF16_LIMITS and GMM_EDGE_TENSOR_LIMIT (readings of
@@ -66,6 +70,11 @@ from paddle_tpu_torch.ops.grouped_gemm import grouped_gemm, sort_by_group
 BF16_TENSOR_LIMIT = 3e-4
 BF16_ROW_LIMIT = 2e-3
 BF16_EDGE_TENSOR_LIMIT = 5e-4
+#: chip_smoke.py's GMM_BWD_BF16_LIMITS and GMM_BWD_EDGE_TENSOR_LIMIT for
+#: gmm's backward kernels (gmm_limits.py)
+BWD_BF16_TENSOR_LIMIT = 3e-4
+BWD_BF16_ROW_LIMIT = 2e-3
+BWD_BF16_EDGE_TENSOR_LIMIT = 5e-4
 
 
 @pytest.fixture(scope="module")
@@ -638,16 +647,121 @@ class TestGmmOnCard:
             else:
                 assert tensor < BF16_EDGE_TENSOR_LIMIT, tensor
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("K,N,sizes", [
+        (2560, 1536, 4096), (1536, 2560, 4096), (2560, 1536, 132),
+        (128, 256, [0, 100, 0, 200, 150, 0]), (128, 128, [0, 300, 0]),
+        (64, 72, [5, 0, 17, 1]), (128, 64, [10, 0, 25, 5])])
+    def test_backward_kernels_match_plain(self, dtype, K, N, sizes):
+        """dlhs (gmm_dlhs) against gmm_plain on rhs transposed, drhs
+        (tgmm) against tgmm_plain: ERNIE's expert shapes at the training
+        routing (4096 tokens top-6: M 24576) and a serving step's, and the
+        edge cases with empty first, middle and last groups, one group
+        holding every row, rows past the last group and narrow N; dlhs's
+        tail rows and the empty groups' slabs exactly zero (tgmm's output
+        takes memory just filled with NaN)."""
+        routed = not isinstance(sizes, list)
+        gs = _router_sizes(sizes, 64, 6, seed=3) if routed else \
+            torch.tensor(sizes, dtype=torch.int32)
+        M = int(gs.sum()) + (0 if routed else 30)
+        G = gs.numel()
+        g = torch.Generator(device="cuda").manual_seed(2)
+        lhs = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+        rhs = (K ** -0.5 * torch.randn(G, K, N, device="cuda",
+                                       generator=g)).to(dtype)
+        dout = (0.05 * torch.randn(M, N, device="cuda",
+                                   generator=g)).to(dtype)
+        gs = gs.cuda()
+        before = (gmm_dlhs.launches, tgmm.launches)
+        dl = gmm_dlhs(dout, rhs, gs)
+        torch.full((G, K, N), float("nan"), dtype=dtype, device="cuda")
+        dr = tgmm(lhs, dout, gs)
+        torch.cuda.synchronize()
+        assert (gmm_dlhs.launches, tgmm.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+        want_l = gmm_plain(dout, rhs.transpose(1, 2), gs)
+        want_r = tgmm_plain(lhs, dout, gs)
+        tail = int(gs.sum())
+        empty = gs == 0
+        assert dl[tail:].count_nonzero() == 0
+        assert dr[empty].count_nonzero() == 0
+        assert bool(torch.isfinite(dr).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(dl, want_l, atol=2e-5, rtol=2e-5)
+            torch.testing.assert_close(dr, want_r, atol=2e-5, rtol=2e-5)
+            return
+        for got, want in ((dl[:tail], want_l[:tail]),
+                          (dr[~empty].reshape(-1, N),
+                           want_r[~empty].reshape(-1, N))):
+            tensor, row = rel_errors(got, want)
+            if routed:
+                assert tensor < BWD_BF16_TENSOR_LIMIT and \
+                    row < BWD_BF16_ROW_LIMIT, (tensor, row)
+            else:
+                assert tensor < BWD_BF16_EDGE_TENSOR_LIMIT, tensor
+
     def test_refuses_what_it_cannot_take(self):
         x = torch.zeros(8, 12, device="cuda", dtype=torch.bfloat16)
         w = torch.zeros(2, 12, 16, device="cuda", dtype=torch.bfloat16)
         gs = torch.tensor([4, 4], device="cuda", dtype=torch.int32)
         with pytest.raises(ValueError, match="multiples of 8"):
             gmm(x, w, gs)
-        x = torch.zeros(8, 16, device="cuda", requires_grad=True)
-        w = torch.zeros(2, 16, 16, device="cuda")
-        with pytest.raises(NotImplementedError, match="5b"):
-            gmm(x, w, gs)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tgmm(x, torch.zeros(8, 16, device="cuda",
+                                dtype=torch.bfloat16), gs)
+        # a gradient through gmm on the card launches dlhs and tgmm and
+        # reads nothing back to the host
+        x = torch.randn(8, 16, device="cuda", requires_grad=True)
+        w = torch.randn(2, 16, 16, device="cuda", requires_grad=True)
+        before = [f.launches for f in (gmm, gmm_dlhs, tgmm)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gmm(x, w, gs).sum().backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert [f.launches for f in (gmm, gmm_dlhs, tgmm)] == \
+            [n + 1 for n in before]
+        torch.testing.assert_close(x.grad, gmm_dlhs(
+            torch.ones(8, 16, device="cuda"), w.detach(), gs))
+
+    def test_moe_layer_gradients_on_the_card(self):
+        """MoELayer's dropless forward trains on the card: its loss and
+        every gradient (the router's through the gates and l_aux, the
+        expert stacks' through tgmm, the input's through dlhs) against the
+        same layer on the CPU, f32; 3 launches of each gmm kernel,
+        nothing read back to the host."""
+        from paddle_tpu_torch.incubate.moe import MoELayer
+        cpu = MoELayer(64, 32, 8, top_k=2, dropless=True,
+                       shared_expert_hidden=32, z_loss_weight=1e-3,
+                       device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).cuda()
+        x = torch.randn(2, 20, 64, generator=torch.Generator().manual_seed(1))
+        r = torch.randn(2, 20, 64, generator=torch.Generator().manual_seed(2))
+        grads = []
+        for layer, dev in ((cpu, "cpu"), (card, "cuda")):
+            xi, ri = x.detach().to(dev).requires_grad_(), r.to(dev)
+            before = [f.launches for f in (gmm, gmm_dlhs, tgmm)]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss = (layer(xi) * ri).sum() + layer.l_aux
+                loss.backward()
+            finally:
+                if dev == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+            if dev == "cuda":
+                assert [f.launches for f in (gmm, gmm_dlhs, tgmm)] == \
+                    [n + 3 for n in before]
+            grads.append({"x": xi.grad.cpu(), "loss": loss.detach().cpu(),
+                          **{k: p.grad.cpu()
+                             for k, p in layer.named_parameters()}})
+        for k, g in grads[0].items():
+            torch.testing.assert_close(grads[1][k], g, rtol=1e-4,
+                                       atol=1e-5, msg=k)
+        assert float(grads[1]["gate_weight"].abs().sum()) > 0
 
     def test_serving_step_does_not_read_back(self):
         # the dropless FFN on the card: nothing synchronises on routing

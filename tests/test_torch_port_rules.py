@@ -74,7 +74,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.ops.grouped_gemm",
                 "paddle_tpu_torch.incubate.moe",
                 "paddle_tpu_torch.models.moe_llm",
-                "paddle_tpu_torch.models.ernie"):
+                "paddle_tpu_torch.models.ernie",
+                "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.optimizer",
+                "paddle_tpu_torch.optimizer.lr"):
         assert mod in res["modules"]
 
 
@@ -149,11 +151,17 @@ def test_registry_names_the_ported_kernels():
         path, _, cls = entry.parity_test.partition("::")
         assert (ROOT / path).is_file()
         assert f"class {cls}" in (ROOT / path).read_text()
-    # a backward wrapper is counted beside its forward
-    bwd = ported["flash_sdpa"].backward
-    assert bwd.__name__ == "flash_sdpa_bwd"
+    # backward wrappers are counted beside their forward, each under its
+    # own name
+    assert [f.__name__ for f in ported["flash_sdpa"].backward] == \
+        ["flash_sdpa_bwd"]
+    assert [f.__name__ for f in ported["gmm"].backward] == \
+        ["gmm_dlhs", "tgmm"]
+    path, _, cls = ported["gmm"].backward_parity_test.partition("::")
+    assert f"class {cls}" in (ROOT / path).read_text()
     counts = launch_counts()
-    assert set(counts) == set(ported) | {"flash_sdpa_bwd"}
+    assert set(counts) == set(ported) | {"flash_sdpa_bwd", "gmm_dlhs",
+                                         "tgmm"}
 
 
 def test_kernel_sources_are_in_the_package():
