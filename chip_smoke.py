@@ -204,7 +204,8 @@ from paddle_tpu_torch import optimizer as optim
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.flags import flags_guard
 from paddle_tpu_torch.incubate import moe as moe_ffn
-from paddle_tpu_torch.models import (Ernie45MoEForCausalLM,
+from paddle_tpu_torch.models import (DeepSeekV2Config, DeepSeekV2ForCausalLM,
+                                     Ernie45MoEForCausalLM,
                                      GPTForCausalLM, MoEConfig,
                                      MoEForCausalLM, Qwen2Config,
                                      Qwen2ForCausalLM, ernie45_moe_config,
@@ -220,6 +221,7 @@ from paddle_tpu_torch.ops import paged
 from paddle_tpu_torch.ops import paged_attention as paged_routes
 from paddle_tpu_torch.ops.flash import _launch_fwd
 from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving.engine import mla_split_front
 from paddle_tpu_torch.trainer import (PretrainConfig,
                                       build_llama_pretrain_step,
                                       flops_per_token, flops_per_token_hw)
@@ -268,6 +270,39 @@ ERNIE45_21B_A3B = dict(vocab_size=103424, hidden_size=2560,
                        moe_intermediate_size=1536,
                        shared_expert_intermediate_size=3072,
                        first_k_dense_replace=1, moe_dropless=True)
+#: DeepSeek-V2-Lite's published config (deepseek-ai/DeepSeek-V2-Lite
+#: config.json) in the JAX DeepSeek-V2 family's terms: MLA without q-lora
+#: (kv_lora_rank 512, heads of 128 nope + 64 rope dims, v 128), layer 0
+#: dense (FFN 10944), 26 routed over 64 experts of 1408, top-6, its two
+#: shared experts as one SwiGLU of 2816, untied head; 15.7 B parameters.
+#: Departures, all the family's own: plain rope (the config has no yarn
+#: rope_scaling to drop, and the family has none); the top-k
+#: probabilities renormalized (MoELayer's default; the config says
+#: norm_topk_prob false); routed_scaling_factor 1, topk_method "greedy"
+#: and n_group 1, as the family routes; dropless routing (serving always
+#: routes dropless). No width or depth cut; max_position_embeddings
+#: stays 163840 (its rope tables are 42 MB)
+DEEPSEEK_V2_LITE = dict(vocab_size=102400, hidden_size=2048,
+                        intermediate_size=10944, num_hidden_layers=27,
+                        num_attention_heads=16, num_key_value_heads=16,
+                        max_position_embeddings=163840, rope_theta=10000.0,
+                        rms_norm_eps=1e-6, q_lora_rank=None,
+                        kv_lora_rank=512, qk_nope_head_dim=128,
+                        qk_rope_head_dim=64, v_head_dim=128,
+                        num_experts=64, top_k=6, moe_intermediate_size=1408,
+                        shared_expert_intermediate_size=2816,
+                        first_k_dense_replace=1, moe_dropless=True)
+#: phase 3's tiny DeepSeek-V2: widths every MLA kernel takes on the card
+#: (latent 64 + rope 64 = a 128-wide pool row, q / k heads of 128, v of
+#: 64 padded to 128 for the flash prefill), a dense first layer and a
+#: routed one of 8 experts
+TINY_MLA = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=4, max_position_embeddings=64,
+                kv_lora_rank=64, qk_nope_head_dim=64, qk_rope_head_dim=64,
+                v_head_dim=64, num_experts=8, top_k=2,
+                moe_intermediate_size=64, shared_expert_intermediate_size=64,
+                first_k_dense_replace=1, moe_dropless=True)
 #: the MoE step's rows: the unified step's (4 slots + a 128-token chunk)
 #: and generate_cached's prefill (4 x 512) tokens
 MOE_STEP_TOKENS, MOE_PREFILL_TOKENS = SLOTS + CHUNK, 4 * 512
@@ -624,6 +659,7 @@ def check_kernels(timer: Timer):
     check_weight_only_linear(timer, rows)
     check_gmm(timer, rows)
     check_gmm_backward(timer, rows)
+    check_mla_kernels(timer, rows)
     return rows
 
 
@@ -1635,6 +1671,344 @@ def check_flash(timer: Timer, rows: dict):
                 lo, ll, ldo, retain_graph=True)))
 
 
+# ------------------------------------------------------ phase 2, MLA
+#: DeepSeek-V2-Lite's attention widths (DEEPSEEK_V2_LITE below)
+MLA_H, MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_R = 2048, 16, 128, 64, 128, 512
+#: the cached decode's shapes: GEN_BATCH sequences at GEN_PROMPT + 32
+#: tokens (the last decode step reads 543 rows), and a long-context one
+MLA_DECODE_CASES = {"decode": (GEN_BATCH, GEN_PROMPT + GEN_NEW),
+                    "long": (LONG_SEQS, LONG_CTX)}
+#: bf16 limits of the MLA kernels, (tensor, row) relative errors against
+#: their plain versions: mla_decode_attention over each (sequence, head)'s
+#: r outputs; the MLA site over each token's [q | pool row]; ragged at
+#: D 576 over each (row, head); flash at D 192 by flash_rel_errors' tiles.
+#: Set from readings of the sound kernels and of planted faults
+#: (quant_limits.py, PERF.md): the sound decode kernel read at most
+#: 6.4e-4 / 3.0e-3 (it rounds p to bf16 against the running max, the
+#: plain version against the final one), with its scores rounded to bf16
+#: between reads 2.2e-3 / 1.1e-2; the sound MLA site 4.6e-5 / 2.8e-4,
+#: with its latent normed after the bf16 round 1.2e-3 / 1.4e-3; ragged
+#: and flash keep the paged and flash limits
+MLA_BF16_LIMITS = {"mla_decode_attention": (1.2e-3, 6e-3),
+                   "fused_qkv_rope_append_mla": (3e-4, 1e-3),
+                   "ragged_576": (5e-3, 1e-2), "flash_192": (1e-2, 3e-2)}
+
+
+def assert_rel_bf16(name, got, want, limits, hold: bool = True):
+    """Hold a bf16 output to its plain version by `row_rel_errors` over
+    rows of its last axis (``hold`` False: read only); returns the
+    readings."""
+    n = got.shape[-1]
+    t, r = row_rel_errors(got.reshape(-1, n), want.reshape(-1, n))
+    if hold:
+        assert torch.isfinite(got).all(), name
+        assert t <= limits[0] and r <= limits[1], (name, t, r)
+    return {"tensor": t, "row": r}
+
+
+def max_row_ulps(got, want) -> float:
+    """The largest difference of two bf16 tensors over rows of the last
+    axis, in bf16 spacings at each row's largest magnitude of `want`
+    (about 1 or less: every difference is a rounding step at the row's
+    scale)."""
+    w = want.float().reshape(-1, want.shape[-1])
+    top = w.abs().amax(-1, keepdim=True)
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)
+    return float(((got.float().reshape_as(w) - w).abs() / ulp).max())
+
+
+def close_f32(got, want, hold: bool = True):
+    """Hold an f32 output to its plain version at 2e-5 (``hold`` False:
+    read only)."""
+    if hold:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def mla_front_split(h, wq, wkva, g, c, s, pool, pg, off):
+    """The split front's calls computing what the MLA site does (the
+    site's split_ms), through the engine's own split front
+    (``serving.engine.mla_split_front``): the q and kv_a products, q_pe
+    and k_pe roped, the latent normed (fused_rms_norm), the rows appended
+    (fused_append_rows)."""
+    return mla_split_front(
+        {"wq": wq, "wkva": wkva, "gkv": g}, h[None], c, s, pool, pg, off,
+        heads=MLA_HEADS, nope_dim=MLA_NOPE, lora_rank=MLA_R, eps=1e-6,
+        q_lora=False)[1]
+
+
+def check_mla_kernels(timer, rows: dict, hold: bool = True):
+    """The MLA slice's kernels against their plain versions at
+    DeepSeek-V2-Lite's shapes, f32 at 2e-5 and bf16 by MLA_BF16_LIMITS
+    (int4_dequantize and fused_append_rows exactly), each timed in bf16
+    beside its plain version and its bound: the MLA site of
+    fused_qkv_rope_append at the serving step (T 132, [2048 -> 3648], fp
+    and int8; split_ms the split front's calls), fused_append_rows (132
+    rows of 576), int4_dequantize (kv_b [512, 4096]), mla_decode_attention
+    at the cached decode (4 x 544) and at 8 x 8192 cache rows (NaN past
+    each length; library_ms SDPA over [q_eff | q_pe] against [c_lat |
+    c_pe] with c_lat as the values), ragged attention over one latent pool
+    (KV 1, D 576, rep 16) for a decode step and a 128-row prefill chunk,
+    and the flash forward at head dim 192 (B 1, S 8192, 16 heads). With
+    ``timer`` None nothing is timed; with ``hold`` False nothing is held,
+    only read (quant_limits.py's planted faults)."""
+    def ms(fn):
+        return None if timer is None else timer.ms(fn)
+
+    g = torch.Generator(DEV).manual_seed(7)
+    T = SLOTS + CHUNK
+    nh, dn, dr, dv, r = MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_R
+    dh, D_lat = dn + dr, r + dr
+    N = nh * dh + D_lat
+    P = 64
+    slot = torch.randperm((P - 1) * PSZ, device=DEV, generator=g)[:T]
+    pg, off = (slot // PSZ + 1).to(torch.int32), (slot % PSZ).to(torch.int32)
+    ang = torch.rand(T, dr // 2, device=DEV, generator=g) * 6
+    cos, sin = ang.cos(), ang.sin()
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(*shape, device=DEV, generator=g)
+                ).to(dtype)
+
+    # the MLA site, fp and int8, f32 and bf16
+    site = rows.setdefault("fused_qkv_rope_append", {})
+    for algo in (None, INT8):
+        key = "mla" if algo is None else "mla_int8"
+        for dtype in (torch.float32, torch.bfloat16):
+            h = rnd(T, MLA_H, dtype=dtype)
+            w32 = rnd(MLA_H, N, dtype=torch.float32, scale=0.02)
+            gw = 1 + rnd(r, dtype=torch.float32, scale=0.1)
+            w, sc = (w32.to(dtype), None) if algo is None \
+                else ops.weight_quantize(w32, algo)
+            kw = dict(heads=nh, algo=algo, eps=1e-6, nope_dim=dn,
+                      rope_dim=dr, lora_rank=r, norm_weight=gw)
+            pool = torch.zeros(1, P, PSZ, D_lat, device=DEV, dtype=dtype)
+            ref_pool = torch.zeros_like(pool)
+            n0 = ops.fused_qkv_rope_append.launches
+            q, out = ops.fused_qkv_rope_append(h, w, sc, None, cos, sin,
+                                               pool, None, pg, off, **kw)
+            torch.cuda.synchronize()
+            assert ops.fused_qkv_rope_append.launches == n0 + 1
+            assert out is pool
+            qr, _ = ops.qkv_rope_append_reference(
+                h, w, sc, None, cos, sin, ref_pool, None, pg, off, **kw)
+            got_rows, want_rows = pool[0, pg.long(), off.long()], \
+                ref_pool[0, pg.long(), off.long()]
+            err = max(max_err(q, qr), max_err(got_rows, want_rows))
+            r_ = site.setdefault(key, {})
+            r_[f"max_abs_err_{'f32' if dtype == torch.float32 else 'bf16'}"] \
+                = err
+            if dtype == torch.float32:
+                close_f32(q, qr, hold)
+                close_f32(got_rows, want_rows, hold)
+                continue
+            # a row per token, [q | pool row], as `quant_site_rows` reads
+            # the other sites
+            rel = assert_rel_bf16(
+                "mla site", torch.cat([q.reshape(T, -1), got_rows], 1),
+                torch.cat([qr.reshape(T, -1), want_rows], 1),
+                MLA_BF16_LIMITS["fused_qkv_rope_append_mla"], hold)
+            b_, by = bound(nbytes(h, w, q, got_rows, cos, sin, pg, off)
+                           + (nbytes(sc) if sc is not None else 0),
+                           2 * T * MLA_H * N, dtype)
+            wd = w if algo is None else (w.float() * sc).to(dtype)
+            wq, wkva = wd[:, :nh * dh].contiguous(), \
+                wd[:, nh * dh:].contiguous()
+            # read only: each (token, head)'s 192-wide q row alone, where
+            # one bf16 rounding flip weighs more than in a token's row
+            rel_heads = dict(assert_rel_bf16(
+                "mla site q heads", q, qr,
+                MLA_BF16_LIMITS["fused_qkv_rope_append_mla"], hold=False),
+                max_row_ulps=max_row_ulps(q, qr))
+            r_.update(max_abs_err=err, rel_err_bf16=rel,
+                      rel_err_bf16_q_heads=rel_heads, bound_ms=b_,
+                      bound_by=by, t=T, n=N,
+                      ms=ms(lambda: ops.fused_qkv_rope_append(
+                          h, w, sc, None, cos, sin, pool, None, pg, off,
+                          **kw)),
+                      plain_ms=ms(lambda: ops.qkv_rope_append_reference(
+                          h, w, sc, None, cos, sin, ref_pool, None, pg, off,
+                          **kw)),
+                      split_ms=ms(lambda: mla_front_split(
+                          h, wq, wkva, gw, cos, sin, ref_pool, pg, off)),
+                      library_ms=None)
+
+    # fused_append_rows: the step's 132 latent rows
+    for dtype in (torch.float32, torch.bfloat16):
+        pool = rnd(1, P, PSZ, D_lat, dtype=dtype)
+        rws = rnd(T, 1, D_lat, dtype=dtype)
+        want = ops.append_rows_reference(pool.clone(), rws, pg, off)
+        n0 = ops.fused_append_rows.launches
+        got = ops.fused_append_rows(pool, rws, pg, off)
+        torch.cuda.synchronize()
+        assert got is pool and ops.fused_append_rows.launches == n0 + 1
+        assert torch.equal(pool, want) or not hold
+    b_, by = bound(2 * nbytes(rws) + nbytes(pg, off))
+    rows["fused_append_rows"] = dict(
+        max_abs_err=max_err(pool, want), bound_ms=b_, bound_by=by, rows=T, width=D_lat,
+        ms=ms(lambda: ops.fused_append_rows(pool, rws, pg, off)),
+        plain_ms=ms(lambda: ops.append_rows_reference(pool, rws, pg,
+                                                            off)),
+        library_ms=ms(lambda: pool[0].index_put_(
+            (pg.long(), off.long()), rws[:, 0])))
+
+    # int4_dequantize: DeepSeek-V2-Lite's kv_b [512, 16 x 256], and odd N
+    for K_, N_ in ((r, nh * (dn + dv)), (64, 37)):
+        qw, s4 = ops.weight_quantize(rnd(K_, N_, dtype=torch.float32),
+                                     INT4)
+        n0 = ops.int4_dequantize.launches
+        got = ops.int4_dequantize(qw, s4)
+        torch.cuda.synchronize()
+        assert ops.int4_dequantize.launches == n0 + 1
+        want = ops.int4_dequantize_reference(qw, s4)
+        assert torch.equal(got, want) or not hold
+        rel = dict(zip(("tensor", "row"), row_rel_errors(got, want)))
+        if K_ != r:
+            rows["int4_dequantize"]["odd_n"] = dict(
+                k=K_, n=N_, max_abs_err=max_err(got, want), rel_err=rel)
+        else:
+            b_, by = bound(nbytes(qw, s4, got))
+            rows["int4_dequantize"] = dict(
+                max_abs_err=max_err(got, want), rel_err=rel,
+                bound_ms=b_, bound_by=by, k=K_, n=N_,
+                ms=ms(lambda: ops.int4_dequantize(qw, s4)),
+                plain_ms=ms(
+                    lambda: ops.int4_dequantize_reference(qw, s4)),
+                library_ms=None)
+
+    # mla_decode_attention: NaN past each length, f32 and bf16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = dh ** -0.5
+    mrow = rows.setdefault("mla_decode_attention", {"cases": {}})
+    for case, (B, Tc) in MLA_DECODE_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            if case == "long" and dtype == torch.float32:
+                continue        # the plain version's f32 scores: 8 x 16 x 8192
+            qe, qp = rnd(B, nh, r, dtype=dtype), rnd(B, nh, dr, dtype=dtype)
+            cl, cp = rnd(B, Tc, r, dtype=dtype), rnd(B, Tc, dr, dtype=dtype)
+            lens = torch.randint(1, Tc + 1, (B,), device=DEV, generator=g,
+                                 dtype=torch.int32)
+            lens[0], lens[-1] = Tc, 1
+            dead = torch.arange(Tc, device=DEV)[None] >= lens[:, None].long()
+            cl[dead], cp[dead] = float("nan"), float("nan")
+            n0 = ops.mla_decode_attention.launches
+            got = ops.mla_decode_attention(qe, qp, cl, cp, lens, scale=scale)
+            torch.cuda.synchronize()
+            assert ops.mla_decode_attention.launches == n0 + 1
+            want = ops.mla_decode_reference(qe, qp, cl, cp, lens,
+                                            scale=scale)
+            c_ = mrow["cases"].setdefault(case, {"batch": B, "cache": Tc})
+            c_[f"max_abs_err_{'f32' if dtype == torch.float32 else 'bf16'}"] \
+                = max_err(got, want)
+            if dtype == torch.float32:
+                close_f32(got, want, hold)
+                continue
+            c_["rel_err_bf16"] = assert_rel_bf16(
+                "mla_decode_attention " + case, got, want,
+                MLA_BF16_LIMITS["mla_decode_attention"], hold)
+            live = int(lens.sum())
+            b_, by = bound(live * D_lat * cl.element_size()
+                           + nbytes(qe, qp, got, lens),
+                           4 * nh * D_lat * live, dtype)
+            qcat = torch.cat([qe, qp], -1)[:, :, None]      # [B, nh, 1, 576]
+            kcat = torch.cat([cl, cp], -1)[:, None].expand(B, nh, Tc, D_lat)
+            vlat = cl[:, None].expand(B, nh, Tc, r)
+            mask = (~dead)[:, None, None, :]
+            c_.update(bound_ms=b_, bound_by=by, live_rows=live,
+                      ms=ms(lambda: ops.mla_decode_attention(
+                          qe, qp, cl, cp, lens, scale=scale)),
+                      plain_ms=ms(lambda: ops.mla_decode_reference(
+                          qe, qp, cl, cp, lens, scale=scale)),
+                      library_ms=ms(lambda: sdpa(
+                          qcat, kcat, vlat, attn_mask=mask, scale=scale)))
+    dec = mrow["cases"]["decode"]
+    mrow.update({k: dec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+                max_abs_err=dec["max_abs_err_bf16"])
+
+    # ragged over one latent pool: KV 1, D 576, rep 16
+    Pp = 96
+    tabs_ = torch.randperm(Pp - 1, device=DEV, generator=g)[:5 * 16] \
+        .reshape(5, 16).to(torch.int32) + 1
+    seq_start = torch.arange(SLOTS + 1, dtype=torch.int32, device=DEV)
+    for case, nt_, kvl_ in (("decode", [1, 1, 0, 1, 0],
+                             [200, 17, 0, 255, 0]),
+                            ("prefill", [1, 1, 0, 1, CHUNK],
+                             [200, 17, 0, 255, 64 + CHUNK])):
+        nt = torch.tensor(nt_, dtype=torch.int32, device=DEV)
+        kvl = torch.tensor(kvl_, dtype=torch.int32, device=DEV)
+        tabs = (seq_start, nt, kvl, tabs_)
+        for dtype in (torch.float32, torch.bfloat16):
+            pool = rnd(1, Pp, PSZ, D_lat, dtype=dtype)
+            q = rnd(T, nh, D_lat, dtype=dtype)
+            n0 = ops.ragged_paged_attention.launches
+            o = ops.ragged_paged_attention(q, pool, pool, *tabs, scale=scale)
+            torch.cuda.synchronize()
+            assert ops.ragged_paged_attention.launches == n0 + 1
+            ref = ops.ragged_attention_reference(q, pool, pool, *tabs,
+                                                 scale=scale)
+            rr = rows["ragged_paged_attention"].setdefault(
+                "mla_576", {"kv_heads": 1, "heads": nh, "head_dim": D_lat})
+            rc = rr.setdefault(case, {})
+            rc[f"max_abs_err_{'f32' if dtype == torch.float32 else 'bf16'}"] \
+                = max_err(o, ref)
+            if dtype == torch.float32:
+                close_f32(o, ref, hold)
+                continue
+            live_rows = torch.cat([torch.arange(SLOTS, device=DEV)[
+                nt[:SLOTS] > 0], SLOTS + torch.arange(int(nt[SLOTS]),
+                                                      device=DEV)])
+            rc["rel_err_bf16"] = assert_rel_bf16(
+                "ragged 576 " + case, o[live_rows], ref[live_rows],
+                MLA_BF16_LIMITS["ragged_576"], hold)
+            # K and V are one pool: each live row read once
+            live = sum(k for k, n in zip(kvl_, nt_) if n)
+            pairs = sum(k - n + t + 1 for k, n in zip(kvl_, nt_)
+                        for t in range(n))
+            b_, by = bound(live * D_lat * pool.element_size()
+                           + nbytes(q, o, *tabs), 4 * nh * D_lat * pairs,
+                           dtype)
+            rc.update(bound_ms=b_, bound_by=by, qk_pairs=pairs,
+                      ms=ms(lambda: ops.ragged_paged_attention(
+                          q, pool, pool, *tabs, scale=scale)),
+                      plain_ms=ms(
+                          lambda: ops.ragged_attention_reference(
+                              q, pool, pool, *tabs, scale=scale)),
+                      library_ms=None)
+
+    # the flash forward at head dim 192: the MLA prefill's padded heads
+    fr = rows["flash_sdpa"].setdefault("d192", {"heads": nh})
+    for dtype, S in ((torch.bfloat16, TRAIN_SEQ),
+                     (torch.float32, F32_FLASH_SEQ)):
+        q, k, v = (rnd(1, S, nh, dh, dtype=dtype) for _ in range(3))
+        n0 = ops.flash_sdpa.launches
+        o = ops.flash_sdpa(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert ops.flash_sdpa.launches == n0 + 1
+        ref = by_heads(lambda a, b, c: ops.flash_sdpa_reference(
+            a, b, c, causal=True), q, k, v)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        fr[f"max_abs_err_{tag}"] = max_err(o, ref)
+        if dtype == torch.float32:
+            close_f32(o, ref, hold)
+            continue
+        t_, tile = flash_rel_errors(o, ref)
+        lim = MLA_BF16_LIMITS["flash_192"]
+        assert not hold or (t_ <= lim[0] and tile <= lim[1]), \
+            ("flash 192", t_, tile)
+        pairs = causal_pairs(S, S)
+        b_, by = bound(nbytes(q, k, v, o) + nh * S * 4,
+                       4 * nh * dh * pairs, dtype)
+        lq, lk, lv = (t.transpose(1, 2) for t in (q, k, v))
+        fr.update(seq=S, rel_err_bf16={"tensor": t_, "tile": tile},
+                  bound_ms=b_, bound_by=by, causal_pairs=pairs,
+                  ms=ms(lambda: ops.flash_sdpa(q, k, v, causal=True)),
+                  plain_ms=ms(lambda: by_heads(
+                      lambda a, b, c: ops.flash_sdpa_reference(
+                          a, b, c, causal=True), q, k, v)),
+                  library_ms=ms(lambda: sdpa(lq, lk, lv,
+                                                   is_causal=True)))
+
+
 # ------------------------------------------------------------- phase 3/4
 def trace(rng, V, n, smin, smax, new_min, new_max, spread):
     """Seeded (prompt, max_new, join_step) requests."""
@@ -1676,18 +2050,22 @@ NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0),
                "gmm": (0, 0), "gmm_dlhs": (0, 0), "tgmm": (0, 0)}
 NO_PAGED = {"paged_decode_attention": (0, 0),
             "paged_decode_attention_v2": (0, 0)}
+#: the MLA family's own kernels, which no other family launches
+NO_MLA = {"fused_append_rows": (0, 0), "int4_dequantize": (0, 0),
+          "mla_decode_attention": (0, 0)}
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_layer_norm": (0, 0),
                   "fused_qkv_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_oproj_norm": (1, 0), "fused_ffn": (1, 0),
                   "fused_rope_append": (0, 0), "weight_only_linear": (0, 0),
-                  **NO_TRAINING, **NO_PAGED}
+                  **NO_TRAINING, **NO_PAGED, **NO_MLA}
 SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_layer_norm": (0, 0),
                   "fused_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_qkv_rope_append": (0, 0),
                   "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0),
-                  "weight_only_linear": (0, 0), **NO_TRAINING, **NO_PAGED}
+                  "weight_only_linear": (0, 0), **NO_TRAINING, **NO_PAGED,
+                  **NO_MLA}
 #: weight_only_linear a step under int4 weights: the LM head on the fused
 #: chain; the seven projections of every layer and the head on the split
 #: chain (int8 products are h @ (q * s), no kernel)
@@ -1729,6 +2107,35 @@ def per_step_counts(chain: str, quant=None, norm: str = "fused_rms_norm",
     a, b = INT4_WOL[chain]
     return dict(base, weight_only_linear=(
         a, b + (3 * routed if chain == "fused" else 0)))
+def mla_step_launches(eng, layers: int, routed: int, quant=None) -> dict:
+    """Every kernel's launches in one unified step of an MLA engine, from
+    its chain: the front (the MLA site of fused_qkv_rope_append, or the
+    split front's latent fused_rms_norm, a q-lora norm and
+    fused_append_rows), ragged attention, the back half (fused_oproj_norm
+    and, on dense layers, fused_ffn; or the split chain's ln2), three gmm
+    a routed layer (the step has more than 32 rows), under int4 kv_b read
+    whole through int4_dequantize once a layer and weight_only_linear
+    for the front's q (q-lora: two) and kv_a products, the split back
+    half's o-proj and dense FFN, the routed layers' shared experts and
+    the head."""
+    front, mega, qlora = eng.megafront, eng.megadecode, eng.q_lora
+    dense = layers - routed
+    want = {name: 0 for name in ops.launch_counts()}
+    want["fused_rms_norm"] = layers * (
+        1 + (0 if front else 1 + qlora) + (0 if mega else 1)) + 1
+    want["ragged_paged_attention"] = layers
+    want["fused_qkv_rope_append"] = layers * front
+    want["fused_append_rows"] = layers * (not front)
+    want["fused_oproj_norm"] = layers * mega
+    want["fused_ffn"] = dense * mega
+    want["gmm"] = 3 * routed
+    if quant == "int4":
+        want["int4_dequantize"] = layers
+        want["weight_only_linear"] = layers * (2 + qlora) + 3 * routed + 1 \
+            + (0 if mega else layers + 3 * dense)
+    return want
+
+
 #: the alternating path (ragged=False) under each FLAGS_paged_impl: its
 #: decode launch's paged kernel and the one it must not launch
 ALTERNATING = {"intree": ("paged_decode_attention_v2",
@@ -1822,6 +2229,7 @@ def tiny_engine_parity():
     out["quantized"] = tiny_quant_parity()
     out["gpt_and_qwen2"] = tiny_family_parity()
     out["moe"] = tiny_moe_parity()
+    out["mla"] = tiny_mla_parity()
     return out
 
 
@@ -2064,6 +2472,92 @@ def tiny_moe_parity():
     return out
 
 
+def tiny_mla_parity():
+    """A tiny f32 DeepSeek-V2 (TINY_MLA), CPU (plain versions) vs card
+    (kernels): identical greedy tokens without q-lora on the fused chain
+    (the MLA site) and the split chain (fused_append_rows) in fp, int8 and
+    int4 (int4's fused chain keeps the split front, kv_b through
+    int4_dequantize), and with q-lora on the fused chain (the split front
+    again), every card run at exactly its launches (`mla_step_launches`;
+    38-row steps, so gmm three times a routed layer a step); then generate
+    (fp) and generate_cached (fp, int8, int4: the decode through
+    mla_decode_attention, "auto" at these widths), tokens identical,
+    scores within 1e-5."""
+    kw = dict(max_slots=2, page_size=4, prefill_chunk=36)
+    out = {}
+    plain_runs = [(q, c) for q in (None, "int8", "int4")
+                  for c in ("fused", "split")]
+    for tag, ql, runs in (("plain", None, plain_runs),
+                          ("qlora", 32, [(None, "fused")])):
+        cfg = DeepSeekV2Config(q_lora_rank=ql, **TINY_MLA)
+        cpu_model = DeepSeekV2ForCausalLM(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        gpu_model = copy.deepcopy(cpu_model).to(DEV)
+        L, R = cfg.num_hidden_layers, routed_layers(cpu_model)
+        reqs = trace(np.random.RandomState(1), cfg.vocab_size, 6, 2, 12, 2,
+                     8, 4)
+        for quant, chain in runs:
+            qkw = dict(kw, weight_only_quant=quant,
+                       **(SPLIT if chain == "split" else {}))
+            cpu_out, _, _ = drive(ServingEngine(cpu_model, device="cpu",
+                                                **qkw), reqs)
+            eng = ServingEngine(gpu_model, device=DEV, **qkw)
+            ops.reset_counts()
+            gpu_out, _, _ = drive(eng, reqs)
+            counts = ops.launch_counts()
+            assert set(cpu_out) == set(gpu_out) == set(range(len(reqs)))
+            for rid in cpu_out:
+                np.testing.assert_array_equal(gpu_out[rid], cpu_out[rid])
+            want = {k: n * eng.launches for k, n in
+                    mla_step_launches(eng, L, R, quant).items()}
+            for name, c in counts.items():
+                assert c == {"launches": want[name], "plain_calls": 0}, \
+                    (tag, quant, chain, name, c, want[name])
+            out[f"{tag}/{quant or 'fp'}/{chain}"] = {
+                "tokens": int(sum(len(v) for v in cpu_out.values())),
+                "identical": True, "megafront": eng.megafront,
+                "launches": {k: v for k, v in want.items() if v}}
+        if tag != "plain":
+            continue
+        ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 20))
+        new, dense = 6, L - R
+        for name, quant in (("generate", None), ("generate_cached", None),
+                            ("generate_cached", "int8"),
+                            ("generate_cached", "int4")):
+            gkw = dict(max_new_tokens=new, decode_strategy="greedy_search")
+            if quant:
+                gkw["weight_only_quant"] = quant
+            fn = getattr(generation, name)
+            x = ids[:, :7] if name == "generate" else ids
+            cpu_tok, cpu_sc = fn(cpu_model, x, **gkw)
+            ops.reset_counts()
+            generation.mla_decode_composite.calls = 0
+            gpu_tok, gpu_sc = fn(gpu_model, x, **gkw)
+            counts = ops.launch_counts()
+            # no decode step on the card took the two-einsum composite
+            assert generation.mla_decode_composite.calls == 0, (name, quant)
+            np.testing.assert_array_equal(gpu_tok.cpu().numpy(),
+                                          cpu_tok.numpy())
+            dist = float((gpu_sc.cpu() - cpu_sc).abs().max())
+            assert dist <= 1e-5, (name, quant, dist)
+            if name == "generate":   # the model forward a new token
+                want = {"flash_sdpa": L * new, "gmm": 3 * R * new}
+            else:                    # 40 prefill rows, then 2-row steps
+                want = {"flash_sdpa": L, "gmm": 3 * R,
+                        "mla_decode_attention": L * (new - 1)}
+                if quant == "int4":
+                    want["int4_dequantize"] = L * new
+                    want["weight_only_linear"] = \
+                        (3 * L + 3 * dense + 3 * R + 1) * new
+            for kname, c in counts.items():
+                assert c == {"launches": want.get(kname, 0),
+                             "plain_calls": 0}, (name, quant, kname, c)
+            out[f"{quant or 'fp'}/{name}"] = {
+                "tokens": cpu_tok.numpy().tolist(),
+                "score_max_abs_diff": dist, "launches": want}
+    return out
+
+
 def tiny_generate_parity():
     """generate and generate_cached (greedy, f32) on a tiny Llama (head_dim
     64, 2 query heads on 1 KV head): CPU (plain versions) vs card (the
@@ -2229,10 +2723,15 @@ def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
                             device=DEV, weight_only_quant=quant, **kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    assert eng.megafront == eng.megadecode == (chain == "fused")
+    mla = eng._family == "mla"
+    # the MLA family's fused chain keeps the split front under int4 (no
+    # packed MLA site) or q-lora
+    assert eng.megadecode == (chain == "fused")
+    assert eng.megafront == (chain == "fused" and not (
+        mla and (quant == "int4" or eng.q_lora)))
     assert eng.ragged == (not alt)
     assert eng.paged_impl == (impl if alt else None)
-    pool_bytes = sum(nbytes(k, v) for k, v in eng._pools)
+    pool_bytes = sum(nbytes(*layer) for layer in eng._pools)
     # the engine's concatenated qkv copy (the gpt family's wqkv is the
     # model's own weight, no copy)
     slab_bytes = 0 if norm == "fused_layer_norm" else sum(
@@ -2302,6 +2801,9 @@ def serve_trace(model, chain: str, counts_out: dict, impl: str = "intree",
                       "prefill": {norm: 2 * layers + 1}}
         if routed:
             per_launch["prefill"]["gmm"] = 3 * routed
+    elif mla:
+        per_launch = mla_step_launches(eng, layers, routed, quant)
+        expect = {name: n * n_steps for name, n in per_launch.items()}
     else:
         per_step = per_step_counts(chain, quant, norm, routed)
         expect = {name: (a * layers + b) * n_steps
@@ -2382,6 +2884,7 @@ def generate_cached_run(model):
     try:
         ops.reset_counts()
         attn_routes.reset_route_counts()
+        generation.mla_decode_composite.calls = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tok, scores = generation.generate_cached(model, ids,
@@ -2393,13 +2896,17 @@ def generate_cached_run(model):
     counts = ops.launch_counts()
     # the prefill: the flash kernel once a layer, and a MoE model's routed
     # layers three grouped GEMMs each (GEN_BATCH x GEN_PROMPT rows > 32;
-    # a decode step's GEN_BATCH rows run every expert on every token)
+    # a decode step's GEN_BATCH rows run every expert on every token); an
+    # MLA model's decode steps mla_decode_attention once a layer each
     wants = {"flash_sdpa": L, "gmm": 3 * routed}
+    if hasattr(cfg, "kv_lora_rank"):
+        wants["mla_decode_attention"] = L * (GEN_NEW - 1)
     for name, c in counts.items():
         assert c == {"launches": wants.get(name, 0), "plain_calls": 0}, \
             (name, c)
     assert dict(attn_routes.route_counts) == {
         "flash": L, "flash_segmented": 0, "composite": 0}
+    assert generation.mla_decode_composite.calls == 0
     assert tuple(tok.shape) == (GEN_BATCH, GEN_NEW)
     assert bool(torch.isfinite(scores).all())
     assert calls[0][0] == GEN_PROMPT and len(calls) == GEN_NEW
@@ -2410,7 +2917,8 @@ def generate_cached_run(model):
             "wall_s": wall, "tokens_per_s": GEN_BATCH * GEN_NEW / wall,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "flash_launches": counts["flash_sdpa"]["launches"],
-            "gmm_launches": counts["gmm"]["launches"]}
+            "gmm_launches": counts["gmm"]["launches"],
+            "mla_decode_launches": counts["mla_decode_attention"]["launches"]}
 
 
 # ------------------------------------------------------------- phase 6/7
@@ -2814,6 +3322,12 @@ SOURCES = {
                  "paddle_tpu/ops/pallas_gmm.py:230"),
     "tgmm": ("paddle_tpu_torch/ops/csrc/gmm.cu",
              "paddle_tpu/ops/pallas_gmm.py:193"),
+    "fused_append_rows": ("paddle_tpu_torch/ops/csrc/fused.cu",
+                          "paddle_tpu/ops/fused.py:474"),
+    "int4_dequantize": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+                        "paddle_tpu/ops/quant.py:83"),
+    "mla_decode_attention": ("paddle_tpu_torch/ops/csrc/mla.cu",
+                             "paddle_tpu/ops/pallas_mla.py:104"),
 }
 #: the megakernels' quantized sites, reported inside their rows
 QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
@@ -2996,6 +3510,47 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # DeepSeek-V2-Lite at full width and depth (31.4 GB of bf16 weights
+    # drawn on the card): the fused chain (the MLA site), the split chain
+    # (fused_append_rows), int8 on the fused chain, int4 on the fused
+    # chain (its split front: fused_append_rows, int4_dequantize), then
+    # generate_cached (the flash prefill at head dim 192,
+    # mla_decode_attention)
+    t0 = time.perf_counter()
+    model = DeepSeekV2ForCausalLM(DeepSeekV2Config(**DEEPSEEK_V2_LITE),
+                                  device=DEV, dtype=torch.bfloat16,
+                                  generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mla_launches = {}
+    for key, chain, quant in (("fused", "fused", None),
+                              ("split", "split", None),
+                              ("int8", "fused", "int8"),
+                              ("int4", "fused", "int4")):
+        launches: dict = {}
+        out, res = serve_trace(model, chain, launches, quant=quant)
+        mla_launches[key] = launches
+        extra = {"model_init_s": init_s} if key == "fused" else {
+            "identical_token_share_vs_fused": same_share(mla_out, out)}
+        if quant:
+            extra["quantize_s"] = res.pop("engine_build_s")
+        else:
+            mla_out = out if key == "fused" else mla_out
+        emit(f"13 deepseek-v2-lite serving, "
+             f"{quant + ' weights, ' if quant else ''}{chain} chain",
+             card=card["nvidia_smi"], **extra, **res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = generate_cached_run(model)
+    mla_launches["generate_cached"] = {
+        "flash_sdpa": res["flash_launches"],
+        "mla_decode_attention": res["mla_decode_launches"]}
+    emit("13 deepseek-v2-lite generate_cached", card=card["nvidia_smi"],
+         **res)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
     kernels = []
     paths = (("fused", fused_launches), ("split", split_launches),
              ("alternating", alt_launches),
@@ -3004,7 +3559,11 @@ def main() -> int:
              ("int4 split", quant_launches["int4 split"]),
              ("gpt3-6.7b fused", gpt_launches),
              ("ernie45-21b-a3b fused", moe_launches),
-             ("ernie45-21b-a3b-width training", moe_train_launches_))
+             ("ernie45-21b-a3b-width training", moe_train_launches_),
+             ("deepseek-v2-lite split", mla_launches["split"]),
+             ("deepseek-v2-lite int4 fused", mla_launches["int4"]),
+             ("deepseek-v2-lite generate_cached",
+              mla_launches["generate_cached"]))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         path, launches = next((p, c[name]) for p, c in paths if name in c)
@@ -3043,6 +3602,19 @@ def main() -> int:
                                                   "rel_err_bf16")}
                             for k, v in r["cases"].items()
                             if k.endswith("bf16")}
+        if name == "fused_qkv_rope_append":
+            # the MLA site at DeepSeek-V2-Lite's step, fp and int8, with
+            # the launches of phase 13's fused chains
+            for site, run in (("mla", "fused"), ("mla_int8", "int8")):
+                row[site] = dict(r[site], launches=mla_launches[run][name])
+        if name == "ragged_paged_attention":
+            row["mla_576"] = dict(r["mla_576"],
+                                  launches=mla_launches["fused"][name])
+        if name == "flash_sdpa":
+            row["d192"] = dict(r["d192"], launches=mla_launches[
+                "generate_cached"]["flash_sdpa"])
+        if name == "mla_decode_attention":
+            row["cases"] = r["cases"]
         if name == "gmm":
             # the forward's launches on phase 12b's training path, beside
             # the backward kernels'

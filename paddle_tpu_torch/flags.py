@@ -26,6 +26,14 @@ flags the port reads are defined:
   port's reference), "xla" (XLA's ``ragged_dot``) and "bundled"
   (jax.experimental's megablox kernel) have no counterpart here and are
   refused.
+- ``FLAGS_mla_decode_impl``: the decode attention of the MLA family's
+  ``generate_cached`` (``generation._mla_cached_step_body``, read when
+  the body is built): "auto" (the default: the ``mla_decode_attention``
+  kernel where ``ops.mla.mla_kernel_eligible`` takes the shape, else the
+  two-einsum composite on CPU tensors and an error on the card), "fused"
+  (the kernel) or "xla" (the two-einsum composite,
+  ``generation.mla_decode_composite``, counted), the JAX package's
+  names.
 """
 
 from __future__ import annotations
@@ -185,3 +193,12 @@ define_flag("FLAGS_gmm_impl", "auto",
             "grouped GEMM of the MoE experts: 'auto' and 'intree' both name "
             "the gmm kernel (ops/gmm.py), the port's one route",
             validator=_gmm_impl_ok)
+
+
+define_flag("FLAGS_mla_decode_impl", "auto",
+            "MLA absorbed-latent decode attention of generate_cached: "
+            "'auto' (the single-cache-read kernel ops/mla.py where "
+            "mla_kernel_eligible takes the shape, else the einsum pair on "
+            "CPU tensors and an error on the card), "
+            "'fused' (the kernel) or 'xla' (the two-einsum composite)",
+            validator=lambda v: v in ("auto", "fused", "xla"))

@@ -1,6 +1,6 @@
 """Text generation and the decode weight tree (counterpart of
-paddle_tpu/generation.py: the llama family, with Qwen2, the gpt family
-and the MoE family).
+paddle_tpu/generation.py: the llama family, with Qwen2, the gpt family,
+the MoE family and the MLA family).
 
 Ported:
 
@@ -13,7 +13,15 @@ Ported:
   flash kernel on the card, once a layer), then one token a step: the
   step's K/V rows are written into preallocated [B, total, KV, D] caches
   IN PLACE (the JAX body returned updated copies) and attention is the
-  dense masked einsum over the cache, in the JAX body's op order.
+  dense masked einsum over the cache, in the JAX body's op order. The MLA
+  family (DeepSeek-V2) caches each token's normalized latent [r] and rope
+  key [dr] ([B, total, r] and [B, total, dr] caches, written in place):
+  its prefill runs the non-absorbed form through
+  ``ops.flash_attention.sdpa_padded_heads``, its decode the absorbed form
+  (kv_b folded into the query and the output) through
+  ``ops.mla.mla_decode_attention`` or the two-einsum composite
+  (`mla_decode_composite`), as ``FLAGS_mla_decode_impl`` says when the
+  body is built.
 - `_decode_params`, `_llama_decode_params` (Llama and Qwen2, whose
   q/k/v biases ride as ``bq`` / ``bk`` / ``bv``), `_gpt_decode_params`
   (fused ``wqkv`` + ``bqkv``, LayerNorms with biases, the GELU MLP,
@@ -31,9 +39,11 @@ Ported:
   LM head as ``key_q`` (int8 [K, N]) or ``key_q4`` (packed int4 [K/2,
   N]) beside its f32 scale ``key_s``, the 3-D expert stacks per expert
   with scales [E, N] (the router stays fp). The gpt family stays fp, as
-  in JAX (its quant knobs raise). The MLA family and its 2-D int4 whole
-  reads raise naming item 5c. `generate_compiled` and the beam searches
-  are not ported yet (queue A item 3).
+  in JAX (its quant knobs raise). `_mla_decode_params` (the MLA family:
+  ``wq`` or ``wqa`` / ``gq`` / ``wqb``, ``wkva``, ``gkv``, ``wkvb``,
+  ``wo`` and the FFN of `_mlp_params`) reads kv_b whole: a packed-int4
+  kv_b through ``ops.quant.int4_dequantize``. `generate_compiled` and the
+  beam searches are not ported yet (queue A item 3).
 
 PyTorch idiom: an eager Python loop, no jit. Inputs move to the model's
 device, so the model decides where the call runs (a model built with
@@ -438,12 +448,59 @@ def _moe_decode_params(model, enabled: bool = False,
     return p
 
 
+def _mla_decode_params(model, enabled: bool = False,
+                       algo: str = "weight_only_int8"):
+    """The cached-decode weight tree of a DeepSeekV2ForCausalLM, keyed as
+    the JAX package's: per layer ``ln1``, ``wkva`` (kv_a with the rope
+    key, [H, r + dr]), ``gkv`` (the latent norm), ``wkvb`` ([r, nh (dn +
+    dv)], read whole and absorbed), ``wo``, ``ln2``, ``wq`` or the q-lora
+    ``wqa`` / ``gq`` / ``wqb``, and `_mlp_params`'s FFN; ``moe_static``
+    the routing knobs. Quantized like `_moe_decode_params`: every
+    projection of the attention (a packed-int4 kv_b is read whole through
+    ``int4_dequantize``), the FFN and expert stacks, and the head."""
+    inner = model.model
+    cfg = model.config
+    layers, moe_static = [], []
+    for lyr in inner.layers:
+        a = lyr.self_attn
+        d = dict(
+            ln1=lyr.input_layernorm.weight.detach(),
+            wkva=a.kv_a_proj_with_mqa.weight.detach(),
+            gkv=a.kv_a_layernorm.weight.detach(),
+            wkvb=a.kv_b_proj.weight.detach(),
+            wo=a.o_proj.weight.detach(),
+            ln2=lyr.post_attention_layernorm.weight.detach())
+        if cfg.q_lora_rank:
+            d["wqa"] = a.q_a_proj.weight.detach()
+            d["gq"] = a.q_a_layernorm.weight.detach()
+            d["wqb"] = a.q_b_proj.weight.detach()
+        else:
+            d["wq"] = a.q_proj.weight.detach()
+        for k in ("wkva", "wkvb", "wo", "wqa", "wqb", "wq"):
+            if k in d:
+                _q8(d, k, enabled, algo)
+        mlp_w, mlp_st = _mlp_params(lyr, enabled, algo)
+        d.update(mlp_w)
+        layers.append(d)
+        moe_static.append(mlp_st)
+    p = dict(cfg=cfg, family="mla",
+             embed=inner.embed_tokens.weight.detach(),
+             layers=layers, norm=inner.norm.weight.detach(),
+             head=model.lm_head.weight.detach(),
+             cos=inner.rope_cos, sin=inner.rope_sin,
+             moe_static=tuple(moe_static))
+    if enabled:
+        _q8(p, "head", True, algo)
+        p["head"] = None
+    return p
+
+
 def _decode_params(model, weight_only_int8: bool = False,
                    weight_only_quant=None):
     """Family dispatch of the cached decode path: the gpt family (fp
-    only, as in JAX), the MoE family (``model.model`` a MoEModel), the
-    llama family with Qwen2; the MLA family is ROADMAP.md queue A item
-    5c."""
+    only, as in JAX), the MLA family (``model.model`` a
+    DeepSeekV2Model), the MoE family (a MoEModel), the llama family with
+    Qwen2."""
     algo, enabled = _woq_algo(weight_only_int8, weight_only_quant)
     if getattr(model, "gpt", None) is not None:
         if enabled:
@@ -454,12 +511,16 @@ def _decode_params(model, weight_only_int8: bool = False,
         return _gpt_decode_params(model)
     inner = getattr(model, "model", None)
     if inner is not None:
+        from .models.deepseek import DeepSeekV2Model
         from .models.moe_llm import MoEModel
+        if isinstance(inner, DeepSeekV2Model):
+            return _mla_decode_params(model, enabled, algo)
         if isinstance(inner, MoEModel):
             return _moe_decode_params(model, enabled, algo)
         raise NotImplementedError(
-            "cached decoding of the MLA family (deepseek) is not ported "
-            "yet (ROADMAP.md queue A item 5c)")
+            f"cached decoding of a {type(inner).__name__} backbone: the "
+            "port serves the llama, gpt, MoE and MLA families (ROADMAP.md "
+            "queue A item 5 lists the others)")
     return _llama_decode_params(model, weight_only_int8, weight_only_quant)
 
 
@@ -478,16 +539,15 @@ def _dq(d, key, dtype):
     `dtype` (a 3-D expert stack with its [E, N] scales per expert). A
     3-D packed-int4 stack [E, K/2, N] interleaves its sign-extended
     nibble planes back to source-row order and scales in f32, as the JAX
-    body does (plain array code there too). A 2-D packed-int4 whole read
-    (the MLA absorbed kv_b, through ``int4_dequantize``) is the MLA
-    family's (ROADMAP.md queue A item 5c)."""
+    body does (plain array code there too). A 2-D packed-int4 weight (the
+    MLA absorbed kv_b) unpacks through the ``int4_dequantize`` kernel into
+    f32, then casts to `dtype`, as in JAX."""
     algo = _walgo(d, key)
     if algo == "weight_only_int4":
         q4, s = d[key + "_q4"], d[key + "_s"]
-        if q4.ndim != 3:
-            raise NotImplementedError(
-                "a packed-int4 weight read whole (int4_dequantize, the MLA "
-                "family) is not ported yet (ROADMAP.md queue A item 5c)")
+        if q4.ndim == 2:
+            from .ops.quant import int4_dequantize
+            return int4_dequantize(q4, s).to(dtype)
         from .ops.quant import int4_planes
         lo, hi = int4_planes(q4)                        # [E, K/2, N]
         E, K2, N = q4.shape
@@ -679,29 +739,158 @@ def _gpt_cached_step_body(cfg, max_len: int):
     return step
 
 
+def mla_decode_composite(q_eff, q_pe, c_lat, c_pe, vis, scale: float):
+    """The absorbed-latent attention as two einsums over the latent caches
+    (q_eff [B, S, nh, r], q_pe [B, S, nh, dr], c_lat [B, Tc, r], c_pe [B,
+    Tc, dr], vis [S, Tc] the visible keys) -> [B, S, nh, r]: the JAX
+    package's "xla" route of FLAGS_mla_decode_impl, also taken by a
+    window wider than one token past the prefill and, on CPU tensors
+    only, by "auto" at a shape `mla_kernel_eligible` refuses. Counts its
+    calls in ``.calls`` (no card run of the MLA slice's main path takes
+    it)."""
+    mla_decode_composite.calls += 1
+    scores = (torch.einsum("bsnr,btr->bnst", q_eff, c_lat)
+              + torch.einsum("bsnd,btd->bnst", q_pe, c_pe)) * scale
+    scores = torch.where(vis[None, None], scores.float(),
+                         torch.tensor(-1e30, device=c_lat.device))
+    aw = torch.softmax(scores, dim=-1).to(c_lat.dtype)
+    return torch.einsum("bnst,btr->bsnr", aw, c_lat)
+
+
+mla_decode_composite.calls = 0
+
+
+def _mla_cached_step_body(cfg, max_len: int, moe_static=None,
+                          device: Optional[torch.device] = None):
+    """The MLA family's cached step (DeepSeek-V2), the JAX
+    ``_mla_cached_step_body``: a token's cache is its normalized latent
+    [r] and its rope key [dr], written into [B, total, r] / [B, total,
+    dr] caches in place. The prefill (a multi-token window at start 0)
+    runs the NON-absorbed form: kv_b expands the window's latents into
+    per-head k_nope / v once and attention goes through
+    `sdpa_padded_heads` (the flash route). Every other window runs the
+    absorbed form: kv_b's key half folds into the query (q_eff), the
+    attention reads the latent caches, and kv_b's value half maps the
+    latent read-out to v; its attention is ``mla_decode_attention`` (one
+    token a step, ``FLAGS_mla_decode_impl`` "fused", or "auto" where
+    `mla_kernel_eligible` takes the shape) or `mla_decode_composite`
+    ("xla"), the flag read once, here. On a CUDA ``device`` "auto"
+    takes the kernel or raises: the composite runs on the card only when
+    "xla" asks for it."""
+    from .flags import flag
+    from .models.deepseek import mla_rms
+    from .models.llama import apply_rope
+    from .ops.flash_attention import sdpa_padded_heads
+    from .ops.mla import mla_decode_attention, mla_kernel_eligible
+    nh = cfg.num_attention_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    eps = cfg.rms_norm_eps
+    scale = 1.0 / float(np.sqrt(dn + dr))
+    impl = flag("FLAGS_mla_decode_impl")
+    eligible = mla_kernel_eligible(nh, r, dr)
+    if impl == "auto" and not eligible and device is not None \
+            and torch.device(device).type == "cuda":
+        raise ValueError(
+            f"FLAGS_mla_decode_impl 'auto' on the card: "
+            f"mla_kernel_eligible({nh}, {r}, {dr}) refuses heads {nh}, "
+            f"kv_lora_rank {r}, qk_rope_head_dim {dr} (r in 32 .. 512 a "
+            "power of two, dr 32 or 64, an even nh up to 32); set 'xla' "
+            "to run the two-einsum composite")
+    fused = impl == "fused" or (impl == "auto" and eligible)
+
+    def rms(h, w):
+        return mla_rms(h, w, eps)
+
+    def step(w, ids, caches, start: int):
+        B, S = ids.shape
+        x = w["embed"][ids]
+        cos = w["cos"][start:start + S]
+        sin = w["sin"][start:start + S]
+        dev = x.device
+        pos_k = torch.arange(max_len, device=dev)
+        q_pos = start + torch.arange(S, device=dev)
+        vis = pos_k[None, :] <= q_pos[:, None]            # [S, max_len]
+        sts = moe_static or (None,) * len(w["layers"])
+        for L, (c_lat, c_pe), st in zip(w["layers"], caches, sts):
+            h = rms(x, L["ln1"])
+            if "gq" in L:                   # q-lora: two products, a norm
+                q = _mm_w(rms(_mm_w(h, L, "wqa"), L["gq"]), L, "wqb")
+            else:
+                q = _mm_w(h, L, "wq")
+            q = q.reshape(B, S, nh, dn + dr)
+            q_nope, q_pe = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+            kv_a = _mm_w(h, L, "wkva")                    # [B, S, r + dr]
+            lat = rms(kv_a[..., :r], L["gkv"])
+            k_pe = apply_rope(kv_a[..., r:][:, :, None, :], cos, sin)[:, :, 0]
+            c_lat[:, start:start + S] = lat
+            c_pe[:, start:start + S] = k_pe
+            if S > 1 and start == 0:
+                kv = (lat @ _dq(L, "wkvb", x.dtype)).reshape(B, S, nh,
+                                                             dn + dv)
+                k_h = torch.cat([kv[..., :dn], k_pe[:, :, None, :].expand(
+                    B, S, nh, dr)], -1)
+                q_h = torch.cat([q_nope, q_pe], -1)
+                o = sdpa_padded_heads(q_h, k_h, kv[..., dn:], causal=True,
+                                      scale=scale)
+            else:
+                wkb = _dq(L, "wkvb", x.dtype).reshape(r, nh, dn + dv)
+                w_k, w_v = wkb[..., :dn], wkb[..., dn:]
+                q_eff = torch.einsum("bsnd,rnd->bsnr", q_nope, w_k)
+                if fused and S == 1:
+                    lens = torch.full((B,), start + 1, dtype=torch.int32,
+                                      device=dev)
+                    o_lat = mla_decode_attention(
+                        q_eff[:, 0].contiguous(), q_pe[:, 0].contiguous(),
+                        c_lat, c_pe, lens, scale=scale)[:, None]
+                else:
+                    o_lat = mla_decode_composite(q_eff, q_pe, c_lat, c_pe,
+                                                 vis, scale)
+                o = torch.einsum("bsnr,rnv->bsnv", o_lat, w_v)
+            x = x + _mm_w(o.reshape(B, S, nh * dv), L, "wo")
+            h2 = rms(x, L["ln2"])
+            x = x + _ffn_apply(L, h2, st)
+        x = rms(x, w["norm"])
+        return _head(x[:, -1], w), caches
+
+    return step
+
+
 def _cached_step_body(p, max_len: int):
     if p["family"] == "gpt":
         return _gpt_cached_step_body(p["cfg"], max_len)
+    if p["family"] == "mla":
+        return _mla_cached_step_body(p["cfg"], max_len, p.get("moe_static"),
+                                     p["embed"].device)
     return _llama_cached_step_body(p["cfg"], max_len, p.get("moe_static"))
 
 
 def _kv_geometry(p):
-    """(KV heads, head dim) of a decode tree's cache: the gpt family's
-    cache has a KV head per query head (its config has no
-    num_key_value_heads)."""
+    """(KV heads, head dim) of a decode tree's paged cache: the gpt
+    family's cache has a KV head per query head (its config has no
+    num_key_value_heads); the MLA family's is one latent head of r + dr
+    (the [latent | rope key] row)."""
     cfg = p["cfg"]
     if p["family"] == "gpt":
         return cfg.num_attention_heads, cfg.head_dim
+    if p["family"] == "mla":
+        return 1, cfg.kv_lora_rank + cfg.qk_rope_head_dim
     return cfg.num_key_value_heads, cfg.head_dim
 
 
 def _init_caches(p, B: int, total: int):
-    """Zero KV caches [B, total, KV, D] per layer, in the weights' dtype
-    on their device."""
+    """Zero caches per layer, in the weights' dtype on their device: K / V
+    [B, total, KV, D], or the MLA family's latent [B, total, r] and rope
+    key [B, total, dr]."""
     emb = p["embed"]
+    kw = dict(dtype=emb.dtype, device=emb.device)
+    if p["family"] == "mla":
+        cfg = p["cfg"]
+        return [(torch.zeros(B, total, cfg.kv_lora_rank, **kw),
+                 torch.zeros(B, total, cfg.qk_rope_head_dim, **kw))
+                for _ in p["layers"]]
     shape = (B, total) + _kv_geometry(p)
-    return [(torch.zeros(shape, dtype=emb.dtype, device=emb.device),
-             torch.zeros(shape, dtype=emb.dtype, device=emb.device))
+    return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
             for _ in p["layers"]]
 
 
@@ -727,7 +916,9 @@ def generate_cached(model, input_ids, max_new_tokens: int = 20,
                     deadline_s: Optional[float] = None,
                     generator: Optional[torch.Generator] = None):
     """KV-cache generation for LlamaForCausalLM, Qwen2ForCausalLM,
-    GPTForCausalLM and MoEForCausalLM (routed dropless): prefill once
+    GPTForCausalLM, MoEForCausalLM (routed dropless) and
+    DeepSeekV2ForCausalLM (MLA; FLAGS_mla_decode_impl read once a call):
+    prefill once
     over the prompt, then O(1) work per new token. Returns (generated_ids,
     scores) as `generate` does, on the model's device; ``deadline_s`` as
     in `generate`. Greedy tokens equal `generate`'s under f32 (summation

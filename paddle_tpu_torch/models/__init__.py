@@ -1,5 +1,7 @@
 """Model families of the port (counterpart of paddle_tpu/models)."""
 
+from .deepseek import (DeepSeekV2Config, DeepSeekV2ForCausalLM,
+                       DeepSeekV2Model, deepseek_v2_tiny_config)
 from .ernie import Ernie45MoEForCausalLM, ernie45_moe_config
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel, gpt2_small_config,
                   gpt3_6_7b_config, gpt_tiny_config)
@@ -19,4 +21,5 @@ __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "Qwen2ForCausalLM", "qwen2_tiny_config", "MoEConfig",
            "MoEDecoderLayer", "MoEModel", "MoEForCausalLM",
            "qwen2_moe_tiny_config", "ernie45_moe_config",
-           "Ernie45MoEForCausalLM"]
+           "Ernie45MoEForCausalLM", "DeepSeekV2Config", "DeepSeekV2Model",
+           "DeepSeekV2ForCausalLM", "deepseek_v2_tiny_config"]

@@ -130,9 +130,19 @@ class MoEForCausalLM(nn.Module):
             generator = torch.Generator(device=dev).manual_seed(0)
         kw = dict(device=dev, dtype=dtype, generator=generator)
         self.config = config
-        self.model = MoEModel(config, **kw)
+        self.model = self._backbone(config, **kw)
         self.lm_head = Linear(config.hidden_size, config.vocab_size,
                               bias_attr=False, **kw)
+
+    def _backbone(self, config, **kw) -> nn.Module:
+        """The decoder stack under ``model`` (a family with other layers
+        overrides this)."""
+        return MoEModel(config, **kw)
+
+    def _aux_in_loss(self) -> bool:
+        """Whether a loss adds the router aux loss: whenever its weight
+        is set (the JAX MoEForCausalLM)."""
+        return bool(self.config.aux_loss_weight)
 
     def forward(self, input_ids, labels=None, attn_mask=None):
         """Logits [B, S, vocab]; with labels, (mean token loss + the
@@ -141,7 +151,7 @@ class MoEForCausalLM(nn.Module):
         if labels is not None:
             loss = ParallelCrossEntropy()(logits, labels).mean()
             aux = self.model.aux_loss()
-            if aux is not None and self.config.aux_loss_weight:
+            if aux is not None and self._aux_in_loss():
                 loss = loss + aux * self.config.aux_loss_weight
             return loss, logits
         return logits

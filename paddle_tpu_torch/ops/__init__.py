@@ -9,13 +9,16 @@ from .flash import (flash_kernel_eligible, flash_sdpa, flash_sdpa_bwd,
                     flash_sdpa_bwd_reference, flash_sdpa_reference)
 from .gmm import (gmm, gmm_dlhs, gmm_kernel_eligible, gmm_plain, tgmm,
                   tgmm_plain)
-from .fused import (fused_layer_norm, fused_rms_norm, fused_rope_append,
+from .fused import (append_rows_reference, fused_append_rows,
+                    fused_layer_norm, fused_rms_norm, fused_rope_append,
                     layer_norm_reference, rms_norm_reference,
                     rope_append_reference)
 from .megadecode import (fused_ffn, fused_oproj_norm, megadecode_eligible,
                          megadecode_ffn_reference, oproj_norm_reference)
 from .megafront import (fused_qkv_rope_append, megafront_eligible,
                         qkv_rope_append_reference)
+from .mla import (mla_decode_attention, mla_decode_reference,
+                  mla_kernel_eligible)
 from .oracles import oracles
 from .paged import (default_pages_per_group, paged_decode_attention,
                     paged_decode_attention_v2, paged_decode_reference,
@@ -23,7 +26,8 @@ from .paged import (default_pages_per_group, paged_decode_attention,
 # the router `paged_attention` stays in its module: exported here, the
 # function would shadow the submodule ``ops.paged_attention``
 from .paged_attention import append_to_cache, paged_attention_reference
-from .quant import (int4_planes, weight_dequantize, weight_only_linear,
+from .quant import (int4_dequantize, int4_dequantize_reference, int4_planes,
+                    weight_dequantize, weight_only_linear,
                     weight_only_linear_reference, weight_quantize)
 from .ragged import ragged_attention_reference, ragged_paged_attention
 
@@ -43,7 +47,10 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
            "weight_quantize", "weight_dequantize", "int4_planes",
            "weight_only_linear", "weight_only_linear_reference", "gmm",
            "gmm_plain", "gmm_dlhs", "tgmm", "tgmm_plain",
-           "gmm_kernel_eligible", "oracles",
+           "gmm_kernel_eligible", "fused_append_rows",
+           "append_rows_reference", "int4_dequantize",
+           "int4_dequantize_reference", "mla_decode_attention",
+           "mla_decode_reference", "mla_kernel_eligible", "oracles",
            "launch_counts", "reset_counts"]
 
 

@@ -41,7 +41,12 @@
 // hardware's ex2 (__expf: a few ulp of f32, far below the bf16 rounding of
 // p). f32 takes a scalar path on the CUDA cores (a warp
 // per row, D / 32 dimensions a lane, one warp sum per product), so the
-// card can be held to the plain f32 version at 2e-5. head_dim 64 or 128.
+// card can be held to the plain f32 version at 2e-5. head_dim 64 or 128;
+// the forward also 192 (the MLA prefill: DeepSeek-V2's q / k of 128 + 64,
+// v zero-padded to it by sdpa_padded_heads): its 64-key K / V tiles and
+// the Q tile take (64 + 4 x 64) rows x 400 bytes = 128 KB of dynamic
+// shared memory (the opt-in every head dim takes), and a warp's output
+// accumulator grows to 96 f32 registers. The backward stays at 64 / 128.
 // wgmma, TMA and a GQA-native K/V read are the redesign (ROADMAP queue R).
 
 #include "common.cuh"
@@ -755,6 +760,7 @@ int ptt_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   if (D == 64) return flash::fwd<64>(p, dtype == kBF16, st);
   if (D == 128) return flash::fwd<128>(p, dtype == kBF16, st);
+  if (D == 192) return flash::fwd<192>(p, dtype == kBF16, st);
   return (int)cudaErrorInvalidValue;
 }
 

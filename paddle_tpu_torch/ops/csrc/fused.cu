@@ -1,10 +1,11 @@
-// fused_rms_norm, fused_layer_norm and fused_rope_append for Hopper
-// (sm_90a).
+// fused_rms_norm, fused_layer_norm, fused_rope_append and
+// fused_append_rows for Hopper (sm_90a).
 //
 // Replaces:
 //   paddle_tpu/ops/fused.py:fused_rms_norm     (Pallas _rms_kernel)
 //   paddle_tpu/ops/fused.py:fused_layer_norm   (Pallas _ln_kernel)
 //   paddle_tpu/ops/fused.py:fused_rope_append  (Pallas _rope_append_kernel)
+//   paddle_tpu/ops/fused.py:fused_append_rows  (Pallas _append_rows_kernel)
 //
 // Bound on the H100 (3.35 TB/s HBM): both are memory-bound; they do a few
 // flops per byte.
@@ -13,6 +14,9 @@
 //   layer_norm:  the same plus the bias vector.
 //   rope_append: read q, k, v, cos, sin, page_idx, page_off; write q_roped
 //                and one K and one V row per token into the page pools.
+//   append_rows: read the rows once and write them once into the pools,
+//                2 * T * KV * D * itemsize bytes (the MLA step's 132 rows
+//                of 576 bf16: 0.30 MB, ~0.09 us).
 //
 // Design:
 //   rms_norm: one block per row, 16-byte vector loads and stores when the
@@ -34,6 +38,12 @@
 //   only the trash page 0 takes duplicate writes, whose content is garbage
 //   by contract. Page and offset are clamped into the pool, so a bad index
 //   cannot write outside it.
+//   append_rows: the same block per token, with no arithmetic: the
+//   block's threads copy its KV rows of D elements into their clamped
+//   (page, offset) slot in 16-byte pieces where the rows allow it
+//   (D * itemsize a multiple of 16 and both tensors 16-byte aligned:
+//   the MLA latent row of 576 bf16 is 72 pieces), element by element
+//   else. The pools are updated in place.
 
 #include "common.cuh"
 
@@ -244,6 +254,34 @@ __global__ void rope_append_kernel(
   }
 }
 
+template <typename T>
+__global__ void append_rows_kernel(T* __restrict__ pages,
+                                   const T* __restrict__ rows,
+                                   const int* __restrict__ page_idx,
+                                   const int* __restrict__ page_off, int KV,
+                                   int D, int P, int psz, int vec) {
+  const int t = blockIdx.x;
+  const int pg = min(max(page_idx[t], 0), P - 1);
+  const int off = min(max(page_off[t], 0), psz - 1);
+  if (vec) {
+    constexpr int VE = 16 / sizeof(T);
+    const int per = D / VE;
+    for (int i = threadIdx.x; i < KV * per; i += blockDim.x) {
+      const int h = i / per, c = (i - h * per) * VE;
+      *reinterpret_cast<uint4*>(pages + (((size_t)h * P + pg) * psz + off) *
+                                            D + c) =
+          *reinterpret_cast<const uint4*>(rows + ((size_t)t * KV + h) * D +
+                                          c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < KV * D; i += blockDim.x) {
+      const int h = i / D, j = i - h * D;
+      pages[(((size_t)h * P + pg) * psz + off) * D + j] =
+          rows[((size_t)t * KV + h) * D + j];
+    }
+  }
+}
+
 }  // namespace ptt
 
 using namespace ptt;
@@ -326,6 +364,30 @@ int ptt_rope_append(const void* q, const void* k, const void* v,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// pages [KV, P, psz, D], rows [T, KV, D], page_idx/page_off [T] int32; vec:
+// rows of whole 16-byte pieces on 16-byte boundaries -> pages updated in
+// place
+int ptt_append_rows(void* pages, const void* rows, const void* page_idx,
+                    const void* page_off, int T, int KV, int D, int P,
+                    int psz, int vec, int dtype, int device, void* stream) {
+  PTT_SET_DEVICE(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T == 0) return (int)cudaSuccess;
+  const int* pi = static_cast<const int*>(page_idx);
+  const int* po = static_cast<const int*>(page_off);
+  if (dtype == kF32)
+    append_rows_kernel<float><<<T, 128, 0, st>>>(
+        static_cast<float*>(pages), static_cast<const float*>(rows), pi, po,
+        KV, D, P, psz, vec);
+  else if (dtype == kBF16)
+    append_rows_kernel<__nv_bfloat16><<<T, 128, 0, st>>>(
+        static_cast<__nv_bfloat16*>(pages),
+        static_cast<const __nv_bfloat16*>(rows), pi, po, KV, D, P, psz, vec);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

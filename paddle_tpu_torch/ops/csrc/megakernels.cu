@@ -14,10 +14,20 @@
 //     gate/up GEMM, silu(g) * u (or one gate GEMM + b1, gelu(g)), down
 //     GEMM, b2, residual;
 //   paddle_tpu/ops/quant.py:weight_only_linear
-//     (Pallas _wol_kernel, _wol4_kernel): x @ dequant(W) * scale.
-// The MLA layout is not here.
+//     (Pallas _wol_kernel, _wol4_kernel): x @ dequant(W) * scale;
+//   paddle_tpu/ops/pallas_megafront.py:fused_qkv_rope_append, MLA layout
+//     (Pallas _mla_qkv_rope_append_kernel, fp and int8): [q | kv_a] GEMM,
+//     rope on the q tails and k_pe, the latent's RMSNorm, the [latent |
+//     k_pe] row into one pool (its finisher below);
+//   paddle_tpu/ops/quant.py:int4_dequantize (Pallas _dq4_kernel): packed
+//     int4 [K/2, N] + scale -> f32 [K, N], with the GEMM loader's nibble
+//     decode (snib), so both read the packing the same way.
 //
-// Bound on the H100: at the serving step's shapes (T = 132 token rows,
+// Bound on the H100: int4_dequantize moves K/2 * N bytes in and 4 K N out
+// (DeepSeek-V2's kv_b [512, 4096]: 1 MB in, 8.4 MB out, 2.8 us at 3.35
+// TB/s); the MLA site is bound like the qkv site, by its weight bytes
+// (DeepSeek-V2-Lite's [2048, 3648] slab: 14.9 MB bf16, 4.5 us; int8 half).
+// At the serving step's shapes (T = 132 token rows,
 // Llama-3-8B) the bf16 sites are bound by their weight bytes at 3.35 TB/s:
 // qkv 50.3 MB (0.0150 ms), o-proj 33.6 MB (0.0100 ms), FFN 352 MB
 // (0.105 ms); their bf16 tensor-core work (2 * T * K * N per product at
@@ -763,6 +773,93 @@ __global__ void residual_finalize_kernel(const float* partial, int splits,
   }
 }
 
+// The MLA site's finisher, one block per token row t (the latent's norm
+// reduces over r columns that span several GEMM column tiles): the row's
+// summed, scaled partials [q heads | latent | k_pe] land in shared memory
+// as f32; q's nope dims are stored as they are and its rope tail (dims dn
+// .. dn + dr of each head, half-split pairs j, j + dr / 2) and k_pe are
+// roped on the f32 sums; the latent is normed in _rms_kernel's op order,
+// (lat * rsqrt(mean(lat^2) + eps)) * g, on the f32 sum (never a rounded
+// copy); q goes to q_out [T, nh, dn + dr] and [latent | k_pe] to the
+// pool [1, P, psz, r + dr] at the clamped page and offset.
+template <typename T>
+__global__ void mla_finalize_kernel(const float* partial, int splits,
+                                    const float* scale, const float* cosv,
+                                    const float* sinv, const float* g,
+                                    const int* page_idx, const int* page_off,
+                                    T* q_out, T* pool, int M, int nh, int dn,
+                                    int dr, int r, int P, int psz,
+                                    float eps) {
+  extern __shared__ float row[];  // [N]
+  __shared__ float red[33];
+  const int t = blockIdx.x;
+  const int dh = dn + dr, nq = nh * dh, N = nq + r + dr, d2 = dr / 2;
+  const size_t total = (size_t)M * N, base = (size_t)t * N;
+  float ss = 0.f;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float v = partial[base + n];
+    for (int z = 1; z < splits; ++z) v += partial[z * total + base + n];
+    if (scale) v *= scale[n];
+    row[n] = v;
+    if (n >= nq && n < nq + r) ss += v * v;
+  }
+  const float rinv = rsqrtf(block_sum(ss, red) / (float)r + eps);
+  const float* c = cosv + (size_t)t * d2;
+  const float* sn = sinv + (size_t)t * d2;
+  for (int i = threadIdx.x; i < nq; i += blockDim.x) {
+    const int h = i / dh, j = i - h * dh;
+    const float* x = row + h * dh + dn;  // the head's rope tail
+    float y;
+    if (j < dn) {
+      y = row[i];
+    } else if (j - dn < d2) {
+      const int k = j - dn;
+      y = x[k] * c[k] - x[k + d2] * sn[k];
+    } else {
+      const int k = j - dn - d2;
+      y = x[k + d2] * c[k] + x[k] * sn[k];
+    }
+    q_out[(size_t)t * nq + i] = from_f32<T>(y);
+  }
+  const int pg = min(max(page_idx[t], 0), P - 1);
+  const int off = min(max(page_off[t], 0), psz - 1);
+  T* dst = pool + ((size_t)pg * psz + off) * (r + dr);
+  const float* kpe = row + nq + r;
+  for (int i = threadIdx.x; i < r + dr; i += blockDim.x) {
+    float y;
+    if (i < r) {
+      y = row[nq + i] * rinv * g[i];
+    } else if (i - r < d2) {
+      const int k = i - r;
+      y = kpe[k] * c[k] - kpe[k + d2] * sn[k];
+    } else {
+      const int k = i - r - d2;
+      y = kpe[k + d2] * c[k] + kpe[k] * sn[k];
+    }
+    dst[i] = from_f32<T>(y);
+  }
+}
+
+// One thread per packed byte (i, n) of int4_dequantize: source rows 2i
+// (low nibble) and 2i + 1 (high nibble), sign-extended by snib, times the
+// f32 scale: an exact int times an f32, rounded once, as
+// weight_dequantize's int4 route does, so card and CPU agree bit for bit.
+__global__ void int4_dequantize_kernel(const signed char* __restrict__ qw,
+                                       const float* __restrict__ scale,
+                                       float* __restrict__ out, int K2,
+                                       int N) {
+  const size_t total = (size_t)K2 * N;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t k = i / N;
+    const int n = (int)(i - k * N);
+    const unsigned v = (unsigned char)qw[i];
+    const float s = scale[n];
+    out[2 * k * N + n] = (float)snib(v) * s;
+    out[(2 * k + 1) * N + n] = (float)snib(v >> 4) * s;
+  }
+}
+
 static int grid_for(size_t work) {
   return (int)std::min<size_t>((work + 255) / 256, 4096);
 }
@@ -778,6 +875,24 @@ static int qkv(const Args& p, int splits, int wq, const float* cosv,
   qkv_finalize_kernel<T><<<grid_for((size_t)p.M * p.N / 2), 256, 0, st>>>(
       p.partial, splits, p.scale[0], p.bias, cosv, sinv, pg, off, q_out, kp,
       vp, p.M, heads, kv_heads, D, P, psz);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int mla_qkv(const Args& p, int splits, int wq, const float* cosv,
+                   const float* sinv, const float* g, const int* pg,
+                   const int* off, T* q_out, T* pool, int nh, int dn, int dr,
+                   int r, int P, int psz, float eps, cudaStream_t st) {
+  cudaError_t e = launch_gemm_w<T, 1, kEpiPartial>(p, splits, wq, st);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)p.N * sizeof(float);
+  e = cudaFuncSetAttribute(mla_finalize_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  mla_finalize_kernel<T><<<p.M, 256, smem, st>>>(
+      p.partial, splits, p.scale[0], cosv, sinv, g, pg, off, q_out, pool,
+      p.M, nh, dn, dr, r, P, psz, eps);
   return (int)cudaGetLastError();
 }
 
@@ -911,6 +1026,65 @@ int ptt_qkv_rope_append(const void* h, const void* w, const void* scale,
                            static_cast<bf16*>(v_pages), heads, kv_heads, D, P,
                            psz, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The MLA site: h [T, H]; w [H, N] (fp or int8; N = heads (dn + dr) + r +
+// dr, columns [q | kv_a]); scale [N] f32 (int8) or null; cos/sin [T, dr/2]
+// f32; g [r] f32 (the latent norm's weight); pool [1, P, psz, r + dr];
+// page_idx/page_off [T] int32; partial [splits, T, N] f32 workspace ->
+// q_out [T, heads, dn + dr]; the [latent | k_pe] rows into the pool in
+// place. No packed int4 site, as in the JAX package.
+int ptt_mla_qkv_rope_append(const void* h, const void* w, const void* scale,
+                            const void* cosv, const void* sinv,
+                            const void* g, void* pool, const void* page_idx,
+                            const void* page_off, void* q_out, void* partial,
+                            int T, int H, int heads, int dn, int dr, int r,
+                            int P, int psz, int kc_split, int splits,
+                            float eps, int wfmt, int dtype, int device,
+                            void* stream) {
+  PTT_SET_DEVICE(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T == 0) return (int)cudaSuccess;
+  if (dr < 2 || dr % 2 || r < 1 || wfmt == mega::kWInt4)
+    return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.a = h;
+  p.M = T;
+  p.N = heads * (dn + dr) + r + dr;
+  p.K = H;
+  if (!mega::set_weights(p, wfmt, 1, &w, &scale))
+    return (int)cudaErrorInvalidValue;
+  p.kc_split = kc_split;
+  p.partial = static_cast<float*>(partial);
+  const float* c = static_cast<const float*>(cosv);
+  const float* s = static_cast<const float*>(sinv);
+  const float* gn = static_cast<const float*>(g);
+  const int* pg = static_cast<const int*>(page_idx);
+  const int* off = static_cast<const int*>(page_off);
+  if (dtype == kF32)
+    return mega::mla_qkv<float>(p, splits, wfmt, c, s, gn, pg, off,
+                                static_cast<float*>(q_out),
+                                static_cast<float*>(pool), heads, dn, dr, r,
+                                P, psz, eps, st);
+  if (dtype == kBF16)
+    return mega::mla_qkv<bf16>(p, splits, wfmt, c, s, gn, pg, off,
+                               static_cast<bf16*>(q_out),
+                               static_cast<bf16*>(pool), heads, dn, dr, r, P,
+                               psz, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// qw packed int4 [K2, N] (int8 bytes), scale [N] f32 -> out f32 [2 K2, N]
+int ptt_int4_dequantize(const void* qw, const void* scale, void* out, int K2,
+                        int N, int device, void* stream) {
+  PTT_SET_DEVICE(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K2 == 0 || N == 0) return (int)cudaSuccess;
+  mega::int4_dequantize_kernel<<<mega::grid_for((size_t)K2 * N), 256, 0,
+                                 st>>>(
+      static_cast<const signed char*>(qw), static_cast<const float*>(scale),
+      static_cast<float*>(out), K2, N);
+  return (int)cudaGetLastError();
 }
 
 // o [T, Ko]; x [T, H]; w [Ko, H] (int4 [Ko/2, H]); scale [H] f32 or null;

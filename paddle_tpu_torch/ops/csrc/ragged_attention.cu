@@ -32,17 +32,35 @@
 // loads are conflict-free), keeps the scores of a 32-key chunk one per
 // lane, and updates an f32 online softmax per row. Each page is read once
 // per block from HBM/L2 and used by all 16 rows of the tile.
+//
+// The MLA engine (DeepSeek-V2) runs this kernel over ONE latent pool per
+// layer: KV = 1 head of D = r + dr = 576 (the [latent | rope key] row),
+// rep = 16 query heads, and the same pool as K and V. Two things change
+// at that width. (1) Staging: two f32 pages of 16 x 576 are 73.7 KB, over
+// the 48 KB a block gets without opting in; when k_pages and v_pages are
+// the same tensor the block stages each page ONCE and reads it as both
+// (36.9 KB), and any staging above 48 KB takes the dynamic shared-memory
+// opt-in (up to the 227 KB a block may use): the wrapper sizes its gate
+// from exactly these bytes. (2) Registers: 4 rows a warp would hold
+// 2 x 4 x 18 f32 of q and of the accumulator a lane; at D > 256 a block
+// is 8 warps of 2 rows each instead (the same 16 rows a block, 72 f32 a
+// lane).
 
 #include "common.cuh"
 
 namespace ptt {
 
-constexpr int kWarps = 4;                 // warps per block
-constexpr int kRowsPerWarp = 4;           // query rows per warp
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
+constexpr int kRows = 16;  // query rows per block: kWarps x kRowsPerWarp
+
+// (warps, rows a warp) of a block for DPL dims a lane
+template <int DPL>
+struct RowSplit {
+  static constexpr int kWarps = DPL > 8 ? 8 : 4;
+  static constexpr int kRowsPerWarp = kRows / kWarps;
+};
 
 template <typename T, int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(RowSplit<DPL>::kWarps * 32)
 ragged_attention_kernel(const T* __restrict__ q,
                         const T* __restrict__ k_pages,
                         const T* __restrict__ v_pages,
@@ -50,8 +68,11 @@ ragged_attention_kernel(const T* __restrict__ q,
                         const int* __restrict__ num_tokens,
                         const int* __restrict__ kv_lengths,
                         const int* __restrict__ tables, T* __restrict__ out,
-                        int H, int KV, int P, int psz, int nj, float scale) {
+                        int H, int KV, int P, int psz, int nj, float scale,
+                        int same_pool) {
   constexpr int D = 32 * DPL;
+  constexpr int kWarps = RowSplit<DPL>::kWarps;
+  constexpr int kRowsPerWarp = RowSplit<DPL>::kRowsPerWarp;
   const int g = blockIdx.y, i = blockIdx.z;
   const int rep = H / KV;
   const int nt = num_tokens[i];
@@ -63,8 +84,8 @@ ragged_attention_kernel(const T* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   extern __shared__ float smem[];
-  float* ks = smem;             // [psz][D]
-  float* vs = smem + psz * D;   // [psz][D]
+  float* ks = smem;                           // [psz][D]
+  float* vs = same_pool ? smem : smem + psz * D;  // [psz][D]
 
   float qv[kRowsPerWarp][DPL], acc[kRowsPerWarp][DPL];
   float m[kRowsPerWarp], l[kRowsPerWarp];
@@ -102,7 +123,7 @@ ragged_attention_kernel(const T* __restrict__ q,
     __syncthreads();  // the previous page is consumed by every warp
     for (int e = threadIdx.x; e < psz * D; e += blockDim.x) {
       ks[e] = to_f32(k_pages[pbase + e]);
-      vs[e] = to_f32(v_pages[pbase + e]);
+      if (!same_pool) vs[e] = to_f32(v_pages[pbase + e]);
     }
     __syncthreads();
     const int page_pos = j * psz;
@@ -158,11 +179,18 @@ static int launch_ragged(const void* q, const void* kp, const void* vp,
   constexpr int D = 32 * DPL;
   const int rep = H / KV;
   dim3 grid((T_rows * rep + kRows - 1) / kRows, KV, S);
-  const size_t smem = (size_t)2 * psz * D * sizeof(float);
-  ragged_attention_kernel<T, DPL><<<grid, kWarps * 32, smem, st>>>(
+  const int same = kp == vp;
+  const size_t smem = (size_t)(same ? 1 : 2) * psz * D * sizeof(float);
+  auto kern = ragged_attention_kernel<T, DPL>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, RowSplit<DPL>::kWarps * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), ss, nt, kvl, tab, static_cast<T*>(out), H,
-      KV, P, psz, nj, scale);
+      KV, P, psz, nj, scale, same);
   return (int)cudaGetLastError();
 }
 
@@ -185,6 +213,9 @@ static int dispatch_d(int D, const void* q, const void* kp, const void* vp,
     case 256:
       return launch_ragged<T, 8>(q, kp, vp, ss, nt, kvl, tab, out, T_rows, H,
                                  KV, P, psz, S, nj, scale, st);
+    case 576:  // the MLA latent row, r + dr = 512 + 64
+      return launch_ragged<T, 18>(q, kp, vp, ss, nt, kvl, tab, out, T_rows,
+                                  H, KV, P, psz, S, nj, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

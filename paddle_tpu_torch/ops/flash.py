@@ -12,6 +12,10 @@ dkv kernels. On CPU tensors it runs the plain version
 `flash_sdpa_reference`, which autograd differentiates. A CUDA tensor
 launches the kernels or raises; nothing falls back.
 
+The forward takes head_dim 64, 128 and 192 (the MLA prefill), the
+backward 64 and 128 (`BWD_HEAD_DIMS`; 192 raises, naming its ROADMAP
+item).
+
 A row that sees no key comes out as zeros (lse = +1e30), where a dense
 softmax would average v; its gradients are zero, never NaN.
 
@@ -35,17 +39,30 @@ __all__ = ["flash_sdpa", "flash_sdpa_bwd", "flash_sdpa_reference",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NEG = -1e30
-#: head dims the kernels are built for
-HEAD_DIMS = (64, 128)
+#: head dims the forward kernel is built for (192: the MLA prefill's
+#: q / k of DeepSeek-V2, dn + dr = 128 + 64, v padded to it)
+HEAD_DIMS = (64, 128, 192)
+#: head dims the backward kernels are built for; 192 (MLA training) is
+#: ROADMAP.md queue A item 5c's rest
+BWD_HEAD_DIMS = (64, 128)
 
 
 def flash_kernel_eligible(Sq: int, Sk: int, D: int, block_q: int = 128,
                           block_k: int = 128) -> bool:
-    """Shapes the Hopper kernels take: head_dim 64 or 128 and at least one
-    row and one key. The kernels mask their ragged tiles, so no length
+    """Shapes the Hopper forward kernel takes: head_dim 64, 128 or 192
+    and at least one row and one key (the backward takes 64 and 128:
+    `flash_sdpa_bwd`). The kernels mask their ragged tiles, so no length
     needs to divide a block; `block_q` / `block_k` are the TPU's tiling and
     are accepted for the JAX signature only."""
     return Sq >= 1 and Sk >= 1 and D in HEAD_DIMS
+
+
+def _refuse_bwd_dim(D: int) -> None:
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f"flash_sdpa_bwd: head_dim {D} has a forward kernel only; the "
+            f"backward takes {BWD_HEAD_DIMS} (head_dim 192, MLA training, is "
+            f"ROADMAP.md queue A item 5c's rest)")
 
 
 def _segments(B, Sq, Sk, segment_ids_q, segment_ids_kv, device):
@@ -188,7 +205,9 @@ def flash_sdpa_bwd(q, k, v, o, lse, do, causal: bool = False,
     the forward's output `o` and its f32 logsumexp `lse` [B, H, Sq]. On
     CUDA: one call launches the di pre-pass, the dq kernel and the dkv
     kernel; on CPU tensors the plain version (autograd of
-    `flash_sdpa_reference`; `o` and `lse` unused)."""
+    `flash_sdpa_reference`; `o` and `lse` unused). A head_dim outside
+    BWD_HEAD_DIMS raises on every device."""
+    _refuse_bwd_dim(q.shape[-1])
     if q.device.type == "cpu":
         flash_sdpa_bwd.plain_calls += 1
         return flash_sdpa_bwd_reference(q, k, v, do, causal, segment_ids_q,

@@ -4,7 +4,8 @@
 kernel (`flash.flash_sdpa`) where its gate holds, a boolean key-padding
 mask through the same kernel's segment ids, and everything else to the
 dense composite `sdpa_reference`, as the JAX package routes. The gate is
-Hopper's (`flash.flash_kernel_eligible`: head_dim 64 or 128, any length)
+Hopper's (`flash.flash_kernel_eligible`: head_dim 64, 128 or 192, any
+length)
 in place of the TPU's (a TPU backend and 128-divisible lengths), and it
 holds on the CPU too: there the flash wrapper runs its plain version.
 Where some key is visible to a row the routes agree; a row that sees no
@@ -20,11 +21,11 @@ from typing import Dict, Optional
 
 import torch
 
-from .flash import flash_kernel_eligible, flash_sdpa
+from .flash import HEAD_DIMS, flash_kernel_eligible, flash_sdpa
 
 __all__ = ["sdpa_reference", "sdpa", "sdpa_path", "sdpa_segmented",
-           "sdpa_prefill", "flash_attention", "route_counts",
-           "reset_route_counts"]
+           "sdpa_prefill", "sdpa_padded_heads", "flash_attention",
+           "route_counts", "reset_route_counts"]
 
 _NEG = -1e30
 
@@ -169,6 +170,29 @@ def sdpa_prefill(q, k, v, *, causal: bool = True,
     masks ragged tiles itself (any length), so here every prompt goes
     straight to `sdpa` and ``pad_to_flash_min`` has no counterpart."""
     return sdpa(q, k, v, causal=causal, scale=scale)
+
+
+def sdpa_padded_heads(q, k, v, *, causal: bool = True,
+                      scale: Optional[float] = None):
+    """SDPA for MLA heads whose q / k head dim differs from the v head dim
+    (DeepSeek-V2: dn + dr = 192 against dv = 128). q / k and v are
+    zero-padded to the smallest head dim of `flash.HEAD_DIMS` that holds
+    both (192 for DeepSeek-V2, 64 for the tiny configs), which preserves
+    every score (a padded dim adds 0 to each logit) and every output (a
+    padded v dim yields zeros, sliced off), so the prefill takes the flash
+    route. The JAX package pads to the next multiple of 128 for the TPU's
+    lanes; the Hopper kernel takes 192 as it is. ``scale`` must be the
+    caller's true 1 / sqrt(d_qk); the default is q's unpadded dim's."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if scale is None:
+        scale = D ** -0.5
+    Dp = next((d for d in HEAD_DIMS if d >= max(D, Dv)), max(D, Dv))
+    if D != Dp:
+        q = torch.nn.functional.pad(q, (0, Dp - D))
+        k = torch.nn.functional.pad(k, (0, Dp - D))
+    if Dv != Dp:
+        v = torch.nn.functional.pad(v, (0, Dp - Dv))
+    return sdpa_prefill(q, k, v, causal=causal, scale=scale)[..., :Dv]
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

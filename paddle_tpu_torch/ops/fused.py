@@ -1,11 +1,12 @@
-"""RMSNorm, LayerNorm and rope + paged append (counterpart of
-paddle_tpu/ops/fused.py).
+"""RMSNorm, LayerNorm, rope + paged append and the paged row append
+(counterpart of paddle_tpu/ops/fused.py).
 
-``fused_rms_norm``, ``fused_layer_norm`` and ``fused_rope_append``
-launch the hand-written CUDA kernels of ``csrc/fused.cu`` on CUDA
-tensors and run their plain PyTorch versions (``rms_norm_reference``,
-``layer_norm_reference``, ``rope_append_reference``, from
-paddle_tpu/ops/references.py) on CPU tensors. A CUDA tensor launches the
+``fused_rms_norm``, ``fused_layer_norm``, ``fused_rope_append`` and
+``fused_append_rows`` launch the hand-written CUDA kernels of
+``csrc/fused.cu`` on CUDA tensors and run their plain PyTorch versions
+(``rms_norm_reference``, ``layer_norm_reference``,
+``rope_append_reference``, from paddle_tpu/ops/references.py, and
+``append_rows_reference``) on CPU tensors. A CUDA tensor launches the
 kernel or raises; nothing falls back. Each wrapper counts its kernel
 launches in ``.launches`` and its plain-version calls in
 ``.plain_calls``.
@@ -22,7 +23,8 @@ from .oracles import register_oracle
 
 __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
            "layer_norm_reference", "fused_rope_append",
-           "rope_append_reference"]
+           "rope_append_reference", "fused_append_rows",
+           "append_rows_reference"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -198,6 +200,60 @@ fused_rope_append.launches = 0
 fused_rope_append.plain_calls = 0
 
 
+# ---------------------------------------------------------------------------
+# paged row append (the MLA engine's latent rows)
+# ---------------------------------------------------------------------------
+
+def append_rows_reference(pages, rows, page_idx, page_off):
+    """Plain version of `fused_append_rows` (same in-place contract)."""
+    P, psz = pages.shape[1], pages.shape[2]
+    pg = page_idx.long().clamp(0, P - 1)
+    off = page_off.long().clamp(0, psz - 1)
+    pages[:, pg, off, :] = rows.to(pages.dtype).transpose(0, 1)
+    return pages
+
+
+def fused_append_rows(pages, rows, page_idx, page_off):
+    """Scatter per-token cache rows [T, KV, D] into the paged pools
+    [KV, total_pages, page_size, D] at (page_idx[t], page_off[t]), both
+    clamped into the pool (idle rows land on the trash page 0, where
+    duplicates are allowed). The MLA engine's latent-row append: its rope
+    runs on the split q_pe / k_pe shapes before the rows are
+    concatenated. Returns ``pages``, the SAME tensor, updated in place
+    (the JAX kernel aliased it through input_output_aliases)."""
+    if pages.device.type == "cpu":
+        fused_append_rows.plain_calls += 1
+        return append_rows_reference(pages, rows, page_idx, page_off)
+    name = "fused_append_rows"
+    rows = rows.contiguous()
+    dev = _build.require_cuda(name, pages, rows)
+    T, KV, D = rows.shape
+    P, psz = pages.shape[1], pages.shape[2]
+    if pages.shape != (KV, P, psz, D):
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} into pages "
+                         f"{tuple(pages.shape)}")
+    if rows.dtype != pages.dtype:
+        raise TypeError(f"{name}: rows and pages share one dtype")
+    pg = _build.index32(name, page_idx, dev)
+    off = _build.index32(name, page_off, dev)
+    if pg.shape != (T,) or off.shape != (T,):
+        raise ValueError(f"{name}: page_idx/page_off must be [T={T}]")
+    row_bytes = D * rows.element_size()
+    vec = int(row_bytes % 16 == 0 and rows.data_ptr() % 16 == 0
+              and pages.data_ptr() % 16 == 0)
+    fn = _build.kernel("ptt_append_rows", [_P] * 4 + [_I] * 8 + [_P])
+    err = fn(pages.data_ptr(), rows.data_ptr(), pg.data_ptr(),
+             off.data_ptr(), T, KV, D, P, psz, vec, _build.dtype_code(rows),
+             dev.index or 0, _build.stream(rows))
+    _build.check(name, err)
+    fused_append_rows.launches += 1
+    return pages
+
+
+fused_append_rows.launches = 0
+fused_append_rows.plain_calls = 0
+
+
 register_oracle(
     "fused_rms_norm", kernel=fused_rms_norm, reference=rms_norm_reference,
     parity_test="tests/test_torch_ops.py::TestRmsNormParity")
@@ -209,3 +265,7 @@ register_oracle(
     "fused_rope_append", kernel=fused_rope_append,
     reference=rope_append_reference,
     parity_test="tests/test_torch_ops.py::TestRopeAppendParity")
+register_oracle(
+    "fused_append_rows", kernel=fused_append_rows,
+    reference=append_rows_reference,
+    parity_test="tests/test_torch_deepseek.py::TestAppendRowsParity")

@@ -19,8 +19,13 @@ launches the kernel or raises; nothing falls back. The wrapper counts
 ``.launches`` and ``.plain_calls``. Its gradient in x is the JAX custom
 VJP's plain formula ``g @ dequant(W)^T`` (not a kernel in JAX either).
 
-``int4_dequantize`` (the MLA absorbed kv_b's whole read) is ROADMAP.md
-queue B, with the MLA slice.
+``int4_dequantize`` (packed int4 [K/2, N] + scale [N] -> f32 [K, N],
+the MLA absorbed kv_b's whole read) launches its CUDA kernel of
+``csrc/megakernels.cu``, beside the int4 GEMM loader so that the nibble
+order and the sign extension have one source, and runs
+``int4_dequantize_reference`` (``weight_dequantize``'s int4 route) on CPU
+tensors; the two agree bit for bit. It counts ``.launches`` and
+``.plain_calls``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from .oracles import register_oracle
 
 __all__ = ["weight_quantize", "weight_dequantize", "int4_planes",
            "weight_only_linear", "weight_only_linear_reference",
-           "dequant_matmul_f32", "ALGOS"]
+           "dequant_matmul_f32", "int4_dequantize",
+           "int4_dequantize_reference", "ALGOS"]
 
 INT8, INT4 = "weight_only_int8", "weight_only_int4"
 ALGOS = (INT8, INT4)
@@ -93,6 +99,45 @@ def weight_dequantize(qw, scale, algo: str = INT8):
     lo, hi = int4_planes(qw)
     K2, N = qw.shape
     return torch.stack([lo, hi], dim=1).reshape(2 * K2, N).float() * s
+
+
+def int4_dequantize_reference(qw, scale):
+    """Plain version of `int4_dequantize`: ``weight_dequantize(qw, scale,
+    "weight_only_int4")``."""
+    return weight_dequantize(qw, scale, INT4)
+
+
+def int4_dequantize(qw, scale):
+    """Packed int4 [K/2, N] + per-column scale [N] -> the f32 weight
+    [K, N] (source rows 2i and 2i + 1 from the low and high nibble of byte
+    row i, sign-extended, times the f32 scale), exactly
+    ``weight_dequantize(qw, scale, "weight_only_int4")``. For consumers
+    that read a weight WHOLE and reshape it (the MLA absorbed kv_b). Any
+    N: nothing is padded on the card."""
+    if qw.device.type == "cpu":
+        int4_dequantize.plain_calls += 1
+        return int4_dequantize_reference(qw, scale)
+    name = "int4_dequantize"
+    scale = scale.reshape(-1).float().contiguous()
+    dev = _build.require_cuda(name, qw, scale)
+    K2, N = qw.shape
+    if qw.dtype != torch.int8 or scale.shape != (N,):
+        raise TypeError(f"{name}: packed int8 [K/2, N] and an [N] scale, "
+                        f"got {qw.dtype} {tuple(qw.shape)} and "
+                        f"{tuple(scale.shape)}")
+    out = torch.empty(2 * K2, N, dtype=torch.float32, device=dev)
+    if K2 == 0 or N == 0:
+        return out
+    fn = _build.kernel("ptt_int4_dequantize", [_P] * 3 + [_I] * 3 + [_P])
+    err = fn(qw.data_ptr(), scale.data_ptr(), out.data_ptr(), K2, N,
+             dev.index or 0, _build.stream(qw))
+    _build.check(name, err)
+    int4_dequantize.launches += 1
+    return out
+
+
+int4_dequantize.launches = 0
+int4_dequantize.plain_calls = 0
 
 
 def dequant_matmul_f32(x2, w, scale, algo: Optional[str]):
@@ -206,3 +251,7 @@ register_oracle(
     "weight_only_linear", kernel=weight_only_linear,
     reference=weight_only_linear_reference,
     parity_test="tests/test_torch_quant.py::TestWeightOnlyLinearParity")
+register_oracle(
+    "int4_dequantize", kernel=int4_dequantize,
+    reference=int4_dequantize_reference,
+    parity_test="tests/test_torch_deepseek.py::TestInt4DequantizeParity")

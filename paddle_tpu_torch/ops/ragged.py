@@ -16,7 +16,9 @@ q [T, H, D] with per-sequence row tables:
 
 Local token t of sequence i attends KV positions
 0 .. kv_lengths[i] - num_tokens[i] + t. Query head h reads KV head
-h // (H // KV) (GQA). `ragged_paged_attention` launches the hand-written
+h // (H // KV) (GQA). The MLA engine passes its one latent pool as both
+k_pages and v_pages (KV 1, D = r + dr = 576, H = rep = 16 at DeepSeek-V2)
+and reads the output's first r dims. `ragged_paged_attention` launches the hand-written
 CUDA kernel of ``csrc/ragged_attention.cu`` on CUDA tensors and runs the
 plain version `ragged_attention_reference` on CPU tensors; it counts
 ``.launches`` and ``.plain_calls``.
@@ -36,8 +38,19 @@ __all__ = ["ragged_paged_attention", "ragged_attention_reference"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NEG = -1e30
-#: shared memory a block stages one K and one V page in, as f32
-_SMEM_LIMIT = 48 * 1024
+#: head dims the kernel is built for (576: the MLA latent row, r + dr =
+#: 512 + 64 of DeepSeek-V2, over one KV head)
+HEAD_DIMS = (32, 64, 128, 256, 576)
+#: shared memory a block may use (the H100's 227 KB, past the 48 KB
+#: default through the dynamic opt-in the kernel takes)
+_SMEM_LIMIT = 232448
+
+
+def staging_bytes(page_size: int, head_dim: int, same_pool: bool) -> int:
+    """Shared memory a block of the kernel stages a page in: one f32 K and
+    one f32 V page, or one page read as both when the K and V pools are the
+    same tensor (the MLA engine's one latent pool)."""
+    return (1 if same_pool else 2) * page_size * head_dim * 4
 
 
 def ragged_attention_reference(q, k_pages, v_pages, seq_start, num_tokens,
@@ -96,14 +109,16 @@ def ragged_paged_attention(q, k_pages, v_pages, seq_start, num_tokens,
     T, H, D = q.shape
     KV, P, psz, Dk = k_pages.shape
     if (Dk != D or v_pages.shape != k_pages.shape or H % KV
-            or D not in (32, 64, 128, 256)):
+            or D not in HEAD_DIMS):
         raise ValueError(
             f"{name}: q {tuple(q.shape)}, pages {tuple(k_pages.shape)}/"
             f"{tuple(v_pages.shape)}; needs H % KV == 0 and D in "
-            f"32/64/128/256")
-    if 2 * psz * D * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{name}: page_size {psz} x head_dim {D} exceeds "
-                         f"the kernel's {_SMEM_LIMIT}-byte staging tile")
+            f"{HEAD_DIMS}")
+    same = k_pages.data_ptr() == v_pages.data_ptr()
+    if staging_bytes(psz, D, same) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: page_size {psz} x head_dim {D} stages "
+                         f"{staging_bytes(psz, D, same)} bytes, over the "
+                         f"{_SMEM_LIMIT} a block may use")
     if len({q.dtype, k_pages.dtype, v_pages.dtype}) != 1:
         raise TypeError(f"{name}: q and the pools share one dtype")
     ss = _build.index32(name, seq_start, dev)

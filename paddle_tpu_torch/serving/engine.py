@@ -1,6 +1,7 @@
 """Continuous-batching serving engine over the paged KV cache
 (counterpart of paddle_tpu/serving/engine.py: the llama family, with
-Qwen2's q/k/v biases, the gpt family and the MoE family).
+Qwen2's q/k/v biases, the gpt family, the MoE family and the MLA
+family).
 
 Two dispatch paths, as in the JAX engine:
 
@@ -63,7 +64,8 @@ their whole page table at the allocator's trash page 0 with
 length/num_tokens 0: they write their (garbage) K/V into the trash page
 and their logits are ignored on the host.
 
-The page pools are persistent device tensors, one (K, V) pair per layer.
+The page pools are persistent device tensors, one (K, V) pair per layer
+(the MLA family: one latent pool).
 ``fused_qkv_rope_append`` (or ``fused_rope_append``) writes each step's
 K/V rows into them IN PLACE (the JAX kernels aliased them through
 input_output_aliases and returned new arrays), and copy-on-write page
@@ -89,6 +91,14 @@ so no fused FFN kernel covers it). A step of more than 32 token rows
 routes dropless through three grouped GEMMs a routed layer (the ``gmm``
 kernel on the card), a smaller one runs every expert on every token.
 
+The MLA family (``DeepSeekV2ForCausalLM``, the tree of
+``generation._mla_decode_params``) runs `_mla_unified_body` on the
+unified step only: one latent pool per layer ([1, pages, page_size, r +
+dr], rows [latent | rope key]) that ragged attention reads as K and V;
+its fused front is the MLA site of ``fused_qkv_rope_append`` (without
+q-lora and int4), its split front ends in ``fused_append_rows``. Its
+alternating path is ROADMAP.md queue A item 5c's rest and raises.
+
 Greedy decoding only: engine tokens equal the JAX engine's tokens per
 request on the same weights and trace, on either chain and on the
 alternating path, in the fp, int8 and int4 layouts, and the solo
@@ -106,10 +116,11 @@ import torch
 from .. import resilience as _res
 from ..device import DeviceLike, resolve_device
 from ..flags import flag
-from ..generation import _SUFFIX, _decode_params, _ffn_apply, _head, \
-    _kv_geometry, _llama_weights, _mm_w, _walgo, _wq2
+from ..generation import _SUFFIX, _decode_params, _dq, _ffn_apply, _head, \
+    _kv_geometry, _llama_weights, _mm_w, _walgo, _woq_algo, _wq2
 from ..nn.functional import gelu
-from ..ops.fused import fused_layer_norm, fused_rms_norm, fused_rope_append
+from ..ops.fused import (fused_append_rows, fused_layer_norm, fused_rms_norm,
+                         fused_rope_append)
 from ..ops.megadecode import (fused_ffn, fused_oproj_norm,
                               megadecode_eligible)
 from ..ops.megafront import fused_qkv_rope_append, megafront_eligible
@@ -140,9 +151,41 @@ def _unported(feature: str, item: int) -> NotImplementedError:
         f"{feature} is not ported yet (ROADMAP.md queue A item {item})")
 
 
+def mla_split_front(L, h, c, s, pool, tok_page, tok_off, *, heads: int,
+                    nope_dim: int, lora_rank: int, eps: float,
+                    q_lora: bool):
+    """One layer's split MLA front on the unified step's flat rows (h [1,
+    T, H] normed, c / s [T, dr/2] f32): the q product (q-lora: two
+    products around ``fused_rms_norm``) and kv_a's, q_pe and k_pe roped
+    in the activation dtype, the latent normed with ``fused_rms_norm``,
+    the [latent | k_pe] rows written with ``fused_append_rows``. Returns
+    (q_nope, q_pe, pool), q's parts [1, T, heads, .]."""
+    T, r = h.shape[1], lora_rank
+
+    def rope(t):                                         # [1, T, h, dr]
+        d2 = t.shape[-1] // 2
+        t1, t2 = t[..., :d2], t[..., d2:]
+        cc = c[None, :, None, :].to(t.dtype)
+        ss = s[None, :, None, :].to(t.dtype)
+        return torch.cat([t1 * cc - t2 * ss, t2 * cc + t1 * ss], -1)
+
+    if q_lora:
+        q = _mm_w(fused_rms_norm(_mm_w(h, L, "wqa"), L["gq"], eps), L, "wqb")
+    else:
+        q = _mm_w(h, L, "wq")
+    q = q.reshape(1, T, heads, -1)
+    kv_a = _mm_w(h, L, "wkva")                           # [1, T, r + dr]
+    lat = fused_rms_norm(kv_a[..., :r].contiguous(), L["gkv"], eps)
+    k_pe = rope(kv_a[..., r:][:, :, None, :])[:, :, 0]
+    rows = torch.cat([lat, k_pe], -1)[0][:, None]
+    pool = fused_append_rows(pool, rows, tok_page, tok_off)
+    return q[..., :nope_dim], rope(q[..., nope_dim:]), pool
+
+
 class ServingEngine:
     """Continuous-batching engine for the llama family (Qwen2 included),
-    the gpt family and the MoE family.
+    the gpt family, the MoE family and the MLA family (unified step
+    only).
 
     Typical loop::
 
@@ -239,45 +282,60 @@ class ServingEngine:
             tenant_budgets=tenant_budgets)
         self._prefill_fifo: List[Request] = []
 
-        # device page pools, one (K, V) pair per layer, updated in place
-        dt = p["embed"].dtype
-        kv, d = _kv_geometry(p)
-        shape = (kv, self.num_pages, self.page_size, d)
-        self._pools = [(torch.zeros(shape, dtype=dt, device=self.device),
-                        torch.zeros(shape, dtype=dt, device=self.device))
-                       for _ in p["layers"]]
         # the dispatch path: the unified step unless ragged=False (the
         # port has no ragged gate that can fail)
         self.ragged = ragged is None or bool(ragged)
+        mla = self._family == "mla"
+        algo, quant_on = _woq_algo(weight_only_int8, weight_only_quant)
+        #: packed-int4 weights (the MLA family then keeps the split front)
+        self.int4 = quant_on and algo == "weight_only_int4"
+        #: the MLA family's two-stage q projection (its config's q-lora)
+        self.q_lora = mla and bool(cfg.q_lora_rank)
+        if mla and not self.ragged:
+            raise NotImplementedError(
+                "the MLA family's alternating path (ragged=False: paged "
+                "decode v1 / v2 at head dim r + dr = 576 and 16 heads a KV "
+                "head) is not ported yet (ROADMAP.md queue A item 5c's "
+                "rest); the unified step (ragged=None) serves it")
+        # device page pools, updated in place: one (K, V) pair per layer,
+        # or for the MLA family one latent pool per layer, each row
+        # [latent | rope key], read as both K and V (a 1-tuple)
+        dt = p["embed"].dtype
+        kv, d = _kv_geometry(p)
+        shape = (kv, self.num_pages, self.page_size, d)
+        planes = 1 if mla else 2
+        self._pools = [tuple(torch.zeros(shape, dtype=dt, device=self.device)
+                             for _ in range(planes))
+                       for _ in p["layers"]]
         # the fused halves, on by default where the kernels take the
         # geometry (the gates are pure functions of shapes); False keeps
         # the split chain exactly; the alternating path never fuses
         hq, isz = cfg.num_attention_heads, p["embed"].element_size()
+        o_width = hq * (cfg.v_head_dim if mla else d)
         self.megadecode = bool(
             (megadecode is None or megadecode) and self.ragged
             and megadecode_eligible(cfg.hidden_size, cfg.intermediate_size,
-                                    hq * d, dtype_bytes=isz,
+                                    o_width, dtype_bytes=isz,
                                     device=self.device))
         #: kernel-wrapper calls after attention, per layer per step
         #: (2 fused vs the 6-stage split chain, as the JAX engine counts)
         self.back_half_launches = 2 if self.megadecode else 6
         self.megafront = bool(
             (megafront is None or megafront) and self.ragged
-            and megafront_eligible(cfg.hidden_size, (hq + 2 * kv) * d, d,
-                                   dtype_bytes=isz, device=self.device))
+            and self._megafront_family_ok(cfg, isz))
         if self.megafront:
             self._concat_qkv_weights()
         #: kernel-wrapper calls before attention, per layer per step
-        #: (norm + fused, vs norm + the q/k/v matmuls (gpt: one fused
-        #: qkv matmul) + rope_append)
-        self.front_half_launches = 2 if self.megafront else (
-            3 if gpt else 5)
+        #: (norm + fused, vs the split front: `_split_front_launches`)
+        self.front_half_launches = 2 if self.megafront \
+            else self._split_front_launches()
         #: FLAGS_paged_impl of the alternating path, pinned now as the JAX
         #: engine pins it when it builds its programs (None: unified step)
         self.paged_impl = None if self.ragged else flag("FLAGS_paged_impl")
         if self.ragged:
-            self._body = (self._gpt_unified_body if gpt
-                          else self._llama_unified_body)()
+            self._body = {"gpt": self._gpt_unified_body,
+                          "mla": self._mla_unified_body}.get(
+                              self._family, self._llama_unified_body)()
         else:
             self._decode_body = (self._gpt_decode_body if gpt
                                  else self._llama_decode_body)()
@@ -570,9 +628,39 @@ class ServingEngine:
             return
         src = torch.tensor([c[0] for c in copies], device=self.device)
         dst = torch.tensor([c[1] for c in copies], device=self.device)
-        for kp, vp in self._pools:
-            kp[:, dst] = kp[:, src]
-            vp[:, dst] = vp[:, src]
+        for layer in self._pools:
+            for pool in layer:
+                pool[:, dst] = pool[:, src]
+
+    def _megafront_family_ok(self, cfg, isz: int) -> bool:
+        """The fused front half's gate per family: the kernel's geometry
+        (`megafront_eligible`) over the slab it reads; the MLA family
+        only without q-lora (its two-stage q projection reads a normed
+        intermediate, not the hidden stream) and not in int4 (no packed
+        MLA site, as in JAX)."""
+        kw = dict(dtype_bytes=isz, device=self.device)
+        if self._family == "mla":
+            if self.int4 or self.q_lora:
+                return False
+            dh = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            n = (cfg.num_attention_heads * dh + cfg.kv_lora_rank
+                 + cfg.qk_rope_head_dim)
+            return megafront_eligible(cfg.hidden_size, n, dh, **kw)
+        kv, d = _kv_geometry(self._p)
+        return megafront_eligible(
+            cfg.hidden_size, (cfg.num_attention_heads + 2 * kv) * d, d, **kw)
+
+    def _split_front_launches(self) -> int:
+        """Kernel-wrapper calls and products before attention on the split
+        front, per layer per step, as the JAX engine counts them: gpt
+        norm + wqkv + rope_append; MLA norm + q (q-lora: its two products
+        and their norm) + kv_a + the latent norm + the row append; llama
+        norm + q / k / v + rope_append."""
+        if self._family == "gpt":
+            return 3
+        if self._family == "mla":
+            return 7 if self.q_lora else 5
+        return 5
 
     def _concat_qkv_weights(self) -> None:
         """The fused front half's layout: each layer's wq | wk | wv
@@ -585,19 +673,23 @@ class ServingEngine:
         copy made once here; the model keeps its own q/k/v weights, so
         the engine holds both (1.61 GB more at Llama-3-8B in bf16). The
         consumed entries leave the engine's weight tree: a megafront
-        engine never runs the split front. The gpt family ships ``wqkv``
-        already."""
+        engine never runs the split front. The MLA family's slab is wq |
+        wkva -> ``wqkva`` ([H, nh (dn + dr) + r + dr]). The gpt family
+        ships ``wqkv`` already."""
         if self._family == "gpt":
             return
+        mla = self._family == "mla"
+        keys = ("wq", "wkva") if mla else ("wq", "wk", "wv")
+        new = "wqkva" if mla else "wqkv"
         layers = []
         for L in self._p["layers"]:
             L = dict(L)
             suffix = _SUFFIX.get(_walgo(L, "wq"), "")
-            L["wqkv" + suffix] = torch.cat(
-                [L.pop(k + suffix) for k in ("wq", "wk", "wv")], dim=-1)
+            L[new + suffix] = torch.cat(
+                [L.pop(k + suffix) for k in keys], dim=-1)
             if suffix:
-                L["wqkv_s"] = torch.cat(
-                    [L.pop(k + "_s") for k in ("wq", "wk", "wv")], dim=-1)
+                L[new + "_s"] = torch.cat(
+                    [L.pop(k + "_s") for k in keys], dim=-1)
             if "bq" in L:
                 L["bqkv"] = torch.cat(
                     [L.pop(k) for k in ("bq", "bk", "bv")], dim=-1)
@@ -610,6 +702,28 @@ class ServingEngine:
         return self._p.get("moe_static") or (None,) * len(self._p["layers"])
 
     # ------------------------------------------------------ unified body
+    def _back_half(self, L, o, x, st, eps: float):
+        """A layer's back half on the unified step, the llama and MLA
+        families' (o [T, o_width] attention output, x [1, T, H] residual
+        stream): the fused chain's ``fused_oproj_norm`` then ``fused_ffn``
+        (a routed layer: `_ffn_apply` after the norm, as the JAX body
+        does: routing is data-dependent, so no fused FFN kernel covers
+        it), or the split chain's o-proj matmul, ``fused_rms_norm`` and
+        FFN. Returns the new x."""
+        if not self.megadecode:
+            x = x + _mm_w(o[None], L, "wo")
+            return x + _ffn_apply(L, fused_rms_norm(x, L["ln2"], eps), st)
+        wp, ws = _wq2(L, "wo")
+        xn, h2 = fused_oproj_norm(o, x[0], wp, ws, None, L["ln2"], None,
+                                  eps=eps, algo=_walgo(L, "wo"))
+        if "moe" in L:
+            return (xn + _ffn_apply(L, h2, st))[None]
+        gp, gs = _wq2(L, "wg")
+        up, us = _wq2(L, "wu")
+        dp, ds = _wq2(L, "wd")
+        return fused_ffn(h2, xn, gp, gs, up, us, dp, ds,
+                         algo=_walgo(L, "wg"))[None]
+
     def _llama_unified_body(self):
         """The per-step function over tensors (the JAX engine's jitted
         body). T = max_slots + prefill_chunk flat token rows, S =
@@ -619,7 +733,7 @@ class ServingEngine:
         Hh, KV, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
         eps = cfg.rms_norm_eps
-        mega, megafront = self.megadecode, self.megafront
+        megafront = self.megafront
         B, C = self.max_slots, self.prefill_chunk
         T = B + C
         seq_start = torch.arange(B + 1, dtype=torch.int32,
@@ -651,26 +765,74 @@ class ServingEngine:
                 o = ragged_paged_attention(q, kp, vp, seq_start,
                                            num_tokens, kv_lengths, tables,
                                            scale=D ** -0.5)
-                if mega:
-                    wp, ws = _wq2(L, "wo")
-                    xn, h2 = fused_oproj_norm(
-                        o.reshape(T, Hh * D), x[0], wp, ws, None, L["ln2"],
-                        None, eps=eps, algo=_walgo(L, "wo"))
-                    if "moe" in L:         # routed: no fused FFN kernel
-                        x = (xn + _ffn_apply(L, h2, st))[None]
-                    else:
-                        gp, gs = _wq2(L, "wg")
-                        up, us = _wq2(L, "wu")
-                        dp, ds = _wq2(L, "wd")
-                        x = fused_ffn(h2, xn, gp, gs, up, us, dp, ds,
-                                      algo=_walgo(L, "wg"))[None]
-                else:
-                    x = x + _mm_w(o.reshape(1, T, Hh * D), L, "wo")
-                    h2 = fused_rms_norm(x, L["ln2"], eps)
-                    x = x + _ffn_apply(L, h2, st)
+                x = self._back_half(L, o.reshape(T, Hh * D), x, st, eps)
             x = fused_rms_norm(x, w["norm"], eps)
             # each sequence's logits come from its LAST flat row; idle
             # slots (num_tokens 0) index garbage the host ignores
+            last = x[0, (seq_start + num_tokens - 1).clamp(0, T - 1).long()]
+            return _head(last, w), pools
+
+        return step
+
+    # ------------------------------------------------------- mla body
+    def _mla_unified_body(self):
+        """The MLA family's unified step (the JAX ``_mla_unified_body``):
+        one latent pool a layer, whose rows [latent | rope key] the
+        ragged kernel reads as both K (r + dr dims, one KV head, the nh
+        query heads its group) and V (the output's first r dims). kv_b is
+        read whole (``_dq``; int4 through ``int4_dequantize``) and
+        absorbed: its key half folds into the query (q_eff = q_nope .
+        W_k), its value half maps the latent read-out to v. The fused
+        front (no q-lora, not int4) is the MLA site of
+        ``fused_qkv_rope_append``; the split front projects q (q-lora:
+        two products around ``fused_rms_norm``) and kv_a, ropes q_pe and
+        k_pe in the activation dtype, norms the latent with
+        ``fused_rms_norm`` and writes the rows with
+        ``fused_append_rows``. The back half is the llama family's."""
+        cfg = self._p["cfg"]
+        nh = cfg.num_attention_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        r = cfg.kv_lora_rank
+        eps = cfg.rms_norm_eps
+        scale = 1.0 / float(np.sqrt(dn + dr))
+        megafront = self.megafront
+        B, C = self.max_slots, self.prefill_chunk
+        T = B + C
+        seq_start = torch.arange(B + 1, dtype=torch.int32,
+                                 device=self.device)
+        sts = self._moe_static()
+        q_lora = self.q_lora
+
+        def step(w, tok, pools, positions, num_tokens, kv_lengths,
+                 tables, tok_page, tok_off):
+            x = w["embed"][tok.long()][None]             # [1, T, H]
+            c = w["cos"][positions.long()]               # [T, dr/2] f32
+            s = w["sin"][positions.long()]
+            for L, (pool,), st in zip(w["layers"], pools, sts):
+                h = fused_rms_norm(x, L["ln1"], eps)
+                wkb = _dq(L, "wkvb", x.dtype).reshape(r, nh, dn + dv)
+                w_k, w_v = wkb[..., :dn], wkb[..., dn:]
+                if megafront:
+                    wp, ws = _wq2(L, "wqkva")
+                    q, pool = fused_qkv_rope_append(
+                        h[0], wp, ws, None, c, s, pool, None, tok_page,
+                        tok_off, heads=nh, algo=_walgo(L, "wqkva"),
+                        norm_weight=L["gkv"], eps=eps, nope_dim=dn,
+                        rope_dim=dr, lora_rank=r)
+                    q_eff = torch.einsum("tnd,rnd->tnr", q[..., :dn], w_k)
+                    q_cat = torch.cat([q_eff, q[..., dn:]], -1)
+                else:
+                    q_nope, q_pe, pool = mla_split_front(
+                        L, h, c, s, pool, tok_page, tok_off, heads=nh,
+                        nope_dim=dn, lora_rank=r, eps=eps, q_lora=q_lora)
+                    q_eff = torch.einsum("bsnd,rnd->bsnr", q_nope, w_k)
+                    q_cat = torch.cat([q_eff, q_pe], -1)[0]
+                o_cat = ragged_paged_attention(q_cat, pool, pool, seq_start,
+                                               num_tokens, kv_lengths, tables,
+                                               scale=scale)
+                o = torch.einsum("tnr,rnv->tnv", o_cat[..., :r], w_v)
+                x = self._back_half(L, o.reshape(T, nh * dv), x, st, eps)
+            x = fused_rms_norm(x, w["norm"], eps)
             last = x[0, (seq_start + num_tokens - 1).clamp(0, T - 1).long()]
             return _head(last, w), pools
 

@@ -2,14 +2,14 @@
 """Where one serving step's time goes, on the card.
 
     python3 profile_serving.py [--out serving_trace.json]
-                               [--model llama|gpt|qwen2|moe]
+                               [--model llama|gpt|qwen2|moe|deepseek]
                                [--chain fused|split|alternating]
                                [--quant int8|int4]
 
 Serves the same configuration and seeded traffic as chip_smoke.py's
 phase 4 (Llama-3-8B; ``--model gpt``: GPT-3 6.7B, phase 10; ``--model
 qwen2``: Qwen2-7B, phase 11; ``--model moe``: ERNIE-4.5-21B-A3B's
-widths, phase 12; bf16, 4 slots, page_size 16, 128-token
+widths, phase 12; ``--model deepseek``: DeepSeek-V2-Lite, phase 13; bf16, 4 slots, page_size 16, 128-token
 prefill chunks), on the engine's default fused chain, with ``--chain split`` on
 the split chain of the unified step, or with ``--chain alternating`` on
 the alternating path (``ragged=False``: a prefill-chunk launch and a
@@ -40,10 +40,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (CHUNK, ERNIE45_21B_A3B, MAX_CTX, PSZ, QWEN2_7B,
-                        SLOTS, trace)
+from chip_smoke import (CHUNK, DEEPSEEK_V2_LITE, ERNIE45_21B_A3B, MAX_CTX,
+                        PSZ, QWEN2_7B, SLOTS, trace)
 from paddle_tpu_torch import card_report
-from paddle_tpu_torch.models import (GPTForCausalLM, MoEConfig,
+from paddle_tpu_torch.models import (DeepSeekV2Config, DeepSeekV2ForCausalLM,
+                                     GPTForCausalLM, MoEConfig,
                                      MoEForCausalLM, Qwen2Config,
                                      Qwen2ForCausalLM, gpt3_6_7b_config)
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b_config
@@ -54,7 +55,9 @@ from paddle_tpu_torch.serving import ServingEngine
 MODELS = {"llama": (LlamaForCausalLM, llama3_8b_config),
           "gpt": (GPTForCausalLM, gpt3_6_7b_config),
           "qwen2": (Qwen2ForCausalLM, lambda: Qwen2Config(**QWEN2_7B)),
-          "moe": (MoEForCausalLM, lambda: MoEConfig(**ERNIE45_21B_A3B))}
+          "moe": (MoEForCausalLM, lambda: MoEConfig(**ERNIE45_21B_A3B)),
+          "deepseek": (DeepSeekV2ForCausalLM,
+                       lambda: DeepSeekV2Config(**DEEPSEEK_V2_LITE))}
 
 STEPS = 6                          # engine steps per profiled window
 #: kernel-name fragments of the port's own kernels (ops/csrc)
@@ -62,7 +65,10 @@ PORT_KERNELS = ("rms_norm_kernel", "ptt::layer_norm_kernel",
                 "rope_append_kernel", "ragged_attention_kernel",
                 "mega::gemm_kernel", "qkv_finalize_kernel", "oproj_norm_finalize_kernel",
                 "residual_finalize_kernel", "paged_v1_kernel",
-                "paged_v2_kernel", "paged_v2_mma_kernel")
+                "paged_v2_kernel", "paged_v2_mma_kernel",
+                "mla_finalize_kernel", "append_rows_kernel",
+                "int4_dequantize_kernel", "mla::split_kernel",
+                "mla::merge_kernel")
 # (weight_only_linear runs mega::gemm_kernel and residual_finalize_kernel)
 #: name fragments of PyTorch's own passes, in match order: gathers and
 #: scatters (page gathers, append_to_cache's index_put_), concatenations

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Readings of the bf16 weight_only_linear and quantized megakernel checks
-on one NVIDIA card, for the sound kernel and for planted faults.
+"""Readings of the bf16 weight_only_linear, quantized megakernel and MLA
+kernel checks on one NVIDIA card, for the sound kernels and for planted
+faults.
 
-    python3 quant_limits.py [--faults DIR [--only FAULT]] [--out FILE]
+    python3 quant_limits.py [--faults DIR [--only FAULT ...]] [--out FILE]
 
 ``chip_smoke.py`` holds the bf16 weight_only_linear kernel, and the
 megakernels' int8 / int4 sites, to their plain versions by two relative
@@ -10,15 +11,20 @@ errors (`chip_smoke.row_rel_errors`: over the whole output, and the
 largest over each output row). This script prints what those measures
 read at the shapes phase 2 runs (weight_only_linear at T = 132 x [4096
 -> 14336], M = 5 x [4096 -> 128256], 7 x [4096 -> 1000]; the three
-megakernels at the 8B step), int8 and int4, so that each limit can sit
-between the sound kernel's readings and a wrong kernel's, and the card
-tests of tests/test_torch_quant.py and tests/test_torch_megakernels.py
-(``-m cuda``), passed and failed.
+megakernels at the 8B step), int8 and int4, and the MLA slice's kernels
+as `chip_smoke.check_mla_kernels` reads them at DeepSeek-V2-Lite's
+shapes (int4_dequantize, the MLA site of fused_qkv_rope_append,
+mla_decode_attention, ragged at D 576, flash at D 192, not held), so that
+each limit can sit between the sound kernel's readings and a wrong
+kernel's, and the card tests of tests/test_torch_quant.py,
+tests/test_torch_megakernels.py and tests/test_torch_deepseek.py (``-m
+cuda``), passed and failed.
 
-With ``--faults DIR``, each fault of `FAULTS` (``--only``: one of them;
+With ``--faults DIR``, each fault of `FAULTS` (``--only``: those named;
 text substitutions in ``paddle_tpu_torch/ops/csrc/megakernels.cu``, the
 GEMM core's weight conversion that weight_only_linear and the three
-megakernels share) is planted in a copy of the package made under DIR,
+megakernels share, its int4_dequantize and its MLA finisher, or in the
+source `FAULT_KERNELS` names) is planted in a copy of the package made under DIR,
 built there, and read the same way in a process of its own. The checkout itself is never
 changed. One JSON object per line on stdout, and all of them in
 ``--out`` when given.
@@ -37,7 +43,8 @@ import torch
 import flash_limits
 
 KERNEL = "paddle_tpu_torch/ops/csrc/megakernels.cu"
-TESTS = ("tests/test_torch_quant.py", "tests/test_torch_megakernels.py")
+TESTS = ("tests/test_torch_quant.py", "tests/test_torch_megakernels.py",
+         "tests/test_torch_deepseek.py")
 FILES = ("chip_smoke.py", "flash_limits.py", "quant_limits.py",
          "pytest.ini", *TESTS)
 
@@ -87,7 +94,35 @@ FAULTS = {
         "from_f32<T>((float)snib(byte) * sc);", 0,
         "from_f32<T>((float)snib(byte >> 4));",
         "from_f32<T>((float)snib(byte >> 4) * sc);", 0),
+    "int4_dequantize_nibble_order_swapped": (
+        "int4_dequantize: the high nibble lands in the even source row and "
+        "the low one in the odd row",
+        "out[2 * k * N + n] = (float)snib(v) * s;\n"
+        "    out[(2 * k + 1) * N + n] = (float)snib(v >> 4) * s;",
+        "out[2 * k * N + n] = (float)snib(v >> 4) * s;\n"
+        "    out[(2 * k + 1) * N + n] = (float)snib(v) * s;", 0),
+    "mla_latent_normed_after_bf16_round": (
+        "the MLA site: the latent's f32 sum is rounded to the working type "
+        "before its RMSNorm (the norm of the stored row, not of the sum)",
+        "    row[n] = v;\n    if (n >= nq && n < nq + r) ss += v * v;",
+        "    if (n >= nq && n < nq + r) v = to_f32(from_f32<T>(v));\n"
+        "    row[n] = v;\n    if (n >= nq && n < nq + r) ss += v * v;", 0),
+    "mla_dead_rows_not_zeroed": (
+        "mla_decode_attention: cache rows past a sequence's length are "
+        "staged from the cache (garbage) instead of zero-filled",
+        "const bool ok = t + row < live;", "const bool ok = t + row < Tc;",
+        0),
+    "mla_scores_rounded_between_reads": (
+        "mla_decode_attention: the scores are rounded to the cache dtype "
+        "before the softmax, as the two-einsum composite's score tensor "
+        "is between its two reads of the latent cache",
+        "const float sc = warp_sum(part[j]) * scale;",
+        "const float sc = round_to<T>(warp_sum(part[j])) * scale;", 0),
 }
+#: the source a fault edits, where it is not KERNEL
+FAULT_KERNELS = {"mla_dead_rows_not_zeroed": "paddle_tpu_torch/ops/csrc/mla.cu",
+                 "mla_scores_rounded_between_reads":
+                     "paddle_tpu_torch/ops/csrc/mla.cu"}
 
 
 def readings() -> dict:
@@ -137,17 +172,62 @@ def readings() -> dict:
         e["tensor"] <= cs.QSITE_BF16_LIMITS[k.split("/")[0]][0]
         and e["row"] <= cs.QSITE_BF16_LIMITS[k.split("/")[0]][1]
         for k, e in out["sites"].items())
+    # the MLA kernels at DeepSeek-V2-Lite's shapes, read, not held
+    mla = {"ragged_paged_attention": {}, "flash_sdpa": {}}
+    cs.check_mla_kernels(None, mla, hold=False)
+    out["mla"] = {
+        "int4_dequantize": {k: mla["int4_dequantize"][k] for k in (
+            "max_abs_err", "rel_err", "odd_n")},
+        **{f"fused_qkv_rope_append/{k}": {
+            "rel_err_bf16": mla["fused_qkv_rope_append"][k]["rel_err_bf16"],
+            "max_abs_err_f32": mla["fused_qkv_rope_append"][k][
+                "max_abs_err_f32"]} for k in ("mla", "mla_int8")},
+        **{f"mla_decode_attention/{k}": v for k, v in
+           mla["mla_decode_attention"]["cases"].items()},
+        **{f"ragged_576/{k}": {f: v.get(f) for f in (
+            "rel_err_bf16", "max_abs_err_f32", "max_abs_err_bf16")}
+           for k, v in mla["ragged_paged_attention"]["mla_576"].items()
+           if isinstance(v, dict)},
+        "flash_192": {f: mla["flash_sdpa"]["d192"].get(f) for f in (
+            "rel_err_bf16", "max_abs_err_f32", "max_abs_err_bf16")}}
     out["smoke_check_passes"] = {"weight_only_linear": wol_passes,
-                                 "megakernel_sites": sites_pass}
+                                 "megakernel_sites": sites_pass,
+                                 "mla": mla_passes(mla, cs)}
     return out
+
+
+def mla_passes(mla: dict, cs) -> bool:
+    """Whether chip_smoke.py's MLA checks pass on these readings."""
+    import math
+    lim = cs.MLA_BF16_LIMITS
+    ok = mla["int4_dequantize"]["max_abs_err"] == 0.0 \
+        and mla["int4_dequantize"]["odd_n"]["max_abs_err"] == 0.0
+
+    def within(rel, limits):
+        vals = [rel["tensor"], rel.get("row", rel.get("tile"))]
+        return all(math.isfinite(v) for v in vals) and \
+            vals[0] <= limits[0] and vals[1] <= limits[1]
+
+    for k in ("mla", "mla_int8"):
+        r = mla["fused_qkv_rope_append"][k]
+        ok &= within(r["rel_err_bf16"], lim["fused_qkv_rope_append_mla"])
+        ok &= math.isfinite(r["max_abs_err_f32"])
+    for c in mla["mla_decode_attention"]["cases"].values():
+        ok &= within(c["rel_err_bf16"], lim["mla_decode_attention"])
+        ok &= math.isfinite(c.get("max_abs_err_f32", 0.0))
+    for v in mla["ragged_paged_attention"]["mla_576"].values():
+        if isinstance(v, dict):
+            ok &= within(v["rel_err_bf16"], lim["ragged_576"])
+    ok &= within(mla["flash_sdpa"]["d192"]["rel_err_bf16"], lim["flash_192"])
+    return bool(ok)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--faults", type=Path, default=None,
                     help="plant each fault in a copy under this directory")
-    ap.add_argument("--only", default=None, choices=sorted(FAULTS),
-                    help="plant this fault alone")
+    ap.add_argument("--only", default=None, nargs="+",
+                    choices=sorted(FAULTS), help="plant these faults only")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--readings-only", action="store_true",
                     help=argparse.SUPPRESS)
@@ -165,10 +245,9 @@ def main() -> int:
     here = flash_limits.HERE
     lines = [dict(name="sound", **readings(), card_tests=card_tests(here))]
     print(json.dumps(lines[-1]), flush=True)
-    for name in (([args.only] if args.only else FAULTS) if args.faults
-                 else ()):
+    for name in ((args.only or FAULTS) if args.faults else ()):
         cwd = flash_limits.plant(name, args.faults.resolve(), FAULTS,
-                                 KERNEL, FILES)
+                                 FAULT_KERNELS.get(name, KERNEL), FILES)
         r = subprocess.run([sys.executable, "quant_limits.py",
                             "--readings-only"], cwd=cwd, capture_output=True,
                            text=True, timeout=900)

@@ -343,9 +343,10 @@ class TestQuantizedSitesParity:
 
 class TestRefusalsAndGates:
     @pytest.mark.parametrize("call,match", [
+        # the MLA layout has no packed-int4 site, as in JAX
         (lambda t: fused_qkv_rope_append(*t[:10], heads=1, kv_heads=1,
-                                         head_dim=4, lora_rank=8),
-         "queue A item 5"),
+                                         head_dim=4, lora_rank=8,
+                                         algo=INT4), "no packed-int4 site"),
         # the JAX package refuses int4 gelu too
         (lambda t: fused_ffn(t[0], t[0], t[1], None, t[1], None, t[1],
                              act="gelu", algo=INT4), "swiglu-only"),

@@ -569,11 +569,20 @@ class TestEngineAgainstJax:
         np.testing.assert_array_equal(got, ref[0].numpy())
 
     def test_the_mla_family_still_names_its_item(self):
-        from paddle_tpu_torch.models import llama_tiny_config
+        # the MLA family is served on the unified step; its alternating
+        # path is A5c's rest, and a backbone of no ported family is refused
+        from paddle_tpu_torch.models import (DeepSeekV2ForCausalLM,
+                                             deepseek_v2_tiny_config,
+                                             llama_tiny_config)
         from paddle_tpu_torch.serving import ServingEngine
+        mla = DeepSeekV2ForCausalLM(deepseek_v2_tiny_config(
+            num_hidden_layers=1), device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="queue A item 5c's rest"):
+            ServingEngine(mla, device="cpu", ragged=False)
         other = types.SimpleNamespace(config=llama_tiny_config(),
                                       model=object(), lm_head=None)
-        with pytest.raises(NotImplementedError, match="queue A item 5c"):
+        with pytest.raises(NotImplementedError, match="queue A item 5"):
             ServingEngine(other, device="cpu")
 
 

@@ -76,7 +76,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.models.moe_llm",
                 "paddle_tpu_torch.models.ernie",
                 "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.optimizer",
-                "paddle_tpu_torch.optimizer.lr"):
+                "paddle_tpu_torch.optimizer.lr",
+                "paddle_tpu_torch.models.deepseek",
+                "paddle_tpu_torch.ops.mla"):
         assert mod in res["modules"]
 
 
@@ -92,6 +94,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from paddle_tpu_torch.models import MoEForCausalLM, qwen2_moe_tiny_config
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MoEForCausalLM(qwen2_moe_tiny_config(num_hidden_layers=1))
+    from paddle_tpu_torch.models import (DeepSeekV2ForCausalLM,
+                                         deepseek_v2_tiny_config)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeepSeekV2ForCausalLM(deepseek_v2_tiny_config(num_hidden_layers=1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -130,6 +136,7 @@ def test_registry_names_the_ported_kernels():
     import paddle_tpu.ops.pallas_gmm  # noqa: F401
     import paddle_tpu.ops.pallas_megadecode  # noqa: F401
     import paddle_tpu.ops.pallas_megafront  # noqa: F401
+    import paddle_tpu.ops.pallas_mla  # noqa: F401
     import paddle_tpu.ops.pallas_paged  # noqa: F401
     import paddle_tpu.ops.pallas_ragged  # noqa: F401
     import paddle_tpu.ops.quant  # noqa: F401
@@ -142,7 +149,8 @@ def test_registry_names_the_ported_kernels():
                            "fused_oproj_norm", "fused_ffn", "flash_sdpa",
                            "paged_decode_attention",
                            "paged_decode_attention_v2", "weight_only_linear",
-                           "gmm"}
+                           "gmm", "mla_decode_attention",
+                           "fused_append_rows", "int4_dequantize"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
@@ -168,7 +176,7 @@ def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["flash_attention.cu", "fused.cu", "gmm.cu",
-                     "megakernels.cu", "paged_attention.cu",
+                     "megakernels.cu", "mla.cu", "paged_attention.cu",
                      "ragged_attention.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
