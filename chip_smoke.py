@@ -115,6 +115,14 @@ Phases, one line each on stdout:
    and in bf16 through amp.decorate O2: losses, aux losses and grad norms
    within TINY_MOE_TRAIN_LIMITS, and on the card exactly 3 gmm, 3
    gmm_dlhs and 3 tgmm a routed layer a step, no plain call;
+8c. FlashMask and varlen attention, CPU (plain) vs card (kernels), f32,
+   B 2, H 2: flashmask_attention over the JAX tests' four encodings,
+   causal C=1 over packed documents and one mask a head, at S 256 / D 64
+   and S 200 / D 128 (ragged tiles), forward and gradients through
+   autograd (o within 2e-5, gradients 1e-4, one forward and one backward
+   launch a call); the bf16 kernels against the plain version on the card
+   at S 200 by the flash limits; flash_attn_unpadded at equal and cross
+   cu_seqlens (`tiny_flashmask_parity`);
 9. pretraining at Llama-3-8B width (hidden 4096, 32/8 heads x 128, FFN
    14336, vocab 128256; depth cut from 32 to 4 layers), batch 1 x 8192
    tokens, bf16 compute over f32 master weights and f32 AdamW moments
@@ -125,6 +133,22 @@ Phases, one line each on stdout:
    trajectory; the loss must be finite and fall, and every timed step
    must launch the flash forward and backward once per layer with no
    plain-version call and no attention off the flash route;
+9b. FlashMask at Llama-3-8B's attention width as a packed SFT step calls
+   it (B 1, S 8192, 32 heads x 128, bf16; `check_flashmask`): causal C=1
+   over seeded documents of 256-2048 tokens, the JAX tests' causal C=2,
+   non-causal C=2 and C=4 bands scaled by 32, and causal C=1 with its
+   own documents in each of the 32 heads, each forward and backward
+   through flashmask_attention and autograd with the counts read alone
+   (one forward and one backward launch a call, no plain call, no
+   composite route), held to the plain version (4 heads at a time) by the
+   flash limits; flash_attn_unpadded over the same documents against
+   causal C=1; an f32 run at S 2048 (o 2e-5, gradients 1e-4); then each
+   encoding's forward and backward timed beside its bound over the
+   visible pairs counted from the bands (2 products forward, 5 backward),
+   the share of 64 x 64 tiles skipped, and for the documents the plain
+   versions, the port's flash with segment ids (the same function,
+   `segmented_ms`) and PyTorch's SDPA under the dense bool mask
+   (`library_ms`, where no row is empty);
 10. GPT-3 6.7B at full width and depth (gpt3_6_7b_config: 32 layers,
    hidden 4096, 32 heads x 128, FFN 16384, vocab 50304, tied head; bf16
    weights drawn on the card) on the trace of phase 4: the fused chain
@@ -168,7 +192,9 @@ Phases, one line each on stdout:
    fused_oproj_norm's and fused_ffn's their layer / gelu readings and
    launches from phase 10's fused chain; gmm's launches from phase 12's
    fused chain beside its training launches from phase 12b, gmm_dlhs's
-   and tgmm's from phase 12b), then the ``{"ok": true, ...}`` line.
+   and tgmm's from phase 12b, flashmask_sdpa's and its backward's from
+   phase 9b with the packed documents' readings), then the ``{"ok":
+   true, ...}`` line.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
 against its plain version at the training shape (B 1, S 8192, 32 heads
@@ -219,7 +245,10 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as attn_routes
 from paddle_tpu_torch.ops import paged
 from paddle_tpu_torch.ops import paged_attention as paged_routes
+from paddle_tpu_torch.ops import flashmask as fm_kernels
 from paddle_tpu_torch.ops.flash import _launch_fwd
+from paddle_tpu_torch.ops.flashmask import band_hidden
+from paddle_tpu_torch.nn.functional import flash_attention as fm_api
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving.engine import mla_split_front
 from paddle_tpu_torch.trainer import (PretrainConfig,
@@ -402,8 +431,8 @@ def flash_rel_errors(got, want):
     """(tensor, tile) relative errors of `got` against `want` [B, S, H, D]:
     ||got - want|| / ||want|| over the whole tensor, and the largest of
     the same over its tiles (FLASH_TILE consecutive positions of one
-    head), each tile's norm floored at 1% of the median tile norm, so
-    that a tile whose true value is zero (rows that see no key) is held
+    head), each tile's norm floored at 1% of the median nonzero tile
+    norm, so that a tile whose true value is zero (rows that see no key) is held
     to that floor. A tile, not a row: dq of a row whose softmax is nearly
     saturated is a difference of nearly equal terms, and its bf16
     rounding there is of the size of the row itself."""
@@ -415,7 +444,9 @@ def flash_rel_errors(got, want):
     w = torch.nn.functional.pad(w, pad).reshape(B, -1, FLASH_TILE, H, D)
     d = torch.nn.functional.pad(d, pad).reshape(B, -1, FLASH_TILE, H, D)
     wn, dn = w.norm(dim=(2, 4)), d.norm(dim=(2, 4))
-    floor = 1e-2 * float(wn.median())
+    # the median over tiles whose true value is not zero: a FlashMask band
+    # can leave half the rows of a head without a key
+    floor = 1e-2 * float(wn[wn > 0].median())
     return tensor, float((dn / wn.clamp_min(floor)).max())
 
 
@@ -1578,11 +1609,18 @@ def causal_pairs(Sq: int, Sk: int) -> int:
     return sum(max(0, min(Sk, i + Sk - Sq + 1)) for i in range(Sq))
 
 
-def by_heads(fn, *ts, heads=4):
+def by_heads(fn, *ts, heads=4, se=None):
     """`fn` over `heads` heads at a time, concatenated back along the
     head axis (heads are independent; the dense plain version's f32
-    scores for all 32 heads at S 8192 would take 8.6 GB a copy)."""
-    parts = [fn(*(t[:, :, h:h + heads] for t in ts))
+    scores for all 32 heads at S 8192 would take 8.6 GB a copy). A
+    FlashMask encoding `se` [B, Hm, Sk, C] goes last, cut to the same
+    heads where it has one a head."""
+    def mask(h):
+        if se is None:
+            return ()
+        return (se if se.shape[1] == 1 else se[:, h:h + heads],)
+
+    parts = [fn(*(t[:, :, h:h + heads] for t in ts), *mask(h))
              for h in range(0, ts[0].shape[2], heads)]
     if isinstance(parts[0], tuple):
         return tuple(torch.cat(p, dim=2) for p in zip(*parts))
@@ -2047,7 +2085,8 @@ def drive(eng, reqs, on_step=None):
 #: launches per step (per layer, plus the final norm's rms_norm)
 SPLIT = dict(megafront=False, megadecode=False)
 NO_TRAINING = {"flash_sdpa": (0, 0), "flash_sdpa_bwd": (0, 0),
-               "gmm": (0, 0), "gmm_dlhs": (0, 0), "tgmm": (0, 0)}
+               "gmm": (0, 0), "gmm_dlhs": (0, 0), "tgmm": (0, 0),
+               "flashmask_sdpa": (0, 0), "flashmask_sdpa_bwd": (0, 0)}
 NO_PAGED = {"paged_decode_attention": (0, 0),
             "paged_decode_attention_v2": (0, 0)}
 #: the MLA family's own kernels, which no other family launches
@@ -2904,8 +2943,8 @@ def generate_cached_run(model):
     for name, c in counts.items():
         assert c == {"launches": wants.get(name, 0), "plain_calls": 0}, \
             (name, c)
-    assert dict(attn_routes.route_counts) == {
-        "flash": L, "flash_segmented": 0, "composite": 0}
+    routes = dict(attn_routes.route_counts)
+    assert routes == dict({k: 0 for k in routes}, flash=L), routes
     assert generation.mla_decode_composite.calls == 0
     assert tuple(tok.shape) == (GEN_BATCH, GEN_NEW)
     assert bool(torch.isfinite(scores).all())
@@ -3040,8 +3079,7 @@ def train_8b(card):
     for name, c in counts.items():
         want = L * n if name.startswith("flash_sdpa") else 0
         assert c == {"launches": want, "plain_calls": 0}, (name, c)
-    assert routes == {"flash": L * n, "flash_segmented": 0,
-                      "composite": 0}, routes
+    assert routes == dict({k: 0 for k in routes}, flash=L * n), routes
     assert all(np.isfinite(losses)) and all(np.isfinite(norms))
     assert losses[-1] < losses[0], losses
     step_ms = statistics.median(times[WARMUP_STEPS:])
@@ -3250,8 +3288,8 @@ def train_moe(card):
     for name, c in counts.items():
         assert c == {"launches": want.get(name, 0), "plain_calls": 0}, \
             (name, c)
-    assert routes == {"flash": want["flash_sdpa"], "flash_segmented": 0,
-                      "composite": 0}, routes
+    assert routes == dict({k: 0 for k in routes},
+                          flash=want["flash_sdpa"]), routes
     assert all(np.isfinite(losses)) and all(np.isfinite(norms))
     assert losses[-1] < losses[0], losses
     step_ms = statistics.median(times[WARMUP_STEPS:])
@@ -3279,6 +3317,310 @@ def train_moe(card):
         "experts_with_rows_per_layer": hits,
         "launches_per_step": {k: v // n for k, v in want.items()},
     }, {k: v["launches"] for k, v in counts.items() if v["launches"]}
+
+
+# ------------------------------------------------------------ phase 8c/9b
+#: document lengths of the packed SFT batch at S 8192 (scaled with S)
+FM_DOC_LEN = (256, 2048)
+
+
+def packed_docs(rng, S: int, heads: int, lo: int, hi: int):
+    """causal C=1 startend [1, heads, S, 1]: per head, seeded document
+    lengths in [lo, hi] packed to S (the last one cut); a key is hidden
+    from the rows at and past its document's end. Also head 0's lengths."""
+    out, first = np.zeros((1, heads, S, 1), np.int32), None
+    for h in range(heads):
+        lens, n = [], 0
+        while n < S:
+            lens.append(min(int(rng.integers(lo, hi + 1)), S - n))
+            n += lens[-1]
+        out[0, h, :, 0] = np.repeat(np.cumsum(lens), lens)
+        first = lens if first is None else first
+    return out, first
+
+
+def flashmask_encodings(S: int, heads: int, seed: int = 0):
+    """A packed SFT step's FlashMask encodings at length S: name ->
+    (startend [1, Hm, S, C] int32, causal, head 0's document lengths or
+    None). Causal C=1 over seeded documents (FM_DOC_LEN at S 8192, scaled
+    with S), the JAX tests' causal C=2, non-causal C=2 and non-causal C=4
+    bands (tests/test_flashmask_kernel.py CASES at S 256) scaled by S /
+    256, and causal C=1 with its own documents in each of `heads` heads."""
+    rng = np.random.default_rng(seed)
+    u = S / 256
+
+    def full(*vals):
+        return np.stack([np.full((1, 1, S), int(x * u), np.int32)
+                         for x in vals], -1)
+
+    lo, hi = (int(x * S / TRAIN_SEQ) for x in FM_DOC_LEN)
+    docs, lens = packed_docs(rng, S, 1, lo, hi)
+    docs_h, _ = packed_docs(rng, S, heads, lo, hi)
+    return {"causal_C1_docs": (docs, True, lens),
+            "causal_C2_band": (full(80, 200), True, None),
+            "noncausal_C2": (full(192, 64), False, None),
+            "noncausal_C4": (full(160, 224, 32, 96), False, None),
+            f"causal_C1_docs_hm{heads}": (docs_h, True, None)}
+
+
+def flashmask_run(q, k, v, do, se, causal):
+    """The public entry point forward and backward through autograd:
+    (o, dq, dk, dv)."""
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, _ = fm_api.flashmask_attention(*leaves, se, causal=causal)
+    o.backward(do)
+    return (o.detach(), *(t.grad for t in leaves))
+
+
+def flashmask_plain(q, k, v, do, se, causal):
+    """The plain versions, 4 heads at a time: (o, dq, dk, dv)."""
+    with torch.no_grad():
+        o = by_heads(lambda *a: ops.flashmask_sdpa_reference(
+            *a, causal=causal), q, k, v, se=se)
+    return (o, *by_heads(lambda *a: ops.flashmask_sdpa_bwd_reference(
+        *a, causal=causal), q, k, v, do, se=se))
+
+
+def mask_readings(se, causal, S: int, heads: int):
+    """(visible (row, key) pairs over all heads, share of the kernels'
+    64 x 64 tiles skipped), counted from the bands on the card."""
+    pairs, kinds = 0, []
+    for h in range(se.shape[1]):
+        bands = ops.bands_from_startend(se[:, h:h + 1], S, S, causal)
+        pairs += int((~band_hidden(bands, S, S, causal)).sum())
+        kinds.append(ops.flashmask_block_kinds(bands, S, S, 64, 64, causal))
+    skipped = 1.0 - float(torch.cat(kinds).float().mean())
+    return pairs * (heads if se.shape[1] == 1 else 1), skipped
+
+
+def unpadded_run(q, k, v, do, lens_q, lens_k, causal):
+    """flash_attn_unpadded over packed [total, H, D] rows of q / k / v
+    (batch 1 dropped), forward and backward: (o, dq, dk, dv) with the
+    batch axis back."""
+    cu = [torch.tensor(np.cumsum([0] + list(x)), dtype=torch.int32,
+                       device=q.device) for x in (lens_q, lens_k)]
+    leaves = [t[0].clone().requires_grad_() for t in (q, k, v)]
+    o, _ = fm_api.flash_attn_unpadded(*leaves, *cu, causal=causal)
+    o.backward(do[0])
+    return tuple(t[None] for t in (o.detach(), *(x.grad for x in leaves)))
+
+
+def tiny_flashmask_parity():
+    """Phase 8c: flashmask_attention (the four encodings, one mask head and
+    one a head, and causal C=1 over packed documents) and
+    flash_attn_unpadded (equal and cross lengths), forward and gradients,
+    on the CPU (plain versions) and on the card (kernels) from the same f32
+    inputs: o within 2e-5, gradients within 1e-4; every card call exactly
+    one forward and one backward launch, no plain call. Then the bf16
+    kernels against the plain version on the card at a ragged length, by
+    the flash limits."""
+    B_, H_ = 2, 2
+    out = {"f32": {}, "bf16": {}}
+    f32_tol = {"o": dict(atol=2e-5, rtol=2e-5),
+               "grad": dict(atol=1e-4, rtol=1e-4)}
+    for S_, Dh in ((256, 64), (200, 128)):
+        g = np.random.default_rng(S_ + Dh)
+        x = [torch.from_numpy(g.standard_normal((B_, S_, H_, Dh),
+                                                dtype=np.float32))
+             for _ in range(4)]
+        encs = flashmask_encodings(256, H_, seed=S_)
+        for name, (se_np, causal, _) in encs.items():
+            se_np = np.repeat(np.minimum(se_np[:, :, :S_], S_), B_, axis=0)
+            se = torch.from_numpy(np.ascontiguousarray(se_np))
+            want = flashmask_run(*x, se, causal)
+            ops.reset_counts()
+            got = flashmask_run(*(t.to(DEV) for t in x), se.to(DEV), causal)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            for k_, c in counts.items():
+                n = 1 if k_.startswith("flashmask_sdpa") else 0
+                assert c == {"launches": n, "plain_calls": 0}, (k_, c)
+            errs = {}
+            for t, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+                torch.testing.assert_close(
+                    a.cpu(), b, **f32_tol["o" if t == "o" else "grad"])
+                errs[t] = max_err(a.cpu(), b)
+            out["f32"][f"S{S_} D{Dh} {name}"] = errs
+            if S_ == 200:
+                xb = [t.to(DEV, torch.bfloat16) for t in x]
+                got = flashmask_run(*xb, se.to(DEV), causal)
+                want = flashmask_plain(*xb, se.to(DEV), causal)
+                out["bf16"][f"S{S_} D{Dh} {name}"] = {
+                    t: assert_flash_bf16(f"{name} {t}", a, b)
+                    for t, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+    g = np.random.default_rng(7)
+    for lens_q, lens_k, causal in (([96, 160], [96, 160], True),
+                                   ([40, 88], [64, 128], False),
+                                   ([40, 88], [64, 128], True)):
+        x = [torch.from_numpy(g.standard_normal((1, sum(n), H_, 64),
+                                                dtype=np.float32))
+             for n in (lens_q, lens_k, lens_k, lens_q)]
+        want = unpadded_run(*x, lens_q, lens_k, causal)
+        ops.reset_counts()
+        got = unpadded_run(*(t.to(DEV) for t in x), lens_q, lens_k, causal)
+        torch.cuda.synchronize()
+        for k_, c in ops.launch_counts().items():
+            n = 1 if k_.startswith("flash_sdpa") else 0
+            assert c == {"launches": n, "plain_calls": 0}, (k_, c)
+        errs = {}
+        for t, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(
+                a.cpu(), b, **f32_tol["o" if t == "o" else "grad"])
+            errs[t] = max_err(a.cpu(), b)
+        out["f32"][f"unpadded {lens_q}/{lens_k} causal={causal}"] = errs
+    return dict(out, limits={"f32": f32_tol, "bf16": {
+        "tensor": FLASH_BF16_TENSOR_LIMIT, "tile": FLASH_BF16_TILE_LIMIT}})
+
+
+def check_flashmask(timer: Timer, rows: dict, card: dict):
+    """Phase 9b: FlashMask at Llama-3-8B's attention width (B 1, S 8192,
+    32 heads x 128 after the caller's GQA repeat, bf16), as a packed SFT
+    step calls it: every encoding of `flashmask_encodings` forward and
+    backward through flashmask_attention and autograd, the counts read
+    alone (one forward and one backward launch a call, no plain call, no
+    composite route); each held to the plain version by the flash limits;
+    flash_attn_unpadded over the same documents (flash with segment ids)
+    against causal C=1; then an f32 run at S 2048 (o 2e-5, gradients
+    1e-4); then the timings. Returns (the phase's readings, its launches)."""
+    S, H_ = TRAIN_SEQ, HQ
+    gc_ = torch.Generator(DEV).manual_seed(3)
+    q, k, v, do = (torch.randn(1, S, H_, D, device=DEV, generator=gc_)
+                   .to(torch.bfloat16) for _ in range(4))
+    encs = flashmask_encodings(S, H_)
+    ses = {n: torch.from_numpy(e[0]).to(DEV) for n, e in encs.items()}
+    ops.reset_counts()
+    attn_routes.reset_route_counts()
+    outs = {n: flashmask_run(q, k, v, do, ses[n], causal)
+            for n, (_, causal, _) in encs.items()}
+    torch.cuda.synchronize()
+    counts, routes = ops.launch_counts(), dict(attn_routes.route_counts)
+    calls = len(encs)
+    for name, c in counts.items():
+        want = calls if name.startswith("flashmask_sdpa") else 0
+        assert c == {"launches": want, "plain_calls": 0}, (name, c)
+    assert routes == dict({r: 0 for r in routes}, flashmask=calls), routes
+    launches = {k_: c["launches"] for k_, c in counts.items()
+                if c["launches"]}
+
+    cases = {}
+    for name, (_, causal, lens) in encs.items():
+        se = ses[name]
+        want = flashmask_plain(q, k, v, do, se, causal)
+        rel = {t: assert_flash_bf16(f"{name} {t}", a, b)
+               for t, a, b in zip(("o", "dq", "dk", "dv"), outs[name], want)}
+        pairs, skipped = mask_readings(se, causal, S, H_)
+        cases[name] = {"causal": causal, "mask_heads": se.shape[1],
+                       "visible_pairs": pairs,
+                       "visible_share": pairs / (H_ * S * S),
+                       "skipped_tile_share": skipped,
+                       "max_abs_err": max_err(outs[name][0], want[0]),
+                       "max_abs_err_bwd": max(max_err(a, b) for a, b in zip(
+                           outs[name][1:], want[1:])),
+                       "rel_err_bf16": {t: {"tensor": r[0], "tile": r[1]}
+                                        for t, r in rel.items()}}
+        if lens is not None:
+            cases[name]["documents"] = len(lens)
+            got = unpadded_run(q, k, v, do, lens, lens, True)
+            cases[name]["unpadded_vs_flashmask"] = {
+                t: assert_flash_bf16(f"unpadded {t}", a, b)
+                for t, a, b in zip(("o", "dq", "dk", "dv"), got,
+                                   outs[name])}
+        del want
+    del outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = {}
+    S2 = F32_FLASH_SEQ
+    x = [torch.randn(1, S2, H_, D, device=DEV, generator=gc_)
+         for _ in range(4)]
+    for name, (se_np, causal, _) in flashmask_encodings(S2, H_).items():
+        se = torch.from_numpy(se_np).to(DEV)
+        got = flashmask_run(*x, se, causal)
+        want = flashmask_plain(*x, se, causal)
+        for t, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+            tol = 2e-5 if t == "o" else 1e-4
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+        f32[name] = {"max_abs_err": max_err(got[0], want[0]),
+                     "max_abs_err_bwd": max(max_err(a, b) for a, b in zip(
+                         got[1:], want[1:]))}
+    del x, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # timings: the kernels alone (the forward, then the backward from its
+    # o and lse) for every encoding; the plain versions, PyTorch's SDPA
+    # under the dense bool mask (where no row is empty) and the port's flash
+    # with segment ids (the document masks) beside them
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk, lv, ldo = (t.transpose(1, 2) for t in (q, k, v, do))
+    scale, lse_bytes = D ** -0.5, H_ * S * 4
+    for name, (_, causal, lens) in encs.items():
+        se, c = ses[name], cases[name]
+        bands = fm_kernels._band_tensor(se, S, S, causal, q.device)
+        o, lse = fm_kernels._launch_fwd(q, k, v, bands, causal, scale)
+        flops1 = 2 * D * c["visible_pairs"]     # one product over the pairs
+        fb, fby = bound(nbytes(q, k, v, o, bands) + lse_bytes, 2 * flops1)
+        bb, bby = bound(nbytes(q, k, v, o, do, bands) + lse_bytes
+                        + 3 * nbytes(q), 5 * flops1)
+        c.update(
+            ms=timer.ms(lambda: ops.flashmask_sdpa(q, k, v, se, causal)),
+            bwd_ms=timer.ms(lambda: ops.flashmask_sdpa_bwd(
+                q, k, v, o, lse, do, se, causal)),
+            bound_ms=fb, bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby)
+        allow = ~torch.cat([band_hidden(ops.bands_from_startend(
+            se[:, h:h + 1], S, S, causal), S, S, causal)
+            for h in range(se.shape[1])], dim=1)
+        if bool(allow.any(-1).all()):
+            ll = [t.detach().requires_grad_() for t in (lq, lk, lv)]
+            lo = sdpa(*ll, attn_mask=allow)
+            c.update(library_ms=timer.ms(lambda: sdpa(lq, lk, lv,
+                                                      attn_mask=allow)),
+                     bwd_library_ms=timer.ms(lambda: torch.autograd.grad(
+                         lo, ll, ldo, retain_graph=True)))
+            del ll, lo
+        else:
+            c.update(library_ms=None, bwd_library_ms=None)
+        del allow
+        if lens is not None:
+            seg = torch.from_numpy(np.repeat(np.arange(len(lens)), lens)
+                                   ).to(DEV, torch.int32)[None]
+            fo, flse = _launch_fwd(q, k, v, seg, seg, True, scale)
+            c.update(
+                segmented_ms=timer.ms(lambda: ops.flash_sdpa(
+                    q, k, v, causal=True, segment_ids_q=seg,
+                    segment_ids_kv=seg)),
+                bwd_segmented_ms=timer.ms(lambda: ops.flash_sdpa_bwd(
+                    q, k, v, fo, flse, do, causal=True, segment_ids_q=seg,
+                    segment_ids_kv=seg)),
+                plain_ms=timer.ms(lambda: by_heads(
+                    lambda *a: ops.flashmask_sdpa_reference(
+                        *a, causal=causal), q, k, v, se=se)),
+                bwd_plain_ms=timer.ms(lambda: by_heads(
+                    lambda *a: ops.flashmask_sdpa_bwd_reference(
+                        *a, causal=causal), q, k, v, do, se=se)))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    main = cases["causal_C1_docs"]
+    fwd_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "segmented_ms")
+    rows["flashmask_sdpa"] = dict(
+        {k_: main[k_] for k_ in fwd_keys},
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        rel_err_bf16={n: c["rel_err_bf16"]["o"] for n, c in cases.items()})
+    rows["flashmask_sdpa_bwd"] = dict(
+        {k_: main["bwd_" + k_] for k_ in fwd_keys},
+        max_abs_err=max(c["max_abs_err_bwd"] for c in cases.values()),
+        rel_err_bf16={n: {t: c["rel_err_bf16"][t] for t in ("dq", "dk",
+                                                            "dv")}
+                      for n, c in cases.items()})
+    return {"card": card["nvidia_smi"], "batch": 1, "seq": S, "heads": H_,
+            "head_dim": D, "calls": calls, "launches": launches,
+            "routes": routes, "cases": cases, "f32_seq": S2, "f32": f32,
+            "limits": {"tensor": FLASH_BF16_TENSOR_LIMIT,
+                       "tile": FLASH_BF16_TILE_LIMIT,
+                       "f32": {"o": 2e-5, "grad": 1e-4}}}, launches
 
 
 def same_share(a: dict, b: dict) -> float:
@@ -3328,6 +3670,11 @@ SOURCES = {
                         "paddle_tpu/ops/quant.py:83"),
     "mla_decode_attention": ("paddle_tpu_torch/ops/csrc/mla.cu",
                              "paddle_tpu/ops/pallas_mla.py:104"),
+    "flashmask_sdpa": ("paddle_tpu_torch/ops/csrc/flashmask.cu",
+                       "paddle_tpu/ops/pallas_flashmask.py:305"),
+    # dq's pallas_call; dkv's is :359
+    "flashmask_sdpa_bwd": ("paddle_tpu_torch/ops/csrc/flashmask.cu",
+                           "paddle_tpu/ops/pallas_flashmask.py:343"),
 }
 #: the megakernels' quantized sites, reported inside their rows
 QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
@@ -3422,8 +3769,14 @@ def main() -> int:
     emit("8 tiny training cpu vs card", **tiny_train_parity())
     emit("8b tiny moe training cpu vs card", card=card["nvidia_smi"],
          **tiny_moe_train_parity())
+    emit("8c tiny flashmask and varlen attention cpu vs card",
+         card=card["nvidia_smi"], **tiny_flashmask_parity())
     res, train_launches = train_8b(card)
     emit("9 llama3-8b-width pretraining, 4 of 32 layers", **res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, fm_launches = check_flashmask(Timer(), rows, card)
+    emit("9b flashmask at llama3-8b attention width", **res)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3563,7 +3916,8 @@ def main() -> int:
              ("deepseek-v2-lite split", mla_launches["split"]),
              ("deepseek-v2-lite int4 fused", mla_launches["int4"]),
              ("deepseek-v2-lite generate_cached",
-              mla_launches["generate_cached"]))
+              mla_launches["generate_cached"]),
+             ("flashmask at 8B attention width", fm_launches))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         path, launches = next((p, c[name]) for p, c in paths if name in c)
@@ -3615,6 +3969,10 @@ def main() -> int:
                 "generate_cached"]["flash_sdpa"])
         if name == "mla_decode_attention":
             row["cases"] = r["cases"]
+        if name.startswith("flashmask_sdpa"):
+            # the packed documents' readings; every encoding's in phase 9b
+            row["case"] = "causal_C1_docs"
+            row["segmented_ms"] = r["segmented_ms"]
         if name == "gmm":
             # the forward's launches on phase 12b's training path, beside
             # the backward kernels'

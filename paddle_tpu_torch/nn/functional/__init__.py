@@ -3,14 +3,21 @@ paddle_tpu/nn/functional): plain PyTorch in the JAX package's op order,
 differentiable by autograd. No kernel of the JAX package sits behind
 these: its `rms_norm`, `layer_norm`, `gelu` and `swiglu` are array code
 there too (the serving engine calls the ``ops.fused_layer_norm`` kernel
-itself)."""
+itself).
+
+`scaled_dot_product_attention` routes through ``ops.flash_attention.sdpa``
+(the flash kernel where its gate holds); the submodule
+``flash_attention`` holds Paddle's ``paddle.nn.functional.flash_attention``
+namespace (flash_attention, flash_attn_unpadded, flash_attn_qkvpacked,
+flashmask_attention, ...)."""
 
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
 
-__all__ = ["rms_norm", "layer_norm", "gelu", "swiglu"]
+__all__ = ["rms_norm", "layer_norm", "gelu", "swiglu",
+           "scaled_dot_product_attention"]
 
 
 def rms_norm(x, weight=None, epsilon: float = 1e-6):
@@ -58,3 +65,16 @@ def swiglu(x, y=None):
     if y is None:
         x, y = x.chunk(2, dim=-1)
     return F.silu(x) * y
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """paddle.nn.functional.scaled_dot_product_attention on [B, S, H, D]:
+    ``ops.flash_attention.sdpa`` (the flash kernel, a boolean key-padding
+    mask through its segment ids, any other mask or dropout the
+    composite); dropout only in training."""
+    # imported here: ops imports this module (megadecode's gelu)
+    from ...ops import flash_attention as _fa
+    return _fa.sdpa(query, key, value, mask=attn_mask, causal=is_causal,
+                    dropout_p=dropout_p if training else 0.0)

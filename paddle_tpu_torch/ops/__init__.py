@@ -7,6 +7,10 @@ from typing import Dict
 
 from .flash import (flash_kernel_eligible, flash_sdpa, flash_sdpa_bwd,
                     flash_sdpa_bwd_reference, flash_sdpa_reference)
+from .flashmask import (bands_from_startend, flashmask_block_kinds,
+                        flashmask_kernel_eligible, flashmask_sdpa,
+                        flashmask_sdpa_bwd, flashmask_sdpa_bwd_reference,
+                        flashmask_sdpa_reference)
 from .gmm import (gmm, gmm_dlhs, gmm_kernel_eligible, gmm_plain, tgmm,
                   tgmm_plain)
 from .fused import (append_rows_reference, fused_append_rows,
@@ -40,6 +44,9 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
            "megadecode_ffn_reference", "megadecode_eligible",
            "flash_sdpa", "flash_sdpa_reference", "flash_sdpa_bwd",
            "flash_sdpa_bwd_reference", "flash_kernel_eligible",
+           "flashmask_sdpa", "flashmask_sdpa_reference", "flashmask_sdpa_bwd",
+           "flashmask_sdpa_bwd_reference", "flashmask_kernel_eligible",
+           "flashmask_block_kinds", "bands_from_startend",
            "paged_decode_attention", "paged_decode_attention_v2",
            "paged_decode_reference", "paged_decode_v2_reference",
            "paged_kernel_eligible", "default_pages_per_group",

@@ -95,12 +95,20 @@ def _reference_fwd(q, k, v, causal=False, segment_ids_q=None,
     """(o, lse [B, H, Sq] f32) of the plain version."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    if scale is None:
-        scale = D ** -0.5
     seg_q, seg_kv = _segments(B, Sq, Sk, segment_ids_q, segment_ids_kv,
                               q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     hid = _hidden(B, Sq, Sk, causal, seg_q, seg_kv, q.device)
+    return masked_attention(q, k, v, hid, scale)
+
+
+def masked_attention(q, k, v, hid, scale=None):
+    """(o, lse [B, H, Sq] f32): a dense f32 softmax of [B, S, H, D] q / k / v
+    with the entries where `hid` ([B, 1 or H, Sq, Sk] bool) is True hidden,
+    and the kernels' zero rows (o = 0, lse = +1e30 where no key is
+    visible); differentiable by autograd."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     s = torch.where(hid, torch.full_like(s, _NEG), s)
     # the max only steadies exp; the result does not depend on it
     m = s.amax(-1, keepdim=True).detach()

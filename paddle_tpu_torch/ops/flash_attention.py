@@ -11,6 +11,15 @@ holds on the CPU too: there the flash wrapper runs its plain version.
 Where some key is visible to a row the routes agree; a row that sees no
 key is zero on the flash routes and the mean of v on the composite.
 
+`flash_attn_unpadded` turns cu_seqlens into segment ids on the device and
+runs `sdpa_segmented`; `flashmask_attention` routes Paddle's FlashMask
+encodings to the FlashMask kernel (`flashmask.flashmask_sdpa`) or, with
+dropout or a head dim the JAX package's gate refuses, to the dense
+composite. Both FlashMask routes mask causally TOP-LEFT (key j hidden
+from row i when j > i), as the reference kernel does; the reference's
+composite is bottom-right aligned there, which differs when Sq != Sk
+(ROADMAP.md queue C, C3).
+
 ``route_counts`` counts the routes taken, so a run can show which one
 its attention went through.
 """
@@ -22,16 +31,20 @@ from typing import Dict, Optional
 import torch
 
 from .flash import HEAD_DIMS, flash_kernel_eligible, flash_sdpa
+from .flashmask import (band_hidden, bands_from_startend, check_shapes,
+                        flashmask_sdpa)
 
 __all__ = ["sdpa_reference", "sdpa", "sdpa_path", "sdpa_segmented",
            "sdpa_prefill", "sdpa_padded_heads", "flash_attention",
-           "route_counts", "reset_route_counts"]
+           "flash_attn_unpadded", "flashmask_attention", "route_counts",
+           "reset_route_counts"]
 
 _NEG = -1e30
 
-#: calls of `sdpa` / `sdpa_segmented` by route
+#: calls of `sdpa` / `sdpa_segmented` / `flashmask_attention` by route
 route_counts: Dict[str, int] = {"flash": 0, "flash_segmented": 0,
-                                "composite": 0}
+                                "composite": 0, "flashmask": 0,
+                                "flashmask_composite": 0}
 
 
 def reset_route_counts() -> None:
@@ -200,3 +213,69 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     """paddle.nn.functional.flash_attention.flash_attention: returns
     (out, None); the softmax is never materialized."""
     return sdpa(query, key, value, causal=causal, dropout_p=dropout), None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        name=None):
+    """paddle.nn.functional.flash_attention.flash_attn_unpadded: packed
+    [total, H, D] q / k / v and cu_seqlens -> per-sequence attention,
+    returned as (out [total_q, H, D], None). The segment id of token t is
+    the number of sequence starts <= t, found on the device by
+    ``searchsorted`` (no host read); the packed batch then runs as one
+    [1, total] row through `sdpa_segmented`. As in the JAX package, causal
+    masking aligns the packed totals (bottom-right when total_q !=
+    total_k), not each sequence."""
+    def segments(cu, n):
+        cu = cu.to(query.device).contiguous()
+        pos = torch.arange(n, dtype=cu.dtype, device=cu.device)
+        return torch.searchsorted(cu, pos, right=True).to(torch.int32)
+
+    out = sdpa_segmented(query[None], key[None], value[None],
+                         segments(cu_seqlens_q, query.shape[0])[None],
+                         kv_segment_ids=segments(cu_seqlens_k,
+                                                 key.shape[0])[None],
+                         causal=causal, scale=scale, dropout_p=dropout)
+    return out[0], None
+
+
+def _flashmask_head_dim(D: int) -> bool:
+    """The head dims the JAX package sends to its FlashMask kernel."""
+    return D % 128 == 0 or (D <= 128 and D % 64 == 0)
+
+
+def flashmask_attention(query, key, value, startend_row_indices,
+                        dropout=0.0, causal=False, name=None):
+    """paddle.nn.functional.flashmask_attention: [B, S, H, D] attention
+    under the FlashMask column encoding ``startend_row_indices`` [B, Hm,
+    Sk, C] (Hm 1 or H; `flashmask.bands_from_startend` says what each C
+    masks), returned as (out, None).
+
+    Routes as the JAX package does: dropout > 0, or a head dim its kernel
+    gate refuses, takes the dense composite (`sdpa_reference` over the
+    band mask); everything else the FlashMask kernel, whatever the lengths
+    (the Hopper tiles mask their edges). A head dim the TPU kernel takes
+    and the Hopper one does not (above 128) raises there on CUDA tensors;
+    on CPU tensors the kernel route runs its plain version. Where a row
+    sees some key both routes agree; a row that sees none is zero on the
+    kernel route and the mean of v on the composite, as in the JAX
+    package."""
+    check_shapes(query, key, value, startend_row_indices)
+    if dropout == 0.0 and _flashmask_head_dim(query.shape[-1]):
+        route_counts["flashmask"] += 1
+        return flashmask_sdpa(query, key, value, startend_row_indices,
+                              causal=causal), None
+    route_counts["flashmask_composite"] += 1
+    return _flashmask_composite(query, key, value, startend_row_indices,
+                                causal, dropout), None
+
+
+def _flashmask_composite(q, k, v, startend_row_indices, causal, dropout=0.0):
+    """`flashmask_attention`'s composite route: `sdpa_reference` over the
+    dense band mask, the causal diagonal folded in top-left."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    bands = bands_from_startend(startend_row_indices.to(q.device), Sq, Sk,
+                                causal)
+    return sdpa_reference(q, k, v, mask=~band_hidden(bands, Sq, Sk, causal),
+                          dropout_p=dropout)

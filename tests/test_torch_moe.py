@@ -475,10 +475,11 @@ class TestGenerationAgainstJax:
 ENGINE_KW = dict(max_slots=2, page_size=4, prefill_chunk=36)
 CHAINS = {"fused": {}, "split": dict(megafront=False, megadecode=False),
           "alternating": dict(ragged=False)}
-#: (port path, layout) -> the JAX engine path it is held to
-RUNS = {(c, None): c for c in CHAINS}
-RUNS.update({(c, q): "alternating" for c in CHAINS
-             for q in ("int8", "int4")})
+#: (port path, layout) -> the JAX engine path it is held to: one JAX run
+#: a layout (the JAX package's chains give one answer on this trace, as
+#: the port's do; a JAX MoE engine compiles slowly)
+RUNS = {(c, q): "alternating" for c in CHAINS
+        for q in (None, "int8", "int4")}
 
 
 def _engine_trace(V):

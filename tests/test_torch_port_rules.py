@@ -78,7 +78,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.optimizer",
                 "paddle_tpu_torch.optimizer.lr",
                 "paddle_tpu_torch.models.deepseek",
-                "paddle_tpu_torch.ops.mla"):
+                "paddle_tpu_torch.ops.mla", "paddle_tpu_torch.ops.flashmask",
+                "paddle_tpu_torch.nn.functional.flash_attention"):
         assert mod in res["modules"]
 
 
@@ -133,6 +134,7 @@ def test_engine_refuses_a_model_on_another_device():
 def test_registry_names_the_ported_kernels():
     import paddle_tpu.ops.fused  # noqa: F401  (registers its kernels)
     import paddle_tpu.ops.pallas_flash  # noqa: F401
+    import paddle_tpu.ops.pallas_flashmask  # noqa: F401
     import paddle_tpu.ops.pallas_gmm  # noqa: F401
     import paddle_tpu.ops.pallas_megadecode  # noqa: F401
     import paddle_tpu.ops.pallas_megafront  # noqa: F401
@@ -150,7 +152,8 @@ def test_registry_names_the_ported_kernels():
                            "paged_decode_attention",
                            "paged_decode_attention_v2", "weight_only_linear",
                            "gmm", "mla_decode_attention",
-                           "fused_append_rows", "int4_dequantize"}
+                           "fused_append_rows", "int4_dequantize",
+                           "flashmask_sdpa"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
@@ -165,19 +168,21 @@ def test_registry_names_the_ported_kernels():
         ["flash_sdpa_bwd"]
     assert [f.__name__ for f in ported["gmm"].backward] == \
         ["gmm_dlhs", "tgmm"]
+    assert [f.__name__ for f in ported["flashmask_sdpa"].backward] == \
+        ["flashmask_sdpa_bwd"]
     path, _, cls = ported["gmm"].backward_parity_test.partition("::")
     assert f"class {cls}" in (ROOT / path).read_text()
     counts = launch_counts()
     assert set(counts) == set(ported) | {"flash_sdpa_bwd", "gmm_dlhs",
-                                         "tgmm"}
+                                         "tgmm", "flashmask_sdpa_bwd"}
 
 
 def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["flash_attention.cu", "fused.cu", "gmm.cu",
-                     "megakernels.cu", "mla.cu", "paged_attention.cu",
-                     "ragged_attention.cu"]
+    assert names == ["flash_attention.cu", "flashmask.cu", "fused.cu",
+                     "gmm.cu", "megakernels.cu", "mla.cu",
+                     "paged_attention.cu", "ragged_attention.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     for p in _build.CSRC.glob("*.cu"):

@@ -158,16 +158,19 @@ RUNS = [("fused", "intree", None), ("split", "intree", None),
 
 
 def _run(models, chain, impl, quant, jax_runs):
-    """Both engines over the serving trace; the JAX engine's run is
-    shared by the runs that differ only on the port's side (its
-    FLAGS_paged_impl, which the JAX engine does not read here)."""
+    """Both engines over the serving trace. The JAX engine runs once a
+    weight layout, on its default fused chain, and every port path of that
+    layout is held to its tokens: the runs differ only on the port's side
+    (the JAX package's chains and paged impls give one answer on this
+    trace, as the port's do)."""
     jm, tm, _ = models
     trace = _serving_trace(jm.config.vocab_size, seeded=2)
     kw = dict(CHAINS[chain], weight_only_quant=quant, **ENGINE_KW)
-    if (chain, quant) not in jax_runs:
-        jeng = JaxEngine(jm, enable_prefix_cache=False, **kw)
-        jax_runs[(chain, quant)] = jeng, _drive(jeng, trace)[0]
-    jeng, jres = jax_runs[(chain, quant)]
+    if quant not in jax_runs:
+        jeng = JaxEngine(jm, enable_prefix_cache=False,
+                         weight_only_quant=quant, **ENGINE_KW)
+        jax_runs[quant] = jeng, _drive(jeng, trace)[0]
+    jeng, jres = jax_runs[quant]
     ops.reset_counts()
     routes.reset_route_counts()
     with flags_guard(paged_impl=impl):
