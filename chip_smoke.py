@@ -56,7 +56,15 @@ Phases, one line each on stdout:
    way at the training routing, both directions, and at edge cases with
    empty first, middle and last groups, dlhs's tail rows and the empty
    groups' drhs slabs exactly zero, timed beside torch._grouped_mm where
-   it takes the case;
+   it takes the case; the four incubate kernels at their paths' shapes
+   (`check_incubate_kernels`): swiglu on two [4096, 14336] operands and
+   the split form of one [4096, 28672], fused_rope on Llama-3-8B's q / k
+   over 4096 positions and its backward launch, fused_bias_residual_
+   layer_norm at [4096, 4096], fused_moe_dispatch_combine at
+   ERNIE-4.5-21B-A3B's routing of 4096 tokens (E 64, k 6, C 480, f32),
+   bf16 within one bf16 spacing (`max_bf16_spacings`), f32 at 2e-5, the
+   MoE outputs exact, each timed beside its plain version and its bytes
+   bound (no one PyTorch call computes any of them);
 3. a tiny f32 Llama served on the CPU (plain versions) and on the card
    (kernels) over one seeded join/leave trace, on the fused and on the
    split chain and on the alternating path (ragged=False) under
@@ -149,6 +157,22 @@ Phases, one line each on stdout:
    versions, the port's flash with segment ids (the same function,
    `segmented_ms`) and PyTorch's SDPA under the dense bool mask
    (`library_ms`, where no row is empty);
+9c. the incubate API and the standalone fuse at full width
+   (`incubate_paths`): fused_rotary_position_embedding at Llama-3-8B's
+   attention with the [S, D/2] and Paddle's [S, D] tables and swiglu at
+   its FFN (split and two operands), forward and backward; fuse over
+   fused_bias_dropout_residual_layer_norm's eval form at GPT-3 6.7B's
+   width and over top_k_gating at ERNIE-4.5-21B-A3B's routing (one
+   rewrite and one launch each, no untraced program); a BERT-base
+   FusedTransformerEncoderLayer forward (one flash launch); exact launch
+   counts, every kernel held against its plain version;
+9d. Llama-3-8B width, depth cut to 4 layers, 1 x 4096 tokens, bf16 by
+   amp.decorate O2, eager AdamW (lr 3e-4, decay 0.1, clip 1.0), 2 + 3
+   steps through jit.to_static with FLAGS_use_fusion_compiler and again
+   without (`to_static_training`): one swiglu rewrite a layer, swiglu
+   launched once a layer a step on the flagged run only, flash forward
+   and backward once a layer on both, one captured graph, no untraced
+   program; each step's two losses within 2^-7 relative;
 10. GPT-3 6.7B at full width and depth (gpt3_6_7b_config: 32 layers,
    hidden 4096, 32 heads x 128, FFN 16384, vocab 50304, tied head; bf16
    weights drawn on the card) on the trace of phase 4: the fused chain
@@ -193,7 +217,10 @@ Phases, one line each on stdout:
    launches from phase 10's fused chain; gmm's launches from phase 12's
    fused chain beside its training launches from phase 12b, gmm_dlhs's
    and tgmm's from phase 12b, flashmask_sdpa's and its backward's from
-   phase 9b with the packed documents' readings), then the ``{"ok":
+   phase 9b with the packed documents' readings, swiglu's from phase 9d's
+   flagged run, fused_rope's, its backward's,
+   fused_bias_residual_layer_norm's and fused_moe_dispatch_combine's from
+   phase 9c), then the ``{"ok":
    true, ...}`` line.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
@@ -691,6 +718,7 @@ def check_kernels(timer: Timer):
     check_gmm(timer, rows)
     check_gmm_backward(timer, rows)
     check_mla_kernels(timer, rows)
+    check_incubate_kernels(timer, rows)
     return rows
 
 
@@ -1632,7 +1660,8 @@ def check_flash(timer: Timer, rows: dict):
     (B 1, S 8192, 32 heads x 128 after the GQA repeat, causal) in bf16
     and at S 2048 in f32, against the plain version: o and the three
     gradients; in bf16 timed beside the plain version, the bound and
-    PyTorch's SDPA (library_ms, a yardstick the port never calls)."""
+    PyTorch's SDPA (library_ms, a yardstick the port never calls). Then
+    the non-causal head-dim-64 case of phase 9c (`check_flash_bert`)."""
     gc_ = torch.Generator(DEV).manual_seed(1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd_ref = lambda q, k, v: ops.flash_sdpa_reference(  # noqa: E731
@@ -1707,6 +1736,34 @@ def check_flash(timer: Timer, rows: dict):
             plain_ms=timer.ms(lambda: by_heads(bwd_ref, q, k, v, do)),
             library_ms=timer.ms(lambda: torch.autograd.grad(
                 lo, ll, ldo, retain_graph=True)))
+    check_flash_bert(gc_, rows)
+
+
+def check_flash_bert(gc_, rows: dict):
+    """flash_sdpa forward and backward at phase 9c's encoder-layer
+    attention (BERT-base: B 8, S 512, 12 heads x 64, non-causal, bf16)
+    against the plain version, at the bf16 flash limits."""
+    E_, heads = BERT_BASE[:2]
+    q, k, v, do = (torch.randn(BERT_BATCH, BERT_SEQ, heads, E_ // heads,
+                               device=DEV, generator=gc_)
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = ops.flash_sdpa(*leaves, causal=False)
+    o.backward(do)
+    with torch.no_grad():
+        ref_o = ops.flash_sdpa_reference(q, k, v, causal=False)
+    ref_g = ops.flash_sdpa_bwd_reference(q, k, v, do, causal=False)
+    outs = {"o": (o.detach(), ref_o), **{n: (t.grad, r) for n, t, r in
+                                         zip(("dq", "dk", "dv"), leaves,
+                                             ref_g)}}
+    rel = {n: assert_flash_bf16(n + " non-causal D 64", got, want)
+           for n, (got, want) in outs.items()}
+    for name, names in (("flash_sdpa", ["o"]),
+                        ("flash_sdpa_bwd", ["dq", "dk", "dv"])):
+        rows[name]["rel_err_bf16_noncausal_d64"] = {
+            n: {"tensor": rel[n][0], "tile": rel[n][1]} for n in names}
+        rows[name]["max_abs_err_noncausal_d64"] = max(
+            max_err(*outs[n]) for n in names)
 
 
 # ------------------------------------------------------ phase 2, MLA
@@ -2092,19 +2149,24 @@ NO_PAGED = {"paged_decode_attention": (0, 0),
 #: the MLA family's own kernels, which no other family launches
 NO_MLA = {"fused_append_rows": (0, 0), "int4_dequantize": (0, 0),
           "mla_decode_attention": (0, 0)}
+#: the incubate kernels, which no serving path launches
+NO_INCUBATE = {"swiglu": (0, 0), "fused_rope": (0, 0),
+               "fused_rope_bwd": (0, 0),
+               "fused_bias_residual_layer_norm": (0, 0),
+               "fused_moe_dispatch_combine": (0, 0)}
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_layer_norm": (0, 0),
                   "fused_qkv_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_oproj_norm": (1, 0), "fused_ffn": (1, 0),
                   "fused_rope_append": (0, 0), "weight_only_linear": (0, 0),
-                  **NO_TRAINING, **NO_PAGED, **NO_MLA}
+                  **NO_TRAINING, **NO_PAGED, **NO_MLA, **NO_INCUBATE}
 SPLIT_PER_STEP = {"fused_rms_norm": (2, 1), "fused_layer_norm": (0, 0),
                   "fused_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
                   "fused_qkv_rope_append": (0, 0),
                   "fused_oproj_norm": (0, 0), "fused_ffn": (0, 0),
                   "weight_only_linear": (0, 0), **NO_TRAINING, **NO_PAGED,
-                  **NO_MLA}
+                  **NO_MLA, **NO_INCUBATE}
 #: weight_only_linear a step under int4 weights: the LM head on the fused
 #: chain; the seven projections of every layer and the head on the split
 #: chain (int8 products are h @ (q * s), no kernel)
@@ -3623,6 +3685,467 @@ def check_flashmask(timer: Timer, rows: dict, card: dict):
                        "f32": {"o": 2e-5, "grad": 1e-4}}}, launches
 
 
+# --------------------------------------------------- phase 2, incubate
+#: the shapes of the incubate kernels' paths (phase 9c / 9d): Llama-3-8B's
+#: attention and FFN over 1 x 4096 tokens, GPT-3 6.7B's hidden at 4096
+#: tokens, ERNIE-4.5-21B-A3B's routing of 4096 tokens (64 experts, top-6,
+#: capacity int(1.25 x 6 x 4096 / 64) = 480)
+INC_TOKENS = 4096
+MOE_E, MOE_K = 64, 6
+MOE_CAP = int(1.25 * MOE_K * INC_TOKENS / MOE_E)
+#: the to_static training run (phase 9d): Llama-3-8B width, depth cut
+STATIC_LAYERS, STATIC_WARMUP, STATIC_STEPS = 4, 2, 3
+#: phase 9d's bar on the first step's parameter gradients, flagged
+#: against unflagged (`grad_rel_diff`): set from readings of the sound
+#: rewrite and of the planted faults below (PERF.md)
+STATIC_GRAD_BAR = 2.0 ** -5
+#: planted faults of the swiglu rewrite's executor (gate and up swapped;
+#: up dropped), each of which must miss STATIC_GRAD_BAR
+PLANTED_SWIGLU = {
+    "gate_up_swapped": lambda gate, up, dtype:
+        ops.swiglu(up, gate).to(dtype),
+    "up_dropped": lambda gate, up, dtype:
+        ops.swiglu(gate, torch.ones_like(up)).to(dtype),
+}
+#: BERT-base's encoder layer (hidden 768, 12 heads, FFN 3072), 8 x 512
+BERT_BASE = (768, 12, 3072)
+BERT_BATCH, BERT_SEQ = 8, 512
+
+
+def max_bf16_spacings(got, want) -> float:
+    """max |got - want| in bf16 spacings at want's magnitude (the spacing
+    of the bf16 numbers at or below |want|), the magnitude floored at
+    1/256 of the tensor's largest: an f32 sum taken in another order
+    differs relative to its terms, so a value that cancels to near 0 is
+    judged at the spacing of the terms' scale, not of its own."""
+    got, want = got.detach().float(), want.detach().float()
+    mag = want.abs().clamp_min(max(float(want.abs().max()) / 256,
+                                   torch.finfo(torch.bfloat16).tiny))
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - want).abs() / spacing).max())
+
+
+def hold_one_spacing(name, got, want):
+    """bf16 within one bf16 spacing (the kernel and the plain version
+    both compute in f32 with one cast; only the f32 rounding before the
+    cast may differ), f32 at 2e-5."""
+    if got.dtype == torch.bfloat16:
+        sp = max_bf16_spacings(got, want)
+        assert sp <= 1.0, (name, sp)
+        return sp
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    return 0.0
+
+
+def check_incubate_kernels(timer, rows):
+    """swiglu, fused_rope (and its backward launch),
+    fused_bias_residual_layer_norm and fused_moe_dispatch_combine at their
+    paths' shapes, bf16 (the MoE build in f32, as top_k_gating's gates
+    are) and f32, against their plain versions: bf16 within one bf16
+    spacing, f32 at 2e-5, the MoE outputs exact; timed beside the plain
+    versions and the bytes bound. No one PyTorch call computes any of the
+    four (library_ms None)."""
+    gc = torch.Generator(DEV).manual_seed(21)
+    T, I = INC_TOKENS, FFN
+    cos_t, sin_t = precompute_rope(D, INC_TOKENS, 500000.0, DEV)
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        tag = "bf16" if main else "f32"
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, device=DEV, generator=gc)
+                    * scale).to(dtype)
+
+        # swiglu: two [T, I] operands, and the split form of one [T, 2I]
+        gate, up, gu = rnd(T, I, scale=3), rnd(T, I, scale=3), \
+            rnd(T, 2 * I, scale=3)
+        n0 = ops.swiglu.launches
+        out, out2 = ops.swiglu(gate, up), ops.swiglu(gu)
+        torch.cuda.synchronize()
+        assert ops.swiglu.launches == n0 + 2
+        sp = max(hold_one_spacing("swiglu", out,
+                                  ops.swiglu_reference(gate, up)),
+                 hold_one_spacing("swiglu split", out2,
+                                  ops.swiglu_reference(gu)))
+        r = rows.setdefault("swiglu", {})
+        r[f"max_abs_err_{tag}"] = max(max_err(out, ops.swiglu_reference(
+            gate, up)), max_err(out2, ops.swiglu_reference(gu)))
+        if main:
+            b, by = bound(nbytes(gate, up, out))
+            r.update(max_abs_err=r["max_abs_err_bf16"], bf16_spacings=sp,
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     ms=timer.ms(lambda: ops.swiglu(gate, up)),
+                     split_form_ms=timer.ms(lambda: ops.swiglu(gu)),
+                     plain_ms=timer.ms(
+                         lambda: ops.swiglu_reference(gate, up)))
+
+        # rope: Llama-3-8B's q / k over 4096 positions, f32 tables
+        q, k = rnd(1, T, HQ, D), rnd(1, T, KV, D)
+        gq, gk = rnd(1, T, HQ, D), rnd(1, T, KV, D)
+        n0, nb = ops.fused_rope.launches, ops.fused_rope_bwd.launches
+        qo, ko = ops.fused_rope(q, k, cos_t, sin_t)
+        dq, dk = ops.fused_rope_bwd(gq, gk, cos_t, sin_t)
+        torch.cuda.synchronize()
+        assert ops.fused_rope.launches == n0 + 1
+        assert ops.fused_rope_bwd.launches == nb + 1
+        rq, rk = ops.rope_reference(q, k, cos_t, sin_t)
+        from paddle_tpu_torch.ops.fused import _rope_bwd_reference
+        rdq, rdk = _rope_bwd_reference(gq, gk, cos_t, sin_t)
+        sp = max(hold_one_spacing("fused_rope q", qo, rq),
+                 hold_one_spacing("fused_rope k", ko, rk))
+        spb = max(hold_one_spacing("fused_rope_bwd q", dq, rdq),
+                  hold_one_spacing("fused_rope_bwd k", dk, rdk))
+        for name, errs, spc in (
+                ("fused_rope", (max_err(qo, rq), max_err(ko, rk)), sp),
+                ("fused_rope_bwd", (max_err(dq, rdq), max_err(dk, rdk)),
+                 spb)):
+            r = rows.setdefault(name, {})
+            r[f"max_abs_err_{tag}"] = max(errs)
+            if main:
+                b, by = bound(nbytes(q, k, cos_t, sin_t, qo, ko))
+                r.update(max_abs_err=max(errs), bf16_spacings=spc,
+                         bound_ms=b, bound_by=by, library_ms=None)
+        if main:
+            rows["fused_rope"].update(
+                ms=timer.ms(lambda: ops.fused_rope(q, k, cos_t, sin_t)),
+                plain_ms=timer.ms(
+                    lambda: ops.rope_reference(q, k, cos_t, sin_t)))
+            rows["fused_rope_bwd"].update(
+                ms=timer.ms(lambda: ops.fused_rope_bwd(gq, gk, cos_t,
+                                                       sin_t)),
+                plain_ms=timer.ms(
+                    lambda: _rope_bwd_reference(gq, gk, cos_t, sin_t)))
+
+        # bias + residual + layer norm at GPT-3 6.7B's hidden
+        x, res = rnd(T, GPT_H), rnd(T, GPT_H)
+        x[1] += 30.0          # a large mean: the centred variance keeps it
+        bb, w, lb = rnd(GPT_H), rnd(GPT_H), rnd(GPT_H)
+        n0 = ops.fused_bias_residual_layer_norm.launches
+        out = ops.fused_bias_residual_layer_norm(x, res, bb, w, lb)
+        torch.cuda.synchronize()
+        assert ops.fused_bias_residual_layer_norm.launches == n0 + 1
+        want = ops.bias_residual_layer_norm_reference(x, res, bb, w, lb)
+        sp = hold_one_spacing("fused_bias_residual_layer_norm", out, want)
+        r = rows.setdefault("fused_bias_residual_layer_norm", {})
+        r[f"max_abs_err_{tag}"] = max_err(out, want)
+        if main:
+            b, by = bound(nbytes(x, res, bb, w, lb, out))
+            r.update(max_abs_err=r["max_abs_err_bf16"], bf16_spacings=sp,
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     ms=timer.ms(lambda: ops.fused_bias_residual_layer_norm(
+                         x, res, bb, w, lb)),
+                     plain_ms=timer.ms(
+                         lambda: ops.bias_residual_layer_norm_reference(
+                             x, res, bb, w, lb)))
+
+    # the MoE build at ERNIE-4.5's routing, f32 gates (bf16 out as a check)
+    gates = torch.softmax(torch.randn(INC_TOKENS, MOE_E, device=DEV,
+                                      generator=gc), -1)
+    keep, oh, gv, _ = moe_ffn.gating_plan(gates, MOE_K, MOE_CAP)
+    r = rows.setdefault("fused_moe_dispatch_combine", {})
+    for dtype in (torch.float32, torch.bfloat16):
+        kd, od, gd = (t.to(dtype) for t in (keep, oh, gv))
+        n0 = ops.fused_moe_dispatch_combine.launches
+        d, c = ops.fused_moe_dispatch_combine(kd, od, gd)
+        torch.cuda.synchronize()
+        assert ops.fused_moe_dispatch_combine.launches == n0 + 1
+        rd, rc = ops.moe_dispatch_combine_reference(kd, od, gd)
+        assert torch.equal(d, rd) and torch.equal(c, rc)
+        r[f"max_abs_err_{'f32' if dtype == torch.float32 else 'bf16'}"] = \
+            max(max_err(d, rd), max_err(c, rc))
+    d, c = ops.fused_moe_dispatch_combine(keep, oh, gv)
+    b, by = bound(nbytes(keep, oh, gv, d, c))
+    r.update(max_abs_err=r["max_abs_err_f32"], bound_ms=b, bound_by=by,
+             library_ms=None, tokens=INC_TOKENS, experts=MOE_E, top_k=MOE_K,
+             capacity=MOE_CAP,
+             ms=timer.ms(lambda: ops.fused_moe_dispatch_combine(keep, oh,
+                                                               gv)),
+             plain_ms=timer.ms(
+                 lambda: ops.moe_dispatch_combine_reference(keep, oh, gv)))
+    del d, c
+
+
+# ----------------------------------------------------------- phase 9c/9d
+def incubate_paths(card):
+    """Phase 9c: the incubate API and the standalone fuse at full width,
+    forward and backward, each kernel held against its plain version:
+    fused_rotary_position_embedding at Llama-3-8B's attention over 4096
+    positions with the [S, D/2] and Paddle's [S, D] tables (one rope
+    launch forward, one backward, a call); incubate swiglu on [4096, 2 x
+    14336] (split) and on two [4096, 14336] operands (one launch a call;
+    the backward is torch ops); fuse over
+    fused_bias_dropout_residual_layer_norm's eval form at GPT-3 6.7B's
+    width (T 4096, H 4096, bf16, dropout 0.1 in eval) and over
+    top_k_gating at ERNIE-4.5-21B-A3B's routing (T 4096, E 64, k 6, C
+    480, f32 gates): each one rewrite and one launch, no untraced program;
+    one forward of FusedTransformerEncoderLayer at BERT-base width (8 x
+    512, bf16): its attention one flash launch, held against the plain
+    version on the layer's own q / k / v at the bf16 flash limits. Every
+    other kernel 0 and no plain call."""
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.jit import fusion
+    gc = torch.Generator(DEV).manual_seed(31)
+    bf = torch.bfloat16
+    T = INC_TOKENS
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(*shape, device=DEV, generator=gc)
+                * scale).to(dtype)
+    ops.reset_counts()
+    fusion.reset_stats()
+    out = {"card": card["nvidia_smi"]}
+
+    cos, sin = precompute_rope(D, T, 500000.0, DEV)          # [T, 64]
+    full = (cos.repeat_interleave(2, -1), sin.repeat_interleave(2, -1))
+    q = rnd(1, T, HQ, D).requires_grad_()
+    k = rnd(1, T, KV, D).requires_grad_()
+    v = rnd(1, T, KV, D)
+    from paddle_tpu_torch.ops.fused import _rope_bwd_reference
+    for table, (c, s) in (("half", (cos, sin)), ("full", full)):
+        qo, ko, vo = IF.fused_rotary_position_embedding(q, k, v, sin=s,
+                                                        cos=c)
+        assert vo is v
+        gq, gk = rnd(*qo.shape), rnd(*ko.shape)
+        dq, dk = torch.autograd.grad((qo, ko), (q, k), (gq, gk))
+        rq, rk = ops.rope_reference(q.detach(), k.detach(), cos, sin)
+        rdq, rdk = _rope_bwd_reference(gq, gk, cos, sin)
+        out[f"rope_{table}_bf16_spacings"] = max(
+            hold_one_spacing("rope q", qo, rq),
+            hold_one_spacing("rope k", ko, rk),
+            hold_one_spacing("rope dq", dq, rdq),
+            hold_one_spacing("rope dk", dk, rdk))
+
+    for form in ("split", "two"):
+        if form == "split":
+            x = rnd(T, 2 * FFN, scale=3).requires_grad_()
+            args = (x,)
+        else:
+            args = tuple(rnd(T, FFN, scale=3).requires_grad_()
+                         for _ in range(2))
+        y = IF.swiglu(*args)
+        gy = rnd(*y.shape)
+        grads = torch.autograd.grad(y, args, gy)
+        plain_args = tuple(a.detach().requires_grad_() for a in args)
+        yr = ops.swiglu_reference(*plain_args)
+        rgrads = torch.autograd.grad(yr, plain_args, gy)
+        out[f"swiglu_{form}_bf16_spacings"] = hold_one_spacing(
+            "swiglu", y, yr.detach())
+        out[f"swiglu_{form}_grad_max_abs_err"] = max(
+            max_err(a, b) for a, b in zip(grads, rgrads))
+        del args, y, grads, plain_args, yr, rgrads
+
+    xb, rb = rnd(T, GPT_H), rnd(T, GPT_H)
+    bb, wb, lb = rnd(GPT_H), rnd(GPT_H), rnd(GPT_H)
+
+    def brln_program(x, r, b, w, l):
+        return IF.fused_bias_dropout_residual_layer_norm(
+            x, r, bias=b, ln_scale=w, ln_bias=l, dropout_rate=0.1,
+            training=False)
+    got = fusion.fuse(brln_program)(xb, rb, bb, wb, lb)
+    want = ops.bias_residual_layer_norm_reference(xb, rb, bb, wb, lb)
+    out["brln_bf16_spacings"] = hold_one_spacing("brln", got, want)
+    out["brln_max_abs_vs_unfused_program"] = max_err(
+        got, brln_program(xb, rb, bb, wb, lb))
+
+    gates = torch.softmax(torch.randn(T, MOE_E, device=DEV, generator=gc),
+                          -1)
+
+    def gate_program(g):
+        return moe_ffn.top_k_gating(g, MOE_K, MOE_CAP)
+    d, c, aux = fusion.fuse(gate_program)(gates)
+    rd, rc, raux = gate_program(gates)
+    assert torch.equal(d, rd) and torch.equal(c, rc) and \
+        torch.equal(aux, raux)
+    out["moe_dispatch_exact"] = True
+    del d, c, rd, rc
+
+    E_, heads, ffn = BERT_BASE
+    layer = FusedTransformerEncoderLayer(
+        E_, heads, ffn, dropout_rate=0.0, device=DEV, dtype=bf,
+        generator=torch.Generator(DEV).manual_seed(0))
+    layer.eval()
+    # the layer's attention, as its route calls the kernel, is held
+    # against the plain version on the same q / k / v
+    seen, kernel = [], attn_routes.flash_sdpa
+
+    def recording(q_, k_, v_, **kw):
+        o_ = kernel(q_, k_, v_, **kw)
+        seen.append((q_, k_, v_, kw, o_))
+        return o_
+    attn_routes.flash_sdpa = recording
+    try:
+        with torch.no_grad():
+            y = layer(rnd(BERT_BATCH, BERT_SEQ, E_))
+    finally:
+        attn_routes.flash_sdpa = kernel
+    assert y.shape == (BERT_BATCH, BERT_SEQ, E_) and \
+        bool(torch.isfinite(y).all())
+    (aq, ak, av, kw, ao), = seen
+    assert kw["causal"] is False and ao.shape == (
+        BERT_BATCH, BERT_SEQ, heads, E_ // heads), (kw, ao.shape)
+    with torch.no_grad():
+        want = ops.flash_sdpa_reference(aq, ak, av, **kw)
+    out["bert_attention_rel_err_bf16"] = dict(zip(
+        ("tensor", "tile"), assert_flash_bf16("bert attention", ao, want)))
+    del seen, aq, ak, av, ao, want
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want_counts = {"fused_rope": 2, "fused_rope_bwd": 2, "swiglu": 2,
+                   "fused_bias_residual_layer_norm": 1,
+                   "fused_moe_dispatch_combine": 1, "flash_sdpa": 1}
+    for name, cnt in counts.items():
+        assert cnt == {"launches": want_counts.get(name, 0),
+                       "plain_calls": 0}, (name, cnt)
+    st = fusion.stats()
+    assert st["untraced"] == 0, st
+    assert st["rewritten"] == dict({p: 0 for p in st["rewritten"]},
+                                   bias_residual_ln=1, moe_dispatch=1), st
+    assert st["found"] == st["rewritten"] and \
+        sum(st["refused"].values()) == 0, st
+    out.update(launches=want_counts, fuse=st, moe_capacity=MOE_CAP)
+    del layer
+    return out, {k: v["launches"] for k, v in counts.items()
+                 if v["launches"]}
+
+
+def grad_rel_diff(model, ref: dict) -> float:
+    """The largest over `model`'s parameters of ||grad - ref|| / ||ref||,
+    `ref` their gradients from another run of the same step (a parameter
+    the run left without a gradient reads 1)."""
+    def diff(n, p):
+        if p.grad is None:
+            return 1.0
+        return float((p.grad.float() - ref[n].float()).norm()
+                     / ref[n].float().norm())
+    return max(diff(n, p) for n, p in model.named_parameters())
+
+
+def planted_swiglu_readings(model, ids, labels, ref: dict) -> dict:
+    """The first step's forward and backward through the flagged capture
+    with each planted fault of PLANTED_SWIGLU in place of the swiglu
+    rewrite's executor: its gradients' `grad_rel_diff` against the
+    unflagged run's `ref`. No optimizer step; the sound executor is put
+    back and the capture dropped after."""
+    from paddle_tpu_torch.jit import StaticFunction, fusion
+    sound = fusion.PATTERNS["swiglu"]
+    readings = {}
+    try:
+        for name, executor in PLANTED_SWIGLU.items():
+            fusion.PATTERNS["swiglu"] = sound[:2] + (executor,) + sound[3:]
+            torch._dynamo.reset()
+            with flags_guard(use_fusion_compiler=True):
+                loss, _ = StaticFunction(model.forward)(ids, labels=labels)
+            loss.backward()
+            readings[name] = grad_rel_diff(model, ref)
+            model.zero_grad(set_to_none=True)
+            del loss
+    finally:
+        fusion.PATTERNS["swiglu"] = sound
+        torch._dynamo.reset()
+    return readings
+
+
+def to_static_training(card):
+    """Phase 9d: Llama-3-8B width, depth cut to STATIC_LAYERS, 1 x 4096
+    tokens, f32 weights drawn on the card then bf16 by amp.decorate O2
+    (f32 master weights and AdamW moments), AdamW lr 3e-4, decay 0.1,
+    ClipGradByGlobalNorm(1.0): STATIC_WARMUP + STATIC_STEPS eager steps
+    through jit.to_static, once without FLAGS_use_fusion_compiler and once
+    with it, from the same weights. The flagged capture finds and
+    rewrites one swiglu a layer (the JAX pass's count on this config) and
+    nothing else; each timed step launches swiglu once a layer on the
+    flagged run and never on the other, the flash forward and backward
+    once a layer on both, nothing else; no untraced program. Two bars:
+    the first step's parameter gradients of the two runs within
+    STATIC_GRAD_BAR (`grad_rel_diff`), which each planted fault of the
+    rewrite (PLANTED_SWIGLU, run on the flagged model before its first
+    step) must miss; and each step's two losses within one bf16 spacing
+    at the loss's magnitude (2^-7 relative), as the flagged FFN rounds
+    once where the captured F.silu(g) * up rounds twice."""
+    from paddle_tpu_torch.jit import fusion, to_static
+    cfg = llama3_8b_config(num_hidden_layers=STATIC_LAYERS,
+                           max_position_embeddings=INC_TOKENS)
+    L = STATIC_LAYERS
+    g = torch.Generator(DEV).manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (1, INC_TOKENS), device=DEV,
+                        generator=g)
+    labels = torch.roll(ids, -1, dims=1)
+    runs, launches, ref, planted = {}, {}, {}, {}
+    for flagged in (False, True):
+        model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                                 generator=torch.Generator(DEV)
+                                 .manual_seed(0))
+        opt = optim.AdamW(learning_rate=3e-4,
+                          parameters=model.parameters(), weight_decay=0.1,
+                          grad_clip=ClipGradByGlobalNorm(1.0))
+        model, opt = amp.decorate(model, opt, level="O2")
+        if flagged:
+            planted = planted_swiglu_readings(model, ids, labels, ref)
+        fusion.reset_stats()
+        losses, times = [], []
+        with flags_guard(use_fusion_compiler=flagged):
+            to_static(model)
+            for i in range(STATIC_WARMUP + STATIC_STEPS):
+                if i == STATIC_WARMUP:
+                    ops.reset_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, _ = model(ids, labels=labels)
+                loss.backward()
+                if i == 0 and flagged:
+                    grad_rel = grad_rel_diff(model, ref)
+                elif i == 0:
+                    ref = {n: p.grad.clone()
+                           for n, p in model.named_parameters()}
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss.detach()))
+                times.append((time.perf_counter() - t) * 1e3)
+        counts = ops.launch_counts()
+        want = {"flash_sdpa": L * STATIC_STEPS,
+                "flash_sdpa_bwd": L * STATIC_STEPS}
+        if flagged:
+            want["swiglu"] = L * STATIC_STEPS
+        for name, c in counts.items():
+            assert c == {"launches": want.get(name, 0), "plain_calls": 0}, \
+                (name, c)
+        st = fusion.stats()
+        assert st["untraced"] == 0 and st["graphs"] == 1, st
+        zero = {p: 0 for p in st["found"]}
+        if flagged:
+            assert st["found"] == st["rewritten"] == dict(zero, swiglu=L), st
+            launches = {k: v["launches"] for k, v in counts.items()
+                        if v["launches"]}
+        else:
+            assert st["found"] == st["rewritten"] == zero, st
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        runs["flagged" if flagged else "unflagged"] = {
+            "losses": losses, "step_ms": times,
+            "step_ms_median": statistics.median(times[STATIC_WARMUP:]),
+            "fuse": st}
+        del model, opt, loss
+        torch._dynamo.reset()       # drop the capture's cached frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    a, b = runs["flagged"]["losses"], runs["unflagged"]["losses"]
+    rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    readings = {"grad_rel_diff_first_step": grad_rel,
+                "grad_bar_rel": STATIC_GRAD_BAR,
+                "planted_grad_rel_diff": planted, "loss_rel_diff": rel,
+                "loss_bar_rel": 2.0 ** -7}
+    assert grad_rel <= STATIC_GRAD_BAR, readings
+    assert all(v > STATIC_GRAD_BAR for v in planted.values()), readings
+    assert max(rel) <= 2.0 ** -7, readings
+    return {"card": card["nvidia_smi"], "layers": L, "layers_published": 32,
+            "seq": INC_TOKENS, "batch": 1, "warmup_steps": STATIC_WARMUP,
+            "timed_steps": STATIC_STEPS, **readings,
+            "launches_per_step": {"swiglu": L, "flash_sdpa": L,
+                                  "flash_sdpa_bwd": L}, **runs}, launches
+
+
 def same_share(a: dict, b: dict) -> float:
     """Share of greedy tokens of `b` equal to `a`'s, request by request."""
     toks = [(a[r], b[r]) for r in a]
@@ -3675,6 +4198,18 @@ SOURCES = {
     # dq's pallas_call; dkv's is :359
     "flashmask_sdpa_bwd": ("paddle_tpu_torch/ops/csrc/flashmask.cu",
                            "paddle_tpu/ops/pallas_flashmask.py:343"),
+    "swiglu": ("paddle_tpu_torch/ops/csrc/fused.cu",
+               "paddle_tpu/ops/fused.py:554"),
+    "fused_rope": ("paddle_tpu_torch/ops/csrc/fused.cu",
+                   "paddle_tpu/ops/fused.py:354"),
+    # the custom VJP's backward (jnp there), the same kernel rotating by
+    # -theta here
+    "fused_rope_bwd": ("paddle_tpu_torch/ops/csrc/fused.cu",
+                       "paddle_tpu/ops/fused.py:340"),
+    "fused_bias_residual_layer_norm": ("paddle_tpu_torch/ops/csrc/fused.cu",
+                                       "paddle_tpu/ops/fused.py:210"),
+    "fused_moe_dispatch_combine": ("paddle_tpu_torch/ops/csrc/fused.cu",
+                                   "paddle_tpu/ops/fused.py:265"),
 }
 #: the megakernels' quantized sites, reported inside their rows
 QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
@@ -3777,6 +4312,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     res, fm_launches = check_flashmask(Timer(), rows, card)
     emit("9b flashmask at llama3-8b attention width", **res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, inc_launches = incubate_paths(card)
+    emit("9c incubate api and fuse at full width", **res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, static_launches = to_static_training(card)
+    emit(f"9d llama3-8b-width training through to_static and the fusion "
+         f"pass, {STATIC_LAYERS} of 32 layers", **res)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3917,7 +4461,9 @@ def main() -> int:
              ("deepseek-v2-lite int4 fused", mla_launches["int4"]),
              ("deepseek-v2-lite generate_cached",
               mla_launches["generate_cached"]),
-             ("flashmask at 8B attention width", fm_launches))
+             ("flashmask at 8B attention width", fm_launches),
+             ("to_static llama training, fusion pass", static_launches),
+             ("incubate api and fuse", inc_launches))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
         path, launches = next((p, c[name]) for p, c in paths if name in c)
@@ -3928,7 +4474,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "split_ms": r.get("split_ms"),
-            "rel_err_bf16": r.get("rel_err_bf16")}
+            "rel_err_bf16": r.get("rel_err_bf16"),
+            "bf16_spacings": r.get("bf16_spacings")}
         if name in QUANT_SITES:
             for q in ("int8", "int4"):
                 row[q] = dict({k: r[q][k] for k in SITE_KEYS},

@@ -18,7 +18,9 @@ request, and through its alternating path (``ragged=False``: the paged
 decode kernels); batch generation through ``generation.generate`` and
 ``generate_cached``; and single-device Llama pretraining through
 ``trainer.build_llama_pretrain_step`` (flash attention forward and
-backward as kernels; ``device="cpu"`` runs the plain versions).
+backward as kernels; ``device="cpu"`` runs the plain versions); the
+incubate fused-op surface (``incubate.nn``) and ``jit.to_static`` with
+its pattern-fusion pass (``jit.fusion``). ROADMAP.md lists the rest.
 """
 
 from .device import card_report, resolve_device

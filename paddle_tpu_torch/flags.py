@@ -202,3 +202,10 @@ define_flag("FLAGS_mla_decode_impl", "auto",
             "CPU tensors and an error on the card), "
             "'fused' (the kernel) or 'xla' (the two-einsum composite)",
             validator=lambda v: v in ("auto", "fused", "xla"))
+
+
+define_flag("FLAGS_use_fusion_compiler", False,
+            "run jit.to_static programs through the pattern-fusion pass "
+            "(jit/fusion.py: sdpa, rmsnorm, swiglu, bias_residual_ln, "
+            "moe_dispatch rewritten to the hand-written kernels); read at "
+            "each capture")

@@ -14,7 +14,8 @@ combine multiplies the k selected outputs by their gates cast to that
 dtype and reduces over k in rank order.
 
 - ``top_k_gating``: the GShard capacity planner (dispatch / combine
-  tensors, choice-major capacity, the first-choice aux loss);
+  tensors, choice-major capacity, the first-choice aux loss) over
+  ``gating_plan``'s operands;
 - ``dense_expert_ffn``: every expert on every token, then the weighted
   select (the serving path at T <= 32); plain batched ``torch.matmul``
   over the experts, a large product the JAX package leaves to XLA;
@@ -52,8 +53,8 @@ from ..nn.functional import gelu
 from ..ops.gmm import gmm
 from ..ops.grouped_gemm import sort_by_group, unsort_by_group
 
-__all__ = ["top_k_gating", "load_balance_loss", "router_z_loss",
-           "dense_expert_ffn", "dropless_expert_ffn", "MoELayer",
+__all__ = ["top_k_gating", "gating_plan", "load_balance_loss",
+           "router_z_loss", "dense_expert_ffn", "dropless_expert_ffn", "MoELayer",
            "SwitchMoELayer", "ClipGradForMOEByGlobalNorm"]
 
 
@@ -87,11 +88,11 @@ def _act(g, up, activation: str):
     return gelu(up, approximate=True)
 
 
-def top_k_gating(gates, k: int, capacity: int, *, renormalize: bool = True):
-    """GShard-style top-k dispatch planner. gates [T, E] softmax router
-    probabilities -> (dispatch [T, E, C] 0/1, combine [T, E, C], aux
-    loss). Priority is choice-major: every first choice claims capacity
-    before any second choice."""
+def gating_plan(gates, k: int, capacity: int, *, renormalize: bool = True):
+    """The GShard planner's operands: (keep [T, k, E] 0/1, the slot
+    one-hots oh_loc [T, k, C], the gates gv [T, k], the aux loss).
+    Priority is choice-major: every first choice claims capacity before
+    any second choice."""
     T, E = gates.shape
     topv, topi = _top_k(gates, k)                            # [T, k]
     mask = _one_hot(topi, E, gates.dtype)                    # [T, k, E]
@@ -106,6 +107,16 @@ def top_k_gating(gates, k: int, capacity: int, *, renormalize: bool = True):
     aux = E * (gates.mean(0) * mask[:, 0, :].mean(0)).sum()
     gv = _renorm(topv * kept_any, renormalize)
     oh_loc = _one_hot(loc, capacity, gates.dtype) * kept_any[..., None]
+    return keep, oh_loc, gv, aux
+
+
+def top_k_gating(gates, k: int, capacity: int, *, renormalize: bool = True):
+    """GShard-style top-k dispatch planner. gates [T, E] softmax router
+    probabilities -> (dispatch [T, E, C] 0/1, combine [T, E, C], aux
+    loss), the einsum pair over `gating_plan`'s operands (the pair the
+    fusion pass's moe_dispatch rewrite fuses)."""
+    keep, oh_loc, gv, aux = gating_plan(gates, k, capacity,
+                                        renormalize=renormalize)
     dispatch = torch.einsum("tke,tkc->tec", keep, oh_loc)
     combine = torch.einsum("tk,tke,tkc->tec", gv, keep, oh_loc)
     return dispatch, combine, aux

@@ -115,10 +115,15 @@ class GPTBlock(nn.Module):
         self.p = c.hidden_dropout_prob
 
     def forward(self, x, attn_mask=None):
-        drop = nn.functional.dropout
-        x = x + drop(self.attn(self.ln_1(x), attn_mask), self.p,
-                     self.training)
-        return x + drop(self.mlp(self.ln_2(x)), self.p, self.training)
+        x = x + self._drop(self.attn(self.ln_1(x), attn_mask))
+        return x + self._drop(self.mlp(self.ln_2(x)))
+
+    def _drop(self, x):
+        # dropout at rate 0 is the identity, as in the JAX package: no op
+        # in a captured program (jit.fusion sees the residual add)
+        if self.p and self.training:
+            return nn.functional.dropout(x, self.p, True)
+        return x
 
 
 class GPTModel(nn.Module):
@@ -144,8 +149,8 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(S, device=input_ids.device)[None]
         x = self.embed_tokens(input_ids) + self.embed_positions(position_ids)
-        x = nn.functional.dropout(x, self.config.hidden_dropout_prob,
-                                  self.training)
+        if self.config.hidden_dropout_prob and self.training:
+            x = nn.functional.dropout(x, self.config.hidden_dropout_prob)
         for block in self.h:
             if self.config.recompute and self.training:
                 x = recompute(block, x, attn_mask)

@@ -4,7 +4,8 @@ whose parameters keep Paddle's layout and names (a Linear weight is
 ``[in, out]`` and computes ``x @ weight``), so state dicts carry over
 key for key;
 ``functional`` holds the training path's ``rms_norm``, ``layer_norm``,
-``gelu``, ``swiglu`` and ``scaled_dot_product_attention``, and
+``gelu``, ``swiglu``, ``relu``, ``linear``, ``dropout`` and
+``scaled_dot_product_attention``, and
 ``functional.flash_attention`` Paddle's attention namespace; ``clip`` the eager optimizers' gradient clips
 ``ClipGradByGlobalNorm`` and ``clip_grad_norm_``."""
 

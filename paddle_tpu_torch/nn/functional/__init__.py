@@ -1,9 +1,9 @@
 """Functional layers of the training path (counterpart of
 paddle_tpu/nn/functional): plain PyTorch in the JAX package's op order,
 differentiable by autograd. No kernel of the JAX package sits behind
-these: its `rms_norm`, `layer_norm`, `gelu` and `swiglu` are array code
-there too (the serving engine calls the ``ops.fused_layer_norm`` kernel
-itself).
+these: its `rms_norm`, `layer_norm`, `gelu`, `swiglu`, `linear`, `relu`
+and `dropout` are array code there too (the serving engine calls the
+``ops.fused_layer_norm`` kernel itself).
 
 `scaled_dot_product_attention` routes through ``ops.flash_attention.sdpa``
 (the flash kernel where its gate holds); the submodule
@@ -16,8 +16,10 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
-__all__ = ["rms_norm", "layer_norm", "gelu", "swiglu",
-           "scaled_dot_product_attention"]
+__all__ = ["rms_norm", "layer_norm", "gelu", "swiglu", "relu", "linear",
+           "dropout", "scaled_dot_product_attention"]
+
+_DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
 
 
 def rms_norm(x, weight=None, epsilon: float = 1e-6):
@@ -65,6 +67,40 @@ def swiglu(x, y=None):
     if y is None:
         x, y = x.chunk(2, dim=-1)
     return F.silu(x) * y
+
+
+def relu(x, name=None):
+    return torch.relu(x)
+
+
+def linear(x, weight, bias=None, name=None):
+    """Paddle layout: weight [in_features, out_features], x @ weight +
+    bias."""
+    out = x @ weight
+    return out if bias is None else out + bias
+
+
+def dropout(x, p=0.5, training=True, mode="upscale_in_train",
+            generator=None, name=None):
+    """Paddle's dropout: in training each element is kept with
+    probability 1 - p (drawn from `generator` on x's device) and scaled
+    by 1 / (1 - p) under "upscale_in_train", left as it is under
+    "downscale_in_infer", which instead scales by (1 - p) outside
+    training. The JAX package's random stream is not reproduced."""
+    if mode not in _DROPOUT_MODES:
+        raise ValueError(f"dropout mode must be one of {_DROPOUT_MODES}, "
+                         f"got {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training and p > 0.0:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), zero)
+    return torch.where(keep, x, zero)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

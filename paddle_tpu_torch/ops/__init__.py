@@ -13,10 +13,14 @@ from .flashmask import (bands_from_startend, flashmask_block_kinds,
                         flashmask_sdpa_reference)
 from .gmm import (gmm, gmm_dlhs, gmm_kernel_eligible, gmm_plain, tgmm,
                   tgmm_plain)
-from .fused import (append_rows_reference, fused_append_rows,
-                    fused_layer_norm, fused_rms_norm, fused_rope_append,
-                    layer_norm_reference, rms_norm_reference,
-                    rope_append_reference)
+from .fused import (append_rows_reference,
+                    bias_residual_layer_norm_reference, fused_append_rows,
+                    fused_bias_residual_layer_norm, fused_layer_norm,
+                    fused_moe_dispatch_combine, fused_rms_norm, fused_rope,
+                    fused_rope_append, fused_rope_bwd, layer_norm_reference,
+                    moe_dc_eligible, moe_dispatch_combine_reference,
+                    rms_norm_reference, rope_append_reference,
+                    rope_reference, swiglu, swiglu_reference)
 from .megadecode import (fused_ffn, fused_oproj_norm, megadecode_eligible,
                          megadecode_ffn_reference, oproj_norm_reference)
 from .megafront import (fused_qkv_rope_append, megafront_eligible,
@@ -57,7 +61,12 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
            "gmm_kernel_eligible", "fused_append_rows",
            "append_rows_reference", "int4_dequantize",
            "int4_dequantize_reference", "mla_decode_attention",
-           "mla_decode_reference", "mla_kernel_eligible", "oracles",
+           "mla_decode_reference", "mla_kernel_eligible", "swiglu",
+           "swiglu_reference", "fused_rope", "fused_rope_bwd",
+           "rope_reference", "fused_bias_residual_layer_norm",
+           "bias_residual_layer_norm_reference",
+           "fused_moe_dispatch_combine", "moe_dispatch_combine_reference",
+           "moe_dc_eligible", "oracles",
            "launch_counts", "reset_counts"]
 
 

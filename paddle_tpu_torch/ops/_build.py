@@ -33,9 +33,11 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor as _FakeTensor
 
 __all__ = ["library", "kernel", "check", "dtype_code", "stream",
            "require_cuda", "require_aligned", "index32", "ptr", "split_k",
+           "faked",
            "weight_layout",
            "build_seconds", "build_log", "CSRC", "BUILD_ROOT", "NVCC_FLAGS"]
 
@@ -238,6 +240,14 @@ def index32(name: str, t: torch.Tensor, device: torch.device):
         raise ValueError(f"{name}: index tensor on {t.device}, "
                          f"data on {device}")
     return t.to(torch.int32).contiguous()
+
+
+def faked(*tensors) -> bool:
+    """True when any of `tensors` is a fake tensor: graph capture
+    (``jit.fusion``) runs each kernel wrapper on fake tensors to learn its
+    output, and a wrapper given one returns its plain version's result,
+    launches nothing and counts nothing."""
+    return any(isinstance(t, _FakeTensor) for t in tensors)
 
 
 def build_seconds() -> Optional[float]:

@@ -1,13 +1,18 @@
-// fused_rms_norm, fused_layer_norm, fused_rope_append and
-// fused_append_rows for Hopper (sm_90a).
+// fused_rms_norm, fused_layer_norm, fused_rope_append, fused_append_rows,
+// swiglu, fused_rope, fused_bias_residual_layer_norm and
+// fused_moe_dispatch_combine for Hopper (sm_90a).
 //
 // Replaces:
 //   paddle_tpu/ops/fused.py:fused_rms_norm     (Pallas _rms_kernel)
 //   paddle_tpu/ops/fused.py:fused_layer_norm   (Pallas _ln_kernel)
 //   paddle_tpu/ops/fused.py:fused_rope_append  (Pallas _rope_append_kernel)
 //   paddle_tpu/ops/fused.py:fused_append_rows  (Pallas _append_rows_kernel)
+//   paddle_tpu/ops/fused.py:swiglu             (Pallas _swiglu_kernel)
+//   paddle_tpu/ops/fused.py:fused_rope         (Pallas _rope_pallas_kernel)
+//   paddle_tpu/ops/fused.py:fused_bias_residual_layer_norm (Pallas _brln_kernel)
+//   paddle_tpu/ops/fused.py:fused_moe_dispatch_combine     (Pallas _moe_dc_kernel)
 //
-// Bound on the H100 (3.35 TB/s HBM): both are memory-bound; they do a few
+// Bound on the H100 (3.35 TB/s HBM): all are memory-bound; they do a few
 // flops per byte.
 //   rms_norm:    2*T*H*itemsize + H*w_itemsize bytes (read x and w, write
 //                out). At T=132, H=4096 bf16 that is ~2.2 MB, ~0.65 us.
@@ -17,6 +22,16 @@
 //   append_rows: read the rows once and write them once into the pools,
 //                2 * T * KV * D * itemsize bytes (the MLA step's 132 rows
 //                of 576 bf16: 0.30 MB, ~0.09 us).
+//   swiglu:      read gate and up, write out: 3*T*I*itemsize (T 4096, I
+//                14336 bf16: 352 MB, ~0.105 ms).
+//   rope:        read and write q and k, read the S rows of cos / sin
+//                (Llama-3-8B's q [1, 4096, 32, 128], k [.., 8, ..] bf16:
+//                ~86 MB, ~0.026 ms).
+//   brln:        read x and r, write out, read b, w, lb (T 4096, H 4096
+//                bf16: ~101 MB, ~0.030 ms).
+//   moe_dc:      read keep [T, k, E], oh [T, k, C], gv [T, k]; write the
+//                two [T, E, C] outputs (ERNIE-4.5's routing, f32: ~1.06 GB,
+//                ~0.32 ms, the writes nearly all of it).
 //
 // Design:
 //   rms_norm: one block per row, 16-byte vector loads and stores when the
@@ -44,6 +59,24 @@
 //   (D * itemsize a multiple of 16 and both tensors 16-byte aligned:
 //   the MLA latent row of 576 bf16 is 72 pieces), element by element
 //   else. The pools are updated in place.
+//   swiglu: one thread per 16-byte piece of the output (one element when
+//   the rows are not 16-byte pieces), g * logistic(g) * u in f32 and one
+//   cast. gate and up are read through a row stride each, so the
+//   one-argument form reads the two halves of a [.., 2I] row in place.
+//   rope: one thread per (row, pair j < D/2), q's rows then k's in ONE
+//   launch: [x1 c - x2 s, x2 c + x1 s] in f32, each product rounded
+//   before the sum (no FMA contraction, as the plain version's separate
+//   ops), one cast. The backward is the same launch with s negated (the
+//   rotation by -theta, exact).
+//   brln: a block per row, layer_norm's three passes over h = x + b + r
+//   (added in that order in f32, recomputed on each pass from reads that
+//   hit L1/L2), the centred two-pass variance, then h-hat * w + lb.
+//   moe_dc: a block per token. keep[t] [k, E], oh[t] [k, C] and gv[t]
+//   [k] go to shared memory as f32 with keep * gv formed once; each
+//   thread then owns four columns (e, c..c+3) of both [E, C] slabs (one
+//   where C is not a multiple of 4) and sums over the k choices in
+//   order, so both outputs are written once, four elements a store:
+//   those writes set the time.
 
 #include "common.cuh"
 
@@ -282,6 +315,272 @@ __global__ void append_rows_kernel(T* __restrict__ pages,
   }
 }
 
+// ---------------------------------------------------------------------------
+// swiglu: out[r, i] = g * logistic(g) * u, rows read through a stride
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ float swiglu_f(float g, float u) {
+  return g * (1.f / (1.f + expf(-g))) * u;
+}
+
+template <typename T>
+__global__ void swiglu_kernel(const T* __restrict__ g,
+                              const T* __restrict__ u, T* __restrict__ out,
+                              long long rows, int I, long long gs,
+                              long long us, int vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int per = vec ? I / VEC : I;
+  const long long n = rows * per;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * blockDim.x) {
+    const long long r = idx / per;
+    const int c = (int)(idx - r * per);
+    if (vec) {
+      uint4 gu = *reinterpret_cast<const uint4*>(g + r * gs + c * VEC);
+      uint4 uu = *reinterpret_cast<const uint4*>(u + r * us + c * VEC);
+      const T* ge = reinterpret_cast<const T*>(&gu);
+      const T* ue = reinterpret_cast<const T*>(&uu);
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        oe[k] = from_f32<T>(swiglu_f<T>(to_f32(ge[k]), to_f32(ue[k])));
+      *reinterpret_cast<uint4*>(out + r * (long long)I + c * VEC) = o;
+    } else {
+      out[r * (long long)I + c] =
+          from_f32<T>(swiglu_f<T>(to_f32(g[r * gs + c]), to_f32(u[r * us + c])));
+    }
+  }
+}
+
+template <typename T>
+static void launch_swiglu(const void* g, const void* u, void* out,
+                          long long rows, int I, long long gs, long long us,
+                          int vec, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const long long n = rows * (long long)(vec ? I / VEC : I);
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond 32/SM
+  if (blocks < 1) blocks = 1;
+  swiglu_kernel<T><<<(int)blocks, 256, 0, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(u), static_cast<T*>(out),
+      rows, I, gs, us, vec);
+}
+
+// ---------------------------------------------------------------------------
+// rope on q [B, S, Hq, D] and k [B, S, Hk, D] in one launch
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const float* __restrict__ cosv,
+                            const float* __restrict__ sinv,
+                            T* __restrict__ qo, T* __restrict__ ko,
+                            long long rows_q, long long rows_k, int S,
+                            int Hq, int Hk, int D, float sign) {
+  const int d2 = D / 2;
+  const long long n = (rows_q + rows_k) * d2;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * blockDim.x) {
+    long long row = idx / d2;
+    const int j = (int)(idx - row * d2);
+    const T* x;
+    T* o;
+    int H;
+    if (row < rows_q) {
+      x = q; o = qo; H = Hq;
+    } else {
+      row -= rows_q; x = k; o = ko; H = Hk;
+    }
+    const int s = (int)((row / H) % S);
+    const float c = cosv[(size_t)s * d2 + j];
+    const float sn = sign * sinv[(size_t)s * d2 + j];
+    const size_t base = (size_t)row * D;
+    const float x1 = to_f32(x[base + j]), x2 = to_f32(x[base + j + d2]);
+    // each product rounded before the sum (no FMA contraction), as the
+    // plain version's separate ops round: bf16 results then equal it
+    o[base + j] = from_f32<T>(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sn)));
+    o[base + j + d2] =
+        from_f32<T>(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, sn)));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bias + residual + layer norm, a block per row
+// ---------------------------------------------------------------------------
+
+// (h - mu) * rstd * w + lb, each step rounded (no FMA contraction), in
+// _brln_kernel's order
+__device__ __forceinline__ float brln_out(float h, float mu, float rs,
+                                          float w, float lb) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(h, mu), rs), w), lb);
+}
+
+template <typename X, typename W>
+__global__ void brln_kernel(const X* __restrict__ x, const X* __restrict__ r,
+                            const W* __restrict__ b, const W* __restrict__ w,
+                            const W* __restrict__ lb, X* __restrict__ out,
+                            int H, float eps, int use_vec) {
+  constexpr int VEC = 16 / sizeof(X);
+  __shared__ float red[33];
+  const size_t base = (size_t)blockIdx.x * H;
+  const X* xr = x + base;
+  const X* rr = r + base;
+  X* orow = out + base;
+  const uint4* xv = reinterpret_cast<const uint4*>(xr);
+  const uint4* rv = reinterpret_cast<const uint4*>(rr);
+  const int n_vec = use_vec ? H / VEC : 0;
+  // h = (x + b) + r in f32, _brln_kernel's order
+#define PTT_H(xe, re, j) (to_f32(xe) + to_f32(b[j]) + to_f32(re))
+
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    uint4 ux = xv[i], ur = rv[i];
+    const X* ex = reinterpret_cast<const X*>(&ux);
+    const X* er = reinterpret_cast<const X*>(&ur);
+#pragma unroll
+    for (int kk = 0; kk < VEC; ++kk) s += PTT_H(ex[kk], er[kk], i * VEC + kk);
+  }
+  for (int i = n_vec * VEC + threadIdx.x; i < H; i += blockDim.x)
+    s += PTT_H(xr[i], rr[i], i);
+  const float mu = block_sum(s, red) / (float)H;
+
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    uint4 ux = xv[i], ur = rv[i];
+    const X* ex = reinterpret_cast<const X*>(&ux);
+    const X* er = reinterpret_cast<const X*>(&ur);
+#pragma unroll
+    for (int kk = 0; kk < VEC; ++kk) {
+      const float c = PTT_H(ex[kk], er[kk], i * VEC + kk) - mu;
+      ss += c * c;
+    }
+  }
+  for (int i = n_vec * VEC + threadIdx.x; i < H; i += blockDim.x) {
+    const float c = PTT_H(xr[i], rr[i], i) - mu;
+    ss += c * c;
+  }
+  const float rs = rsqrtf(block_sum(ss, red) / (float)H + eps);
+
+  uint4* ov = reinterpret_cast<uint4*>(orow);
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    uint4 ux = xv[i], ur = rv[i];
+    const X* ex = reinterpret_cast<const X*>(&ux);
+    const X* er = reinterpret_cast<const X*>(&ur);
+    uint4 o;
+    X* oe = reinterpret_cast<X*>(&o);
+#pragma unroll
+    for (int kk = 0; kk < VEC; ++kk) {
+      const int j = i * VEC + kk;
+      oe[kk] = from_f32<X>(brln_out(PTT_H(ex[kk], er[kk], j), mu, rs,
+                                    to_f32(w[j]), to_f32(lb[j])));
+    }
+    ov[i] = o;
+  }
+  for (int i = n_vec * VEC + threadIdx.x; i < H; i += blockDim.x)
+    orow[i] = from_f32<X>(brln_out(PTT_H(xr[i], rr[i], i), mu, rs,
+                                   to_f32(w[i]), to_f32(lb[i])));
+#undef PTT_H
+}
+
+template <typename X, typename W>
+static void launch_brln(const void* x, const void* r, const void* b,
+                        const void* w, const void* lb, void* out, int T,
+                        int H, float eps, int use_vec, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(X);
+  int work = use_vec ? H / VEC : H;
+  int threads = ((work + 31) / 32) * 32;
+  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
+  brln_kernel<X, W><<<T, threads, 0, stream>>>(
+      static_cast<const X*>(x), static_cast<const X*>(r),
+      static_cast<const W*>(b), static_cast<const W*>(w),
+      static_cast<const W*>(lb), static_cast<X*>(out), H, eps, use_vec);
+}
+
+// ---------------------------------------------------------------------------
+// MoE dispatch / combine, a block per token
+// ---------------------------------------------------------------------------
+
+// four consecutive outputs in one store (16 bytes of f32, 8 of bf16; the
+// address is a multiple of four elements)
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&a);
+  u.y = *reinterpret_cast<unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <typename I, typename O>
+__global__ void moe_dc_kernel(const I* __restrict__ keep,
+                              const I* __restrict__ oh,
+                              const I* __restrict__ gv, O* __restrict__ disp,
+                              O* __restrict__ comb, int K, int E, int C,
+                              int vec) {
+  extern __shared__ float sm[];
+  float* sk = sm;              // [K, E] keep
+  float* skg = sk + K * E;     // [K, E] keep * gv
+  float* so = skg + K * E;     // [K, C] one-hots
+  const long long t = blockIdx.x;
+  for (int i = threadIdx.x; i < K * E; i += blockDim.x) {
+    const float kv = to_f32(keep[t * K * E + i]);
+    sk[i] = kv;
+    skg[i] = kv * to_f32(gv[t * K + i / E]);
+  }
+  for (int i = threadIdx.x; i < K * C; i += blockDim.x)
+    so[i] = to_f32(oh[t * K * C + i]);
+  __syncthreads();
+  O* dt = disp + t * (long long)E * C;
+  O* ct = comb + t * (long long)E * C;
+  if (vec) {  // four columns a thread, stored as whole pieces
+    const int per = C / 4;
+    for (int i = threadIdx.x; i < E * per; i += blockDim.x) {
+      const int e = i / per, c0 = (i - e * per) * 4;
+      float d[4] = {0.f, 0.f, 0.f, 0.f}, m[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = 0; j < K; ++j) {
+        const float kv = sk[j * E + e], kg = skg[j * E + e];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float o = so[j * C + c0 + q];
+          d[q] += kv * o;
+          m[q] += kg * o;
+        }
+      }
+      store4(dt + (size_t)e * C + c0, d);
+      store4(ct + (size_t)e * C + c0, m);
+    }
+  } else {
+    for (int i = threadIdx.x; i < E * C; i += blockDim.x) {
+      const int e = i / C, c = i - e * C;
+      float d = 0.f, m = 0.f;
+      for (int j = 0; j < K; ++j) {
+        const float o = so[j * C + c];
+        d += sk[j * E + e] * o;
+        m += skg[j * E + e] * o;
+      }
+      dt[i] = from_f32<O>(d);
+      ct[i] = from_f32<O>(m);
+    }
+  }
+}
+
+template <typename I, typename O>
+static void launch_moe_dc(const void* keep, const void* oh, const void* gv,
+                          void* disp, void* comb, int T, int K, int E, int C,
+                          cudaStream_t st) {
+  const int vec = C % 4 == 0;
+  const size_t smem = sizeof(float) * (size_t)K * (2 * E + C);
+  moe_dc_kernel<I, O><<<T, 256, smem, st>>>(
+      static_cast<const I*>(keep), static_cast<const I*>(oh),
+      static_cast<const I*>(gv), static_cast<O*>(disp), static_cast<O*>(comb),
+      K, E, C, vec);
+}
+
 }  // namespace ptt
 
 using namespace ptt;
@@ -386,6 +685,100 @@ int ptt_append_rows(void* pages, const void* rows, const void* page_idx,
     append_rows_kernel<__nv_bfloat16><<<T, 128, 0, st>>>(
         static_cast<__nv_bfloat16*>(pages),
         static_cast<const __nv_bfloat16*>(rows), pi, po, KV, D, P, psz, vec);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// gate rows [rows, I] at row stride gs, up at us -> out [rows, I]
+// contiguous; vec: 16-byte pieces (I, gs, us multiples of 16 / itemsize
+// and the three pointers 16-byte aligned)
+int ptt_swiglu(const void* g, const void* u, void* out, long long rows,
+               int I, long long gs, long long us, int vec, int dtype,
+               int device, void* stream) {
+  PTT_SET_DEVICE(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows == 0 || I == 0) return (int)cudaSuccess;
+  if (dtype == kF32)
+    launch_swiglu<float>(g, u, out, rows, I, gs, us, vec, st);
+  else if (dtype == kBF16)
+    launch_swiglu<__nv_bfloat16>(g, u, out, rows, I, gs, us, vec, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// q [B, S, Hq, D], k [B, S, Hk, D] (one dtype), cos/sin [>= S, D/2] f32
+// -> qo, ko; sign -1 rotates by -theta (the backward)
+int ptt_rope(const void* q, const void* k, const void* cosv,
+             const void* sinv, void* qo, void* ko, int BS, int S, int Hq,
+             int Hk, int D, float sign, int dtype, int device, void* stream) {
+  PTT_SET_DEVICE(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rq = (long long)BS * Hq, rk = (long long)BS * Hk;
+  const long long n = (rq + rk) * (D / 2);
+  if (n == 0) return (int)cudaSuccess;
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132LL * 32) blocks = 132LL * 32;
+  const float* c = static_cast<const float*>(cosv);
+  const float* s = static_cast<const float*>(sinv);
+  if (dtype == kF32)
+    rope_kernel<float><<<(int)blocks, 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), c, s,
+        static_cast<float*>(qo), static_cast<float*>(ko), rq, rk, S, Hq, Hk,
+        D, sign);
+  else if (dtype == kBF16) {
+    using B = __nv_bfloat16;
+    rope_kernel<B><<<(int)blocks, 256, 0, st>>>(
+        static_cast<const B*>(q), static_cast<const B*>(k), c, s,
+        static_cast<B*>(qo), static_cast<B*>(ko), rq, rk, S, Hq, Hk, D,
+        sign);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, r [T, H] (x_dtype), b, w, lb [H] (w_dtype) -> out [T, H] (x_dtype)
+int ptt_bias_residual_ln(const void* x, const void* r, const void* b,
+                         const void* w, const void* lb, void* out, int T,
+                         int H, float eps, int x_dtype, int w_dtype,
+                         int use_vec, int device, void* stream) {
+  PTT_SET_DEVICE(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T == 0) return (int)cudaSuccess;
+  using B = __nv_bfloat16;
+  if (x_dtype == kF32 && w_dtype == kF32)
+    launch_brln<float, float>(x, r, b, w, lb, out, T, H, eps, use_vec, st);
+  else if (x_dtype == kF32 && w_dtype == kBF16)
+    launch_brln<float, B>(x, r, b, w, lb, out, T, H, eps, use_vec, st);
+  else if (x_dtype == kBF16 && w_dtype == kF32)
+    launch_brln<B, float>(x, r, b, w, lb, out, T, H, eps, use_vec, st);
+  else if (x_dtype == kBF16 && w_dtype == kBF16)
+    launch_brln<B, B>(x, r, b, w, lb, out, T, H, eps, use_vec, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// keep [T, K, E], oh [T, K, C], gv [T, K] (in_dtype) -> dispatch, combine
+// [T, E, C] (out_dtype); K * (2E + C) floats of shared memory a block
+int ptt_moe_dispatch_combine(const void* keep, const void* oh,
+                             const void* gv, void* disp, void* comb, int T,
+                             int K, int E, int C, int in_dtype,
+                             int out_dtype, int device, void* stream) {
+  PTT_SET_DEVICE(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T == 0 || E == 0 || C == 0) return (int)cudaSuccess;
+  using B = __nv_bfloat16;
+  if (in_dtype == kF32 && out_dtype == kF32)
+    launch_moe_dc<float, float>(keep, oh, gv, disp, comb, T, K, E, C, st);
+  else if (in_dtype == kF32 && out_dtype == kBF16)
+    launch_moe_dc<float, B>(keep, oh, gv, disp, comb, T, K, E, C, st);
+  else if (in_dtype == kBF16 && out_dtype == kBF16)
+    launch_moe_dc<B, B>(keep, oh, gv, disp, comb, T, K, E, C, st);
+  else if (in_dtype == kBF16 && out_dtype == kF32)
+    launch_moe_dc<B, float>(keep, oh, gv, disp, comb, T, K, E, C, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -279,6 +279,9 @@ def flash_sdpa(q, k, v, causal: bool = False, segment_ids_q=None,
     tiling and do not steer the Hopper tiles (64 x 64, fixed in the
     source). On CUDA, a shape `flash_kernel_eligible` refuses raises
     ValueError."""
+    if _build.faked(q, k, v):
+        return flash_sdpa_reference(q, k, v, causal, segment_ids_q,
+                                    segment_ids_kv, scale)
     if q.device.type == "cpu":
         flash_sdpa.plain_calls += 1
         return flash_sdpa_reference(q, k, v, causal, segment_ids_q,

@@ -20,8 +20,10 @@ from row i when j > i), as the reference kernel does; the reference's
 composite is bottom-right aligned there, which differs when Sq != Sk
 (ROADMAP.md queue C, C3).
 
-``route_counts`` counts the routes taken, so a run can show which one
-its attention went through.
+``route_counts`` counts the routes eager calls take, so a run can show
+which one its attention went through. A program captured by ``jit``
+(``to_static`` / ``fuse``) is not counted, whatever its routes: read the
+kernels' launch counts (``ops.launch_counts``) around such a program.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ __all__ = ["sdpa_reference", "sdpa", "sdpa_path", "sdpa_segmented",
 
 _NEG = -1e30
 
-#: calls of `sdpa` / `sdpa_segmented` / `flashmask_attention` by route
+#: eager calls of `sdpa` / `sdpa_segmented` / `flashmask_attention` by
+#: route; calls inside a captured program are not counted (`_count`)
 route_counts: Dict[str, int] = {"flash": 0, "flash_segmented": 0,
                                 "composite": 0, "flashmask": 0,
                                 "flashmask_composite": 0}
@@ -50,6 +53,16 @@ route_counts: Dict[str, int] = {"flash": 0, "flash_segmented": 0,
 def reset_route_counts() -> None:
     for k in route_counts:
         route_counts[k] = 0
+
+
+def _count(route: str) -> None:
+    """Count an eager call's route. A program under graph capture
+    (``jit.fusion``) fixes its routes when it is captured and is never
+    counted, neither then nor when its graphs run: a counter read during
+    capture would be guarded on, and every call would capture the
+    program again. Its kernels' launch counts show what it ran."""
+    if not torch.compiler.is_compiling():
+        route_counts[route] += 1
 
 
 def sdpa_reference(q, k, v, mask=None, causal: bool = False,
@@ -134,14 +147,14 @@ def sdpa(q, k, v, mask=None, causal: bool = False, dropout_p: float = 0.0,
         scale = D ** -0.5
     path = sdpa_path(q, k, mask=mask, causal=causal, dropout_p=dropout_p)
     if path == "flash":
-        route_counts["flash"] += 1
+        _count("flash")
         return flash_sdpa(q, k, v, causal=causal, scale=scale)
     if path == "flash_segmented":
         pad = _as_key_padding(mask, B, Sq, Sk).to(q.device)
         seg_q = torch.ones(B, Sq, dtype=torch.int32, device=q.device)
         return sdpa_segmented(q, k, v, seg_q, kv_segment_ids=pad.int(),
                               causal=causal, scale=scale)
-    route_counts["composite"] += 1
+    _count("composite")
     if mask is not None:
         pad = _as_key_padding(mask, B, Sq, Sk)
         if pad is not None:
@@ -162,10 +175,10 @@ def sdpa_segmented(q, k, v, segment_ids, kv_segment_ids=None, causal=True,
     seg_kv = seg_q if kv_segment_ids is None \
         else kv_segment_ids.to(torch.int32)
     if dropout_p == 0.0 and _flash_eligible(q, k, causal):
-        route_counts["flash_segmented"] += 1
+        _count("flash_segmented")
         return flash_sdpa(q, k, v, causal=causal, scale=scale,
                           segment_ids_q=seg_q, segment_ids_kv=seg_kv)
-    route_counts["composite"] += 1
+    _count("composite")
     same = seg_q[:, :, None] == seg_kv[:, None, :]
     return sdpa_reference(q, k, v, mask=same[:, None], causal=causal,
                           scale=scale, dropout_p=dropout_p)
@@ -252,21 +265,27 @@ def flashmask_attention(query, key, value, startend_row_indices,
     Sk, C] (Hm 1 or H; `flashmask.bands_from_startend` says what each C
     masks), returned as (out, None).
 
-    Routes as the JAX package does: dropout > 0, or a head dim its kernel
-    gate refuses, takes the dense composite (`sdpa_reference` over the
-    band mask); everything else the FlashMask kernel, whatever the lengths
-    (the Hopper tiles mask their edges). A head dim the TPU kernel takes
-    and the Hopper one does not (above 128) raises there on CUDA tensors;
-    on CPU tensors the kernel route runs its plain version. Where a row
-    sees some key both routes agree; a row that sees none is zero on the
-    kernel route and the mean of v on the composite, as in the JAX
-    package."""
+    Dropout > 0, or a head dim the JAX package's kernel gate refuses,
+    takes the dense composite (`sdpa_reference` over the band mask);
+    everything else the FlashMask kernel, whatever the lengths (the
+    Hopper tiles mask their edges). A head dim the TPU kernel takes and
+    the Hopper one does not (above 128) raises there on CUDA tensors; on
+    CPU tensors the kernel route runs its plain version.
+
+    Where a row sees some key both routes agree. A row that sees no key
+    is zero on the kernel route, which the reference kernel documents for
+    such rows (paddle_tpu/ops/pallas_flashmask.py:24-26). The JAX entry
+    point also gates its kernel on the lengths (multiples of 128) and
+    sends other lengths to its composite, where such a row is the mean of
+    v; the port keeps the kernel's zero at every length (ROADMAP.md queue
+    C, C4), so at those lengths its empty rows differ from the JAX
+    entry's."""
     check_shapes(query, key, value, startend_row_indices)
     if dropout == 0.0 and _flashmask_head_dim(query.shape[-1]):
-        route_counts["flashmask"] += 1
+        _count("flashmask")
         return flashmask_sdpa(query, key, value, startend_row_indices,
                               causal=causal), None
-    route_counts["flashmask_composite"] += 1
+    _count("flashmask_composite")
     return _flashmask_composite(query, key, value, startend_row_indices,
                                 causal, dropout), None
 

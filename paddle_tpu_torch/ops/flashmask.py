@@ -309,6 +309,9 @@ def flashmask_sdpa(q, k, v, startend_row_indices, causal: bool = True,
     `block_k` are the TPU kernel's tiling and do not steer the Hopper tiles
     (64 x 64, fixed in the source). On CUDA, a shape
     `flashmask_kernel_eligible` refuses raises ValueError."""
+    if _build.faked(q, k, v, startend_row_indices):
+        return flashmask_sdpa_reference(q, k, v, startend_row_indices,
+                                        causal, scale)
     if q.device.type == "cpu":
         flashmask_sdpa.plain_calls += 1
         return flashmask_sdpa_reference(q, k, v, startend_row_indices,

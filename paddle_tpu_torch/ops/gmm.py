@@ -247,6 +247,11 @@ def gmm(lhs, rhs, group_sizes):
     lhs's dtype with f32 accumulation; rows past the last group zero;
     differentiable in lhs and rhs (see the module docstring)."""
     _check("gmm", lhs, rhs, group_sizes)
+    if _build.faked(lhs, rhs, group_sizes):
+        # the plain version reads the sizes on the host, which a fake
+        # tensor has not: graph capture gets the output's shape, dtype
+        # and gradient flag from one product
+        return (lhs @ rhs[0]).to(lhs.dtype)
     return _Gmm.apply(lhs, rhs, group_sizes)
 
 

@@ -235,6 +235,8 @@ def weight_only_linear(x, qweight, scale, bias=None, algo: str = INT8):
     check_algo(algo)
     if algo is None:
         raise ValueError("weight_only_linear takes an int8 or int4 weight")
+    if _build.faked(x, qweight, scale):
+        return weight_only_linear_reference(x, qweight, scale, bias, algo)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).contiguous()
     out = _WeightOnlyLinear.apply(x2, qweight, scale, algo)

@@ -14,7 +14,8 @@ with cross cu_seqlens, `flash_attn_qkvpacked`, and
 `nn.functional.scaled_dot_product_attention` with and without a padding
 mask. C3 (ROADMAP.md queue C): the reference's kernel and composite
 disagree under causal when Sq != Sk; the port's two routes agree with the
-kernel.
+kernel. C4: at lengths the JAX entry's kernel gate refuses, a row that
+sees no key is the mean of v there and the kernel's zero in the port.
 
 `TestFlashMaskOnCard` holds the CUDA kernels against the plain version on
 the card; it needs one and skips elsewhere. On the machine with the card,
@@ -277,6 +278,51 @@ class TestC3CausalAlignment:
         assert not kern[0, 4:8].any()
         np.testing.assert_allclose(kern[0, 8:].numpy(),
                                    comp[0, 8:].numpy(), **VARLEN_TOL)
+
+
+class TestC4EmptyRowsAtEveryLength:
+    """C4: at lengths the JAX entry point's kernel gate refuses (not
+    multiples of 128) it takes its composite, where a row that sees no key
+    is the mean of v; the port keeps the kernel route and its zero, the
+    value the reference kernel documents for such rows. S 16, D 64,
+    causal, C=2 with every band [4, 8): rows 4-7 see no key."""
+
+    def test_port_pins_the_kernel_zero(self, jx):
+        q, k, v, g = _inputs(9, Sq=16, Sk=16, B_=1, H_=1)
+        se = np.zeros((1, 1, 16, 2), np.int32)
+        se[..., 0], se[..., 1] = 4, 8
+        others = np.r_[0:4, 8:16]
+        w = np.zeros_like(g)
+        w[:, others] = g[:, others]      # a loss off the empty rows
+
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_()
+                      for a in (q, k, v))
+        tfa.reset_route_counts()
+        out, _ = flashmask_attention(tq, tk, tv, torch.from_numpy(se),
+                                     causal=True)
+        assert tfa.route_counts["flashmask"] == 1
+        (out * torch.from_numpy(w)).sum().backward()
+
+        jq, jk, jv = (jx.paddle.to_tensor(a) for a in (q, k, v))
+        for t in (jq, jk, jv):
+            t.stop_gradient = False
+        want = jx.fa.flashmask_attention(jq, jk, jv, jx.paddle.to_tensor(se),
+                                         causal=True)[0]
+        (want * jx.paddle.to_tensor(w)).sum().backward()
+        want = np.asarray(want._data)
+
+        # the JAX entry's composite: the mean of v; the port's kernel: 0
+        np.testing.assert_allclose(
+            want[0, 4:8], np.broadcast_to(v[0].mean(0), (4, 1, D)),
+            **VARLEN_TOL)
+        assert not out[0, 4:8].any()
+        assert np.abs(want[0, 4:8]).max() > 0.1
+        np.testing.assert_allclose(out.detach().numpy()[:, others],
+                                   want[:, others], **VARLEN_TOL)
+        for got, ref in ((tq, jq), (tk, jk), (tv, jv)):
+            np.testing.assert_allclose(got.grad.numpy(),
+                                       np.asarray(ref.grad._data),
+                                       **VARLEN_TOL)
 
 
 class TestVarlenAgainstJax:

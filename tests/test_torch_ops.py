@@ -1,4 +1,5 @@
-"""The port's three serving kernels against the JAX package.
+"""The port's three serving kernels against the JAX package, and the card
+checks of the four incubate kernels.
 
 (fused_layer_norm's parity with the JAX kernel is in test_torch_gpt.py;
 its card test is here.) For fused_rms_norm, fused_rope_append and
@@ -345,3 +346,145 @@ class TestKernelsOnCard:
         ref = ops.ragged_attention_reference(*args)
         torch.testing.assert_close(got.float(), ref.float(),
                                    **self._tol(dtype))
+
+
+def _bf16_spacings(got, ref):
+    """max |got - ref| in bf16 spacings at ref's magnitude (the spacing of
+    the bf16 numbers at or below |ref|), the magnitude floored at 1/256
+    of the tensor's largest: an f32 sum taken in another order differs
+    relative to its terms, so a value that cancels to near 0 is judged at
+    the spacing of the terms' scale."""
+    got, ref = got.detach().float(), ref.detach().float()
+    mag = ref.abs().clamp_min(max(float(ref.abs().max()) / 256,
+                                  torch.finfo(torch.bfloat16).tiny))
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got - ref).abs() / spacing).max().item()
+
+
+@pytest.mark.cuda
+class TestFusedKernelsOnCard:
+    """swiglu, fused_rope (forward and its backward launch),
+    fused_bias_residual_layer_norm and fused_moe_dispatch_combine against
+    their plain versions on the card: f32 at 2e-5; bf16 within one bf16
+    spacing (the kernels compute in f32 with one cast, as the plain
+    versions do; only the f32 rounding before the cast may differ); the
+    MoE outputs exact on 0/1 keep and one-hots."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels are CUDA C++ "
+                        "with no CPU mode")
+
+    @staticmethod
+    def _check(got, ref, dtype):
+        assert got.dtype == ref.dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, **TOL)
+        else:
+            assert _bf16_spacings(got, ref) <= 1.0
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape,split", [((4096, 14336), False),
+                                             ((4096, 14336), True),
+                                             ((3, 37, 90), True),
+                                             ((37, 45), False)])
+    def test_swiglu(self, dtype, shape, split):
+        g = torch.Generator("cuda").manual_seed(3)
+        if split:
+            x = (torch.randn(*shape[:-1], 2 * shape[-1], device="cuda",
+                             generator=g) * 3).to(dtype)
+            args = (x,)
+            ref = ops.swiglu_reference(x)
+        else:
+            args = tuple((torch.randn(*shape, device="cuda", generator=g)
+                          * 3).to(dtype) for _ in range(2))
+            ref = ops.swiglu_reference(*args)
+        n = ops.swiglu.launches
+        got = ops.swiglu(*args)
+        torch.cuda.synchronize()
+        assert ops.swiglu.launches == n + 1
+        self._check(got, ref, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,S_,Hq,Hk,D", [(1, 4096, 32, 8, 128),
+                                              (2, 37, 4, 2, 64)])
+    def test_rope(self, dtype, B, S_, Hq, Hk, D):
+        g = torch.Generator("cuda").manual_seed(4)
+        q = torch.randn(B, S_, Hq, D, device="cuda", generator=g).to(dtype)
+        k = torch.randn(B, S_, Hk, D, device="cuda", generator=g).to(dtype)
+        ang = torch.rand(S_ + 5, D // 2, device="cuda", generator=g) * 6.3
+        cos, sin = ang.cos(), ang.sin()
+        q.requires_grad_(), k.requires_grad_()
+        n, nb = ops.fused_rope.launches, ops.fused_rope_bwd.launches
+        qo, ko = ops.fused_rope(q, k, cos, sin)
+        gq, gk = torch.randn_like(qo), torch.randn_like(ko)
+        dq, dk = torch.autograd.grad((qo, ko), (q, k), (gq, gk))
+        torch.cuda.synchronize()
+        assert ops.fused_rope.launches == n + 1
+        assert ops.fused_rope_bwd.launches == nb + 1
+        rq, rk = ops.rope_reference(q.detach(), k.detach(), cos, sin)
+        self._check(qo, rq, dtype)
+        self._check(ko, rk, dtype)
+        from paddle_tpu_torch.ops.fused import _rope_bwd_reference
+        rdq, rdk = _rope_bwd_reference(gq, gk, cos, sin)
+        self._check(dq, rdq, dtype)
+        self._check(dk, rdk, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("T,H,parts", [(4096, 4096, "all"),
+                                           (37, 200, "none"),
+                                           (5, 1000, "f32_params")])
+    def test_bias_residual_layer_norm(self, dtype, T, H, parts):
+        g = torch.Generator("cuda").manual_seed(5)
+        x = torch.randn(T, H, device="cuda", generator=g)
+        x[1] += 30.0      # a large mean: the centred variance keeps it
+        x = x.to(dtype)
+        r = torch.randn(T, H, device="cuda", generator=g).to(dtype)
+        pd = torch.float32 if parts == "f32_params" else dtype
+        b, w, lb = (torch.randn(H, device="cuda", generator=g).to(pd)
+                    for _ in range(3))
+        kw = {} if parts == "none" else dict(bias=b, weight=w, ln_bias=lb)
+        n = ops.fused_bias_residual_layer_norm.launches
+        got = ops.fused_bias_residual_layer_norm(x, r, eps=1e-5, **kw)
+        torch.cuda.synchronize()
+        assert ops.fused_bias_residual_layer_norm.launches == n + 1
+        ref = ops.bias_residual_layer_norm_reference(x, r, eps=1e-5, **kw)
+        self._check(got, ref, dtype)
+
+    @pytest.mark.parametrize("T,K,E,C,dtype", [
+        (4096, 6, 64, 480, torch.float32), (33, 2, 8, 6, torch.float32),
+        (64, 6, 64, 480, torch.bfloat16), (9, 3, 5, 7, torch.bfloat16)])
+    def test_moe_dispatch_combine(self, T, K, E, C, dtype):
+        g = torch.Generator("cuda").manual_seed(6)
+        ex = torch.stack([torch.randperm(E, device="cuda", generator=g)[:K]
+                          for _ in range(T)])
+        keep = torch.nn.functional.one_hot(ex, E).to(dtype)
+        keep *= (torch.rand(T, K, 1, device="cuda", generator=g) > 0.2)
+        loc = torch.randint(0, C, (T, K), device="cuda", generator=g)
+        oh = torch.nn.functional.one_hot(loc, C).to(dtype)
+        gv = torch.rand(T, K, device="cuda", generator=g).to(dtype)
+        n = ops.fused_moe_dispatch_combine.launches
+        d, c = ops.fused_moe_dispatch_combine(keep, oh, gv)
+        torch.cuda.synchronize()
+        assert ops.fused_moe_dispatch_combine.launches == n + 1
+        rd, rc = ops.moe_dispatch_combine_reference(keep, oh, gv)
+        assert torch.equal(d, rd) and torch.equal(c, rc)
+        # real-valued operands: f32 sums over k in order
+        if dtype == torch.float32:
+            keep2 = torch.randn(T, K, E, device="cuda", generator=g)
+            oh2 = torch.randn(T, K, C, device="cuda", generator=g)
+            d2, c2 = ops.fused_moe_dispatch_combine(keep2, oh2, gv)
+            rd2, rc2 = ops.moe_dispatch_combine_reference(keep2, oh2, gv)
+            torch.testing.assert_close(d2, rd2, **TOL)
+            torch.testing.assert_close(c2, rc2, **TOL)
+
+    def test_refusals(self):
+        x = torch.randn(4, 8, device="cuda", dtype=torch.float16)
+        with pytest.raises(TypeError):
+            ops.swiglu(x, x)
+        keep = torch.zeros(2, 8, 512, device="cuda")
+        oh = torch.zeros(2, 8, 2048, device="cuda")
+        with pytest.raises(ValueError, match="exceeds"):
+            ops.fused_moe_dispatch_combine(keep, oh,
+                                           torch.zeros(2, 8, device="cuda"))

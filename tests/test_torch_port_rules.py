@@ -79,7 +79,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.optimizer.lr",
                 "paddle_tpu_torch.models.deepseek",
                 "paddle_tpu_torch.ops.mla", "paddle_tpu_torch.ops.flashmask",
-                "paddle_tpu_torch.nn.functional.flash_attention"):
+                "paddle_tpu_torch.nn.functional.flash_attention",
+                "paddle_tpu_torch.incubate.nn",
+                "paddle_tpu_torch.incubate.nn.functional",
+                "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.fusion"):
         assert mod in res["modules"]
 
 
@@ -153,7 +156,9 @@ def test_registry_names_the_ported_kernels():
                            "paged_decode_attention_v2", "weight_only_linear",
                            "gmm", "mla_decode_attention",
                            "fused_append_rows", "int4_dequantize",
-                           "flashmask_sdpa"}
+                           "flashmask_sdpa", "swiglu", "fused_rope",
+                           "fused_bias_residual_layer_norm",
+                           "fused_moe_dispatch_combine"}
     assert set(ported) <= set(jax_oracles())
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
@@ -170,11 +175,14 @@ def test_registry_names_the_ported_kernels():
         ["gmm_dlhs", "tgmm"]
     assert [f.__name__ for f in ported["flashmask_sdpa"].backward] == \
         ["flashmask_sdpa_bwd"]
+    assert [f.__name__ for f in ported["fused_rope"].backward] == \
+        ["fused_rope_bwd"]
     path, _, cls = ported["gmm"].backward_parity_test.partition("::")
     assert f"class {cls}" in (ROOT / path).read_text()
     counts = launch_counts()
     assert set(counts) == set(ported) | {"flash_sdpa_bwd", "gmm_dlhs",
-                                         "tgmm", "flashmask_sdpa_bwd"}
+                                         "tgmm", "flashmask_sdpa_bwd",
+                                         "fused_rope_bwd"}
 
 
 def test_kernel_sources_are_in_the_package():
