@@ -173,6 +173,18 @@ Phases, one line each on stdout:
    launched once a layer a step on the flagged run only, flash forward
    and backward once a layer on both, one captured graph, no untraced
    program; each step's two losses within 2^-7 relative;
+9e. the static inference path at Llama-3-8B width, depth cut to 4
+   layers, bf16 weights drawn on the card (`static_inference`):
+   jit.save at InputSpec([1, 2048], "int64"), then inference.Config ->
+   create_predictor -> copy_from_cpu -> run -> copy_to_cpu without and
+   with FLAGS_use_fusion_compiler (the fusion_cc pass: rmsnorm 9, swiglu
+   4, generic 16 rewrites, nothing refused); exact launches per run
+   (flagged: fused_rms_norm 9, swiglu 4, generic_elementwise 16, flash
+   forward 4; unflagged: the flash forward 4 and nothing else); the
+   logits of the two runs within SI_LOGITS_BAR relative, which a planted
+   fault of the rewrite (the rope regions' subtract computed as add)
+   must miss; export + save, load and first-run seconds, the artifact's
+   bytes;
 10. GPT-3 6.7B at full width and depth (gpt3_6_7b_config: 32 layers,
    hidden 4096, 32 heads x 128, FFN 16384, vocab 50304, tied head; bf16
    weights drawn on the card) on the trace of phase 4: the fused chain
@@ -218,10 +230,18 @@ Phases, one line each on stdout:
    fused chain beside its training launches from phase 12b, gmm_dlhs's
    and tgmm's from phase 12b, flashmask_sdpa's and its backward's from
    phase 9b with the packed documents' readings, swiglu's from phase 9d's
-   flagged run, fused_rope's, its backward's,
+   flagged run, generic_elementwise's from phase 9e's flagged run,
+   fused_rope's, its backward's,
    fused_bias_residual_layer_norm's and fused_moe_dispatch_combine's from
    phase 9c), then the ``{"ok":
    true, ...}`` line.
+
+Phase 2 also holds the generic elementwise kernel (B11) against its
+plain version (`check_generic_elementwise`): the JAX test's chain at
+[4096, 14336] in f32 and bf16 and phase 9e's rope region on q, timed
+beside the bytes bound, f32 within EW_F32_ULPS ulps and bf16 within one
+spacing, a planted fault (one opcode swapped) missing the bar by
+EW_FAULT_FACTOR at least, and every opcode of the instruction set.
 
 Phase 2 also holds flash attention (forward, and the dq + dkv backward)
 against its plain version at the training shape (B 1, S 8192, 32 heads
@@ -242,17 +262,19 @@ import contextlib
 import copy
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch import amp, card_report, generation, ops
+from paddle_tpu_torch import amp, card_report, generation, inference, jit, ops
 from paddle_tpu_torch import optimizer as optim
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.flags import flags_guard
@@ -278,6 +300,7 @@ from paddle_tpu_torch.ops.flashmask import band_hidden
 from paddle_tpu_torch.nn.functional import flash_attention as fm_api
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving.engine import mla_split_front
+from paddle_tpu_torch.static import InputSpec
 from paddle_tpu_torch.trainer import (PretrainConfig,
                                       build_llama_pretrain_step,
                                       flops_per_token, flops_per_token_hw)
@@ -719,6 +742,7 @@ def check_kernels(timer: Timer):
     check_gmm_backward(timer, rows)
     check_mla_kernels(timer, rows)
     check_incubate_kernels(timer, rows)
+    check_generic_elementwise(timer, rows)
     return rows
 
 
@@ -2149,11 +2173,13 @@ NO_PAGED = {"paged_decode_attention": (0, 0),
 #: the MLA family's own kernels, which no other family launches
 NO_MLA = {"fused_append_rows": (0, 0), "int4_dequantize": (0, 0),
           "mla_decode_attention": (0, 0)}
-#: the incubate kernels, which no serving path launches
+#: the incubate kernels and the static pass's generic kernel, which no
+#: serving path launches
 NO_INCUBATE = {"swiglu": (0, 0), "fused_rope": (0, 0),
                "fused_rope_bwd": (0, 0),
                "fused_bias_residual_layer_norm": (0, 0),
-               "fused_moe_dispatch_combine": (0, 0)}
+               "fused_moe_dispatch_combine": (0, 0),
+               "generic_elementwise": (0, 0)}
 FUSED_PER_STEP = {"fused_rms_norm": (1, 1), "fused_layer_norm": (0, 0),
                   "fused_qkv_rope_append": (1, 0),
                   "ragged_paged_attention": (1, 0),
@@ -3865,6 +3891,169 @@ def check_incubate_kernels(timer, rows):
     del d, c
 
 
+# ------------------------------------------------ phase 2, generic (B11)
+#: the generic elementwise kernel's cases: the JAX test's chain
+#: exp(tanh(a*b+c)*0.5) - sqrt(abs(b)+1) (tests/test_fusion_cc.py:270-272)
+#: at Llama-3-8B's FFN activation [4096, 14336], and phase 9e's rope
+#: region on q (two strided halves of q [1, 2048, 32, 128], the
+#: broadcast [1, 2048, 1, 64] tables)
+EW_CHAIN_SHAPE = (INC_TOKENS, FFN)
+SI_TOKENS = 2048
+EW_CHAIN = [
+    {"op": "multiply", "ins": ["#0", "#1"], "out": "ab"},
+    {"op": "add", "ins": ["ab", "#2"], "out": "abc"},
+    {"op": "tanh", "ins": ["abc"], "out": "t"},
+    {"op": "multiply", "ins": ["t", 0.5], "out": "th"},
+    {"op": "exponential", "ins": ["th"], "out": "e"},
+    {"op": "abs", "ins": ["#1"], "out": "babs"},
+    {"op": "add", "ins": ["babs", 1.0], "out": "b1"},
+    {"op": "sqrt", "ins": ["b1"], "out": "s"},
+    {"op": "subtract", "ins": ["e", "s"], "out": "out"}]
+EW_ROPE = [
+    {"op": "multiply", "ins": ["#0", "#1"], "out": "x1c"},
+    {"op": "multiply", "ins": ["#2", "#3"], "out": "x2s"},
+    {"op": "subtract", "ins": ["x1c", "x2s"], "out": "out"}]
+#: the bars on the kernel against its plain version (both compute each
+#: instruction in f32 and round it to the region's dtype): f32 within
+#: EW_F32_ULPS ulps, bf16 within one bf16 spacing; a planted fault (one
+#: opcode swapped) must miss them by EW_FAULT_FACTOR at least
+EW_F32_ULPS = 4.0
+EW_FAULT_FACTOR = 100.0
+
+
+def max_f32_ulps(got, want) -> float:
+    """max |got - want| in f32 ulps at want's magnitude, floored at 1/256
+    of the tensor's largest (as `max_bf16_spacings` floors)."""
+    got, want = got.detach().float(), want.detach().float()
+    mag = want.abs().clamp_min(max(float(want.abs().max()) / 256,
+                                   torch.finfo(torch.float32).tiny))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 23)
+    return float(((got - want).abs() / ulp).max())
+
+
+def ew_spacings(got, want) -> float:
+    """The kernel's distance from its plain version in spacings of the
+    working type: f32 ulps, bf16 spacings; entries equal in both (an inf
+    of both, a NaN of both) count as no distance."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    got, want = (torch.where(same, torch.zeros_like(t), t)
+                 for t in (got, want))
+    return max_bf16_spacings(got, want) if got.dtype == torch.bfloat16 \
+        else max_f32_ulps(got, want)
+
+
+def ew_bar(dtype) -> float:
+    return 1.0 if dtype == torch.bfloat16 else EW_F32_ULPS
+
+
+def swap_opcode(prog, old: str, new: str):
+    """`prog` with its first `old` instruction computing `new` instead."""
+    out = [dict(st) for st in prog]
+    i = next(j for j, st in enumerate(out) if st["op"] == old)
+    out[i]["op"] = new
+    return out
+
+
+def hold_ew(name, prog, operands, planted=None):
+    """One kernel launch of `prog` against its plain version within the
+    bar of the working type; with `planted` (a program with one opcode
+    swapped), the faulty launch against the sound plain version must miss
+    the bar by EW_FAULT_FACTOR. Returns (spacings, planted spacings,
+    max_abs_err, out)."""
+    n0 = ops.generic_elementwise.launches
+    out = ops.generic_elementwise(prog, *operands)
+    torch.cuda.synchronize()
+    assert ops.generic_elementwise.launches == n0 + 1
+    want = ops.generic_elementwise_reference(prog, *operands)
+    sp, bar = ew_spacings(out, want), ew_bar(out.dtype)
+    assert sp <= bar, (name, sp, bar)
+    psp = None
+    if planted is not None:
+        bad = ops.generic_elementwise(planted, *operands)
+        torch.cuda.synchronize()
+        psp = ew_spacings(bad, want)
+        assert psp >= EW_FAULT_FACTOR * bar, (name, "planted", psp)
+        del bad
+    return sp, psp, max_err(out, want), out
+
+
+def check_generic_elementwise(timer, rows):
+    """B11, the generic elementwise kernel, against its plain version:
+    the JAX test's chain at [4096, 14336] in f32 and bf16 and the rope
+    region of Llama-3-8B's q over 2048 tokens (bf16, operands strided and
+    broadcast in place), each timed beside its bytes bound and its plain
+    version (no one PyTorch call computes an arbitrary region:
+    library_ms None), each with a planted fault (tanh computed as
+    logistic; the rope's subtract as add) that must miss the bar by far;
+    then every opcode of the instruction set, f32 and bf16, at
+    [1024, 4096]."""
+    gc = torch.Generator(DEV).manual_seed(31)
+    r = rows.setdefault("generic_elementwise", {})
+    cases, per_op = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        a, b, c = (torch.randn(*EW_CHAIN_SHAPE, device=DEV, generator=gc)
+                   .to(dtype) for _ in range(3))
+        sp, psp, err, out = hold_ew(f"chain {tag}", EW_CHAIN, (a, b, c),
+                                    swap_opcode(EW_CHAIN, "tanh",
+                                                "logistic"))
+        bb, by = bound(nbytes(a, b, c, out))
+        cases[f"chain_{tag}"] = {
+            "shape": list(EW_CHAIN_SHAPE), "spacings": sp,
+            "planted_spacings": psp, "max_abs_err": err, "bound_ms": bb,
+            "bound_by": by,
+            "ms": timer.ms(lambda: ops.generic_elementwise(EW_CHAIN, a, b,
+                                                          c)),
+            "plain_ms": timer.ms(lambda: ops.generic_elementwise_reference(
+                EW_CHAIN, a, b, c))}
+        r[f"max_abs_err_{tag}"] = err
+        del a, b, c, out
+    q = torch.randn(1, SI_TOKENS, HQ, D, device=DEV, generator=gc).to(
+        torch.bfloat16)
+    cos_t, sin_t = precompute_rope(D, SI_TOKENS, 500000.0, DEV)
+    cs = cos_t[None, :, None, :].to(torch.bfloat16)
+    sn = sin_t[None, :, None, :].to(torch.bfloat16)
+    rope_ops = (q[..., :D // 2], cs, q[..., D // 2:], sn)
+    sp, psp, err, out = hold_ew("rope q", EW_ROPE, rope_ops,
+                                swap_opcode(EW_ROPE, "subtract", "add"))
+    bb, by = bound(nbytes(*rope_ops, out))
+    cases["rope_q_bf16"] = {
+        "shape": list(out.shape), "spacings": sp, "planted_spacings": psp,
+        "max_abs_err": err, "bound_ms": bb, "bound_by": by,
+        "ms": timer.ms(lambda: ops.generic_elementwise(EW_ROPE, *rope_ops)),
+        "plain_ms": timer.ms(lambda: ops.generic_elementwise_reference(
+            EW_ROPE, *rope_ops))}
+    from paddle_tpu_torch.ops.elementwise import EW_OPS
+    unary = ("exponential", "log", "tanh", "logistic", "rsqrt", "sqrt",
+             "negate", "abs")
+    for op in EW_OPS:
+        for dtype in (torch.float32, torch.bfloat16):
+            # a positive first operand (log, sqrt, rsqrt, power take it),
+            # a second one of either sign, away from 0 (divide takes it)
+            x = (torch.rand(1024, 4096, device=DEV, generator=gc) * 4
+                 + 0.25).to(dtype)
+            y = ((torch.rand(1024, 4096, device=DEV, generator=gc) + 0.25)
+                 * torch.randn(1024, 4096, device=DEV, generator=gc).sign()
+                 ).to(dtype)
+            prog = [{"op": op, "ins": ["#0"] if op in unary else
+                     ["#0", "#1"], "out": "r"},
+                    {"op": "multiply", "ins": ["r", "#1"], "out": "s"},
+                    {"op": "add", "ins": ["s", 0.75], "out": "t"}]
+            sp, _, err, _ = hold_ew(f"{op} {dtype}", prog, (x, y))
+            per_op[f"{op}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"] \
+                = {"spacings": sp, "max_abs_err": err}
+    main = cases["rope_q_bf16"]
+    r.update(max_abs_err=main["max_abs_err"], bf16_spacings=main["spacings"],
+             f32_ulps=max(cases["chain_f32"]["spacings"],
+                          max(v["spacings"] for k, v in per_op.items()
+                              if k.endswith("f32"))),
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+             case="rope_q_bf16", cases=cases, opcodes=per_op,
+             bars={"f32_ulps": EW_F32_ULPS, "bf16_spacings": 1.0,
+                   "planted_factor": EW_FAULT_FACTOR})
+
+
 # ----------------------------------------------------------- phase 9c/9d
 def incubate_paths(card):
     """Phase 9c: the incubate API and the standalone fuse at full width,
@@ -4146,6 +4335,149 @@ def to_static_training(card):
                                   "flash_sdpa_bwd": L}, **runs}, launches
 
 
+# --------------------------------------------------------------- phase 9e
+#: phase 9e: Llama-3-8B width, depth cut to SI_LAYERS, one [1, 2048]
+#: request through jit.save -> inference.Predictor
+SI_LAYERS = 4
+#: phase 9e's bar on the flagged run's logits against the unflagged
+#: run's, relative (Frobenius); set before the first reading (PERF.md):
+#: the flagged program rounds once where the unflagged rounds twice in
+#: each norm and swiglu, bf16 throughout
+SI_LOGITS_BAR = 2.0 ** -5
+#: phase 9e's planted fault of the rewritten program: every rope region's
+#: subtract computed as add (the fault must miss SI_LOGITS_BAR)
+SI_PLANTED = ("subtract", "add")
+
+
+def plant_generic(gm, old: str, new: str) -> None:
+    """Plant a fault in a rewritten program: every generic region whose
+    program has an `old` instruction computes `new` there instead."""
+    for n in gm.graph.nodes:
+        if n.op == "call_function" and \
+                n.target is ops.generic_elementwise and \
+                any(st["op"] == old for st in n.args[0]):
+            n.args = (swap_opcode(n.args[0], old, new), *n.args[1:])
+    gm.recompile()
+
+
+def artifact_bytes(prefix) -> dict:
+    return {ext: os.path.getsize(prefix + ext)
+            for ext in (".pdparams", ".pt2", ".graph.txt")}
+
+
+def logits_rel(a, b) -> float:
+    a, b = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+    return float((a - b).norm() / b.norm())
+
+
+def static_inference(card):
+    """Phase 9e: Llama-3-8B width, depth cut to SI_LAYERS, bf16 weights
+    drawn on the card, served through Paddle's inference API: jit.save at
+    InputSpec([1, 2048], "int64"), then inference.Config ->
+    create_predictor -> copy_from_cpu -> run -> copy_to_cpu, once without
+    FLAGS_use_fusion_compiler and once with it. The flagged Predictor's
+    pass finds and rewrites 2L + 1 rmsnorm, L swiglu and 4L generic (rope)
+    regions, no sdpa (attention is already the flash node of the exported
+    program) and refuses nothing; one flagged run launches exactly
+    fused_rms_norm 2L + 1, swiglu L, generic_elementwise 4L and the flash
+    forward L times, the unflagged run the flash forward L times and
+    nothing else. The two runs' logits agree within SI_LOGITS_BAR, which
+    a third Predictor whose generic regions compute their subtract as add
+    (SI_PLANTED) must miss. Seconds for export + save, load (+ the pass)
+    and the first run; the artifact's bytes; each Predictor's median run
+    over 3 more."""
+    L = SI_LAYERS
+    cfg = llama3_8b_config(num_hidden_layers=L)
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
+                             generator=torch.Generator(DEV).manual_seed(0))
+    g = torch.Generator(DEV).manual_seed(9)
+    ids = torch.randint(0, cfg.vocab_size, (1, SI_TOKENS), device=DEV,
+                        generator=g).cpu().numpy()
+    want_unflagged = {"flash_sdpa": L}
+    want_flagged = {"flash_sdpa": L, "fused_rms_norm": 2 * L + 1,
+                    "swiglu": L, "generic_elementwise": 4 * L}
+    res = {"card": card["nvidia_smi"], "layers": L, "layers_published": 32,
+           "tokens": SI_TOKENS, "batch": 1, "dtype": "bfloat16"}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "llama")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        jit.save(model, prefix,
+                 input_spec=[InputSpec([1, SI_TOKENS], "int64")])
+        res["export_save_s"] = time.perf_counter() - t0
+        res["artifact_bytes"] = artifact_bytes(prefix)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        logits, launches = {}, {}
+        runs = (("unflagged", False, None), ("flagged", True, None),
+                ("planted", True, SI_PLANTED))
+        for tag, flagged, planted in runs:
+            t0 = time.perf_counter()
+            with flags_guard(use_fusion_compiler=flagged):
+                pred = inference.create_predictor(inference.Config(prefix))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if planted is not None:
+                plant_generic(pred.fused.module, *planted)
+            h = pred.get_input_handle(pred.get_input_names()[0])
+            h.copy_from_cpu(ids)
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            pred.run()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = {k: v["launches"] for k, v in
+                      ops.launch_counts().items() if v["launches"]}
+            plain = {k: v["plain_calls"] for k, v in
+                     ops.launch_counts().items() if v["plain_calls"]}
+            out = pred.get_output_handle(pred.get_output_names()[0])
+            logits[tag] = out.copy_to_cpu()
+            assert not plain, (tag, plain)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred.run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            entry = {"load_s": load_s, "first_run_s": first_s,
+                     "run_ms": times, "run_ms_median":
+                     statistics.median(times), "launches": counts}
+            if flagged:
+                entry.update(found=pred.fused.found,
+                             refused=pred.fused.refused,
+                             rewritten=pred.fused.n_fused)
+                assert pred.fused.found == {"sdpa": 0, "rmsnorm": 2 * L + 1,
+                                            "swiglu": L,
+                                            "generic": 4 * L}, entry
+                assert not any(pred.fused.refused.values()), entry
+                assert pred.fused.n_fused == 7 * L + 1, entry
+            want = want_flagged if flagged else want_unflagged
+            if planted is None:
+                assert counts == want, (tag, counts, want)
+            launches[tag] = counts
+            res[tag] = entry
+            del pred, h, out
+            gc.collect()
+            torch.cuda.empty_cache()
+    for tag in ("flagged", "unflagged"):
+        assert np.isfinite(logits[tag]).all(), tag
+        assert logits[tag].shape == (1, SI_TOKENS, cfg.vocab_size), tag
+    rel = logits_rel(logits["flagged"], logits["unflagged"])
+    planted_rel = logits_rel(logits["planted"], logits["unflagged"])
+    res.update(logits_rel_diff=rel, logits_bar_rel=SI_LOGITS_BAR,
+               planted_logits_rel_diff=planted_rel,
+               logits_max_abs_diff=float(np.abs(
+                   logits["flagged"] - logits["unflagged"]).max()),
+               argmax_agreement=float((logits["flagged"].argmax(-1)
+                                       == logits["unflagged"].argmax(-1))
+                                      .mean()))
+    assert rel <= SI_LOGITS_BAR, res
+    assert planted_rel > SI_LOGITS_BAR, res
+    return res, launches["flagged"]
+
+
 def same_share(a: dict, b: dict) -> float:
     """Share of greedy tokens of `b` equal to `a`'s, request by request."""
     toks = [(a[r], b[r]) for r in a]
@@ -4210,6 +4542,9 @@ SOURCES = {
                                        "paddle_tpu/ops/fused.py:210"),
     "fused_moe_dispatch_combine": ("paddle_tpu_torch/ops/csrc/fused.cu",
                                    "paddle_tpu/ops/fused.py:265"),
+    # the Pallas loop the JAX pass synthesizes per generic region
+    "generic_elementwise": ("paddle_tpu_torch/ops/csrc/elementwise.cu",
+                            "paddle_tpu/jit/fusion_cc.py:201"),
 }
 #: the megakernels' quantized sites, reported inside their rows
 QUANT_SITES = ("fused_qkv_rope_append", "fused_oproj_norm", "fused_ffn")
@@ -4321,6 +4656,12 @@ def main() -> int:
     res, static_launches = to_static_training(card)
     emit(f"9d llama3-8b-width training through to_static and the fusion "
          f"pass, {STATIC_LAYERS} of 32 layers", **res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, static_inf_launches = static_inference(card)
+    emit(f"9e llama3-8b-width static inference through jit.save, "
+         f"inference.Predictor and the fusion_cc pass, {SI_LAYERS} of 32 "
+         f"layers", **res)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4463,6 +4804,7 @@ def main() -> int:
               mla_launches["generate_cached"]),
              ("flashmask at 8B attention width", fm_launches),
              ("to_static llama training, fusion pass", static_launches),
+             ("static inference, fusion_cc pass", static_inf_launches),
              ("incubate api and fuse", inc_launches))
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
@@ -4514,7 +4856,7 @@ def main() -> int:
         if name == "flash_sdpa":
             row["d192"] = dict(r["d192"], launches=mla_launches[
                 "generate_cached"]["flash_sdpa"])
-        if name == "mla_decode_attention":
+        if name in ("mla_decode_attention", "generic_elementwise"):
             row["cases"] = r["cases"]
         if name.startswith("flashmask_sdpa"):
             # the packed documents' readings; every encoding's in phase 9b

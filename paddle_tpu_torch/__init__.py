@@ -20,7 +20,9 @@ decode kernels); batch generation through ``generation.generate`` and
 ``trainer.build_llama_pretrain_step`` (flash attention forward and
 backward as kernels; ``device="cpu"`` runs the plain versions); the
 incubate fused-op surface (``incubate.nn``) and ``jit.to_static`` with
-its pattern-fusion pass (``jit.fusion``). ROADMAP.md lists the rest.
+its pattern-fusion pass (``jit.fusion``); and the static inference path,
+``jit.save`` -> ``inference.Predictor``, with its static-program fusion
+pass (``jit.fusion_cc``). ROADMAP.md lists the rest.
 """
 
 from .device import card_report, resolve_device

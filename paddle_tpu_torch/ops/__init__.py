@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .elementwise import (generic_elementwise,
+                          generic_elementwise_reference)
 from .flash import (flash_kernel_eligible, flash_sdpa, flash_sdpa_bwd,
                     flash_sdpa_bwd_reference, flash_sdpa_reference)
 from .flashmask import (bands_from_startend, flashmask_block_kinds,
@@ -66,7 +68,8 @@ __all__ = ["fused_rms_norm", "rms_norm_reference", "fused_layer_norm",
            "rope_reference", "fused_bias_residual_layer_norm",
            "bias_residual_layer_norm_reference",
            "fused_moe_dispatch_combine", "moe_dispatch_combine_reference",
-           "moe_dc_eligible", "oracles",
+           "moe_dc_eligible", "generic_elementwise",
+           "generic_elementwise_reference", "oracles",
            "launch_counts", "reset_counts"]
 
 

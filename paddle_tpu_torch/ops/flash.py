@@ -12,6 +12,11 @@ dkv kernels. On CPU tensors it runs the plain version
 `flash_sdpa_reference`, which autograd differentiates. A CUDA tensor
 launches the kernels or raises; nothing falls back.
 
+The forward launch is the operator ``paddle_tpu_torch::flash_fwd``
+(``torch.library.custom_op``), so ``torch.export`` records attention as
+one node of the exported program, which launches the kernel when the
+program runs on the card (``jit.save`` / ``inference.Predictor``).
+
 The forward takes head_dim 64, 128 and 192 (the MLA prefill), the
 backward 64 and 128 (`BWD_HEAD_DIMS`; 192 raises, naming its ROADMAP
 item).
@@ -253,12 +258,38 @@ def flash_sdpa_bwd(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? seg_q, Tensor? seg_kv, "
+           "bool causal, float scale) -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, seg_q, seg_kv, causal, scale):
+    """(o, lse) of the forward as ONE operator, ``paddle_tpu_torch::
+    flash_fwd``: a program traced by ``torch.export`` holds it as one node
+    (its fake implementation gives the shapes), and the node launches the
+    kernel when the exported program runs on the card. CPU tensors run the
+    plain version."""
+    if q.device.type == "cpu":
+        flash_sdpa.plain_calls += 1
+        # contiguous, as the fake implementation (and the kernel) gives
+        o, lse = _reference_fwd(q, k, v, causal, seg_q, seg_kv, scale)
+        return o.contiguous(), lse.contiguous()
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    return _launch_fwd(q, k, v, seg_q, seg_kv, causal, scale)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, seg_q, seg_kv, causal, scale):
+    B, Sq, H, D = q.shape
+    return (q.new_empty(B, Sq, H, D),
+            q.new_empty(B, H, Sq, dtype=torch.float32))
+
+
 class _FlashFn(torch.autograd.Function):
     """The kernels' forward and backward (the JAX package's custom VJP)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_kv, causal, scale):
-        o, lse = _launch_fwd(q, k, v, seg_q, seg_kv, causal, scale)
+        o, lse = _flash_fwd_op(q, k, v, seg_q, seg_kv, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -278,22 +309,32 @@ def flash_sdpa(q, k, v, causal: bool = False, segment_ids_q=None,
     aligned for Sq != Sk. `block_q` / `block_k` are the TPU kernel's
     tiling and do not steer the Hopper tiles (64 x 64, fixed in the
     source). On CUDA, a shape `flash_kernel_eligible` refuses raises
-    ValueError."""
-    if _build.faked(q, k, v):
-        return flash_sdpa_reference(q, k, v, causal, segment_ids_q,
-                                    segment_ids_kv, scale)
-    if q.device.type == "cpu":
-        flash_sdpa.plain_calls += 1
-        return flash_sdpa_reference(q, k, v, causal, segment_ids_q,
-                                    segment_ids_kv, scale)
+    ValueError.
+
+    Without autograd the forward is the operator ``paddle_tpu_torch::
+    flash_fwd`` on every device, so a program exported from a model holds
+    the same node on the CPU and on the card; on CPU tensors under
+    autograd the plain version runs and autograd differentiates it, on
+    CUDA tensors the kernels' autograd Function runs."""
     B, Sq, H, D = q.shape
     if scale is None:
         scale = D ** -0.5
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if q.device.type == "cpu" and grad:
+        if not _build.faked(q, k, v):
+            flash_sdpa.plain_calls += 1
+        return flash_sdpa_reference(q, k, v, causal, segment_ids_q,
+                                    segment_ids_kv, scale)
     seg_q, seg_kv = _segments(B, Sq, k.shape[1], segment_ids_q,
                               segment_ids_kv, q.device)
-    _check(q, k, v, seg_q, seg_kv)
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
-    return _FlashFn.apply(q, k, v, seg_q, seg_kv, bool(causal), float(scale))
+    if q.device.type != "cpu":
+        _check(q, k, v, seg_q, seg_kv)
+    if grad:
+        return _FlashFn.apply(q, k, v, seg_q, seg_kv, bool(causal),
+                              float(scale))
+    return _flash_fwd_op(q, k, v, seg_q, seg_kv, bool(causal),
+                         float(scale))[0]
 
 
 flash_sdpa.launches = 0

@@ -1,18 +1,23 @@
 """Typed serving outcomes (counterpart of paddle_tpu/resilience/__init__.py).
 
-Only what the scheduler and engine use is ported: the backpressure
-errors ``Overloaded`` and ``Shed``, the falsy ``TimeoutResult`` partial
-result, the wall-clock ``Deadline`` and the ``deadline_miss`` count.
+Only what the scheduler, the engine and the inference Predictor use is
+ported: the backpressure errors ``Overloaded`` and ``Shed``, the falsy
+``TimeoutResult`` partial result, the wall-clock ``Deadline``, the
+``deadline_miss`` count and the ``AdmissionGate`` (with its count of
+refused requests, ``admission_rejects``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any, Optional
 
 __all__ = ["Overloaded", "Shed", "TimeoutResult", "Deadline",
-           "deadline_miss", "deadline_misses"]
+           "deadline_miss", "deadline_misses", "AdmissionGate",
+           "admission_rejects"]
 
 
 class Overloaded(RuntimeError):
@@ -78,3 +83,48 @@ def deadline_miss() -> None:
 def deadline_misses() -> int:
     """Deadlines missed in this process so far."""
     return _miss_total
+
+
+_reject_total = 0
+
+
+def admission_rejects() -> int:
+    """Requests an `AdmissionGate` refused in this process so far."""
+    return _reject_total
+
+
+class AdmissionGate:
+    """Queue-admission backpressure: at most `max_inflight` requests
+    execute; a further request waits up to `queue_timeout_s` for a slot
+    and is then refused with the typed `Overloaded` error (never an
+    unbounded hang)."""
+
+    def __init__(self, max_inflight: int = 1, queue_timeout_s: float = 0.0):
+        if max_inflight < 1:
+            raise ValueError("max_inflight must be >= 1")
+        self.max_inflight = int(max_inflight)
+        self.queue_timeout_s = float(queue_timeout_s)
+        self._sem = threading.BoundedSemaphore(self.max_inflight)
+
+    def try_acquire(self, timeout_s: Optional[float] = None) -> bool:
+        t = self.queue_timeout_s if timeout_s is None else float(timeout_s)
+        if t > 0:
+            return self._sem.acquire(timeout=t)
+        return self._sem.acquire(blocking=False)
+
+    def release(self) -> None:
+        self._sem.release()
+
+    @contextlib.contextmanager
+    def admit(self, timeout_s: Optional[float] = None):
+        global _reject_total
+        if not self.try_acquire(timeout_s):
+            _reject_total += 1
+            wait = self.queue_timeout_s if timeout_s is None else timeout_s
+            raise Overloaded(
+                f"admission gate full ({self.max_inflight} inflight); "
+                f"queue wait exceeded {wait:.3f}s")
+        try:
+            yield self
+        finally:
+            self.release()

@@ -1,5 +1,7 @@
 """The port's three serving kernels against the JAX package, and the card
-checks of the four incubate kernels.
+checks of the four incubate kernels and of the generic elementwise kernel
+(its plain version's parity with the JAX pass is in
+test_torch_inference.py).
 
 (fused_layer_norm's parity with the JAX kernel is in test_torch_gpt.py;
 its card test is here.) For fused_rms_norm, fused_rope_append and
@@ -488,3 +490,69 @@ class TestFusedKernelsOnCard:
         with pytest.raises(ValueError, match="exceeds"):
             ops.fused_moe_dispatch_combine(keep, oh,
                                            torch.zeros(2, 8, device="cuda"))
+
+
+@pytest.mark.cuda
+class TestGenericElementwiseOnCard:
+    """generic_elementwise (B11) against its plain version on the card,
+    with operands broadcast (stride 0) and strided (slices of a wider
+    tensor) in place: both compute each instruction in f32 and round it
+    to the region's dtype, so the results are held bit for bit in f32,
+    bf16 and f16."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels are CUDA C++ "
+                        "with no CPU mode")
+
+    ROPE = [{"op": "multiply", "ins": ["#0", "#1"], "out": "a"},
+            {"op": "multiply", "ins": ["#2", "#3"], "out": "b"},
+            {"op": "subtract", "ins": ["a", "b"], "out": "c"},
+            {"op": "multiply", "ins": ["c", 0.5], "out": "d"}]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+    @pytest.mark.parametrize("B,S_,H,D", [(1, 2048, 32, 128),
+                                          (2, 37, 3, 64)])
+    def test_broadcast_and_strided_operands(self, dtype, B, S_, H, D):
+        g = torch.Generator("cuda").manual_seed(S_ + D)
+        x = torch.randn(B, S_, H, D, device="cuda", generator=g).to(dtype)
+        cos, sin = (torch.randn(1, S_, 1, D // 2, device="cuda",
+                                generator=g).to(dtype) for _ in range(2))
+        args = (x[..., :D // 2], cos, x[..., D // 2:], sin)
+        n = ops.generic_elementwise.launches
+        got = ops.generic_elementwise(self.ROPE, *args)
+        torch.cuda.synchronize()
+        assert ops.generic_elementwise.launches == n + 1
+        want = ops.generic_elementwise_reference(self.ROPE, *args)
+        assert got.shape == (B, S_, H, D // 2) and got.is_contiguous()
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_every_opcode(self, dtype):
+        from paddle_tpu_torch.ops.elementwise import EW_OPS, _UNARY
+        g = torch.Generator("cuda").manual_seed(11)
+        x = (torch.rand(257, 129, device="cuda", generator=g) * 4
+             + 0.25).to(dtype)
+        y = ((torch.rand(1, 129, device="cuda", generator=g) + 0.25)
+             * torch.randn(1, 129, device="cuda", generator=g).sign()
+             ).to(dtype)
+        for op in EW_OPS:
+            prog = [{"op": op, "ins": ["#0"] if op in _UNARY else
+                     ["#0", "#1"], "out": "r"},
+                    {"op": "multiply", "ins": ["r", "#1"], "out": "s"},
+                    {"op": "add", "ins": ["s", 0.75], "out": "t"}]
+            got = ops.generic_elementwise(prog, x, y)
+            want = ops.generic_elementwise_reference(prog, x, y)
+            assert torch.equal(got, want), op
+
+    def test_refusals(self):
+        x = torch.ones(4, 4, device="cuda")
+        too_many = [{"op": "negate", "ins": ["#0" if i == 0 else f"r{i-1}"],
+                     "out": f"r{i}"} for i in range(40)]
+        with pytest.raises(ValueError, match="instructions"):
+            ops.generic_elementwise(too_many, x)
+        with pytest.raises(ValueError, match="tensors on"):
+            ops.generic_elementwise([{"op": "add", "ins": ["#0", "#1"],
+                                      "out": "r"}], x, torch.ones(4, 4))

@@ -6,7 +6,9 @@
 - entry points run on the card unless the caller asks for the CPU: with
   no device and no CUDA they raise instead of running on the CPU;
 - the kernel registry lists exactly the ported kernels, under the JAX
-  registry's names;
+  registry's names, and generic_elementwise, the counterpart of the one
+  Pallas kernel the JAX registry never names (the static-program pass's
+  per-region loop);
 - chip_smoke.py fails, printing no result, without a card."""
 
 import json
@@ -82,11 +84,14 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.nn.functional.flash_attention",
                 "paddle_tpu_torch.incubate.nn",
                 "paddle_tpu_torch.incubate.nn.functional",
-                "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.fusion"):
+                "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.fusion",
+                "paddle_tpu_torch.jit.fusion_cc",
+                "paddle_tpu_torch.ops.elementwise",
+                "paddle_tpu_torch.static", "paddle_tpu_torch.inference"):
         assert mod in res["modules"]
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.serving import ServingEngine
@@ -111,8 +116,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_llama_pretrain_step(PretrainConfig(cfg, global_batch=1,
                                                  seq_len=8))
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.static import InputSpec
+    prefix = str(tmp_path / "llama")
+    jit.save(model, prefix, input_spec=[InputSpec([1, 8], "int64")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inference.create_predictor(inference.Config(prefix))
     # the explicit request still runs on the CPU; generate_cached runs
     # where its model lives
+    cfg_cpu = inference.Config(prefix)
+    cfg_cpu.disable_gpu()
+    inference.create_predictor(cfg_cpu)
     ServingEngine(model, device="cpu")
     ServingEngine(model, ragged=False, device="cpu")
     from paddle_tpu_torch.generation import generate_cached
@@ -158,8 +172,13 @@ def test_registry_names_the_ported_kernels():
                            "fused_append_rows", "int4_dequantize",
                            "flashmask_sdpa", "swiglu", "fused_rope",
                            "fused_bias_residual_layer_norm",
-                           "fused_moe_dispatch_combine"}
-    assert set(ported) <= set(jax_oracles())
+                           "fused_moe_dispatch_combine",
+                           "generic_elementwise"}
+    # the one name outside the JAX registry: JAX's register_oracle never
+    # names _generic_kernel (jit/fusion_cc.py:177), the Pallas loop its
+    # static-program pass synthesizes per region; generic_elementwise is
+    # its Hopper counterpart
+    assert set(ported) - set(jax_oracles()) == {"generic_elementwise"}
     for name, entry in ported.items():
         assert entry.kernel.__name__ == name
         assert entry.kernel.launches >= 0
@@ -188,9 +207,11 @@ def test_registry_names_the_ported_kernels():
 def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["flash_attention.cu", "flashmask.cu", "fused.cu",
-                     "gmm.cu", "megakernels.cu", "mla.cu",
-                     "paged_attention.cu", "ragged_attention.cu"]
+    assert names == ["elementwise.cu", "flash_attention.cu",
+                     "flashmask.cu", "fused.cu", "gmm.cu", "megakernels.cu",
+                     "mla.cu", "paged_attention.cu", "ragged_attention.cu"]
+    # _build.py compiles every source of the list, one nvcc each
+    assert [p.name for p in _build._sources()] == names
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     for p in _build.CSRC.glob("*.cu"):
