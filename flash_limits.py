@@ -4,8 +4,9 @@ kernels and for planted faults.
 
     python3 flash_limits.py [--faults DIR] [--out FILE]
 
-``chip_smoke.py`` holds the bf16 flash kernels (forward, dq, dkv) to
-their plain version by two relative errors per tensor
+``chip_smoke.py`` holds the bf16 flash kernels (the forward and the
+fused backward: o, dq, dk, dv) to their plain version by two relative
+errors per tensor
 (`chip_smoke.flash_rel_errors`: over the tensor, and the largest over
 its 64-position tiles of a head) and the tiny bf16 pretraining run on
 the card to the CPU's (phase 6). This script prints what those measures
@@ -47,32 +48,48 @@ KERNEL = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
 
 #: name -> (what it breaks, text, replacement, which occurrence (0-based))
 FAULTS = {
-    "fwd_skips_last_k_tile": (
-        "forward: each q tile's loop stops one k tile short (causal: the "
-        "diagonal tile; otherwise the last, ragged one)",
-        "(kv_end + BKV - 1) / BKV : 0;",
-        "(kv_end + BKV - 1) / BKV - 1 : 0;", 0),
+    "fwd_skips_last_kv_tile": (
+        "forward: each q tile's loop stops one K / V tile short (causal: "
+        "the diagonal tile; otherwise the last, ragged one)",
+        "const int n_kt = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;",
+        "const int n_kt = kv_end > 0 ? (kv_end + BKV - 1) / BKV - 1 : 0;",
+        0),
     "fwd_stale_rescale": (
-        "forward: the accumulator is no longer rescaled after the 4th k "
+        "forward: the accumulator is no longer rescaled after the 4th K / V "
         "tile when the row max grows (the row sum still is)",
-        "acc[i][e] *= alpha[e >> 1];",
-        "acc[i][e] *= kt < 4 ? alpha[e >> 1] : 1.f;", 0),
-    "dq_skips_last_k_tile": (
-        "dq: each q tile's loop stops one k tile short",
-        "(kv_end + BKV - 1) / BKV : 0;",
-        "(kv_end + BKV - 1) / BKV - 1 : 0;", 1),
-    "dq_drops_di": (
-        "dq: ds = p dp scale, the di term dropped",
-        "s[nt][e] = pv * (dp[nt][e] - di[hh]) * p.scale;",
-        "s[nt][e] = pv * dp[nt][e] * p.scale;", 0),
-    "dkv_skips_last_q_tile": (
-        "dkv: each k tile's loop stops one q tile (32 rows) short",
-        "(p.Sq + BQ2 - 1) / BQ2 - qt0);",
-        "(p.Sq + BQ2 - 1) / BQ2 - qt0 - 1);", 0),
-    "dkv_drops_di": (
-        "dkv: ds^T = p^T dp^T scale, the di term dropped (dv untouched)",
-        "s[nt][e] = s[nt][e] * (dpt[nt][e] - di_s[st * BQ2 + c]) * p.scale;",
-        "s[nt][e] = s[nt][e] * dpt[nt][e] * p.scale;", 0),
+        "for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];",
+        "for (int e = 0; e < 4; ++e) o[4 * j + e] *= kt < 4 ? "
+        "alpha[e >> 1] : 1.f;", 0),
+    "fwd_diagonal_unmasked": (
+        "forward: causal tiles inside the ragged edges skip the mask, so "
+        "the diagonal tile's keys above the diagonal are seen",
+        "if (!tile_visible(p, r0, 64, k0, BKV)) {",
+        "if (!tile_visible(p, r0, 64, k0, BKV) && !(p.causal && "
+        "p.seg_q == nullptr && k0 + BKV <= p.Sk && r0 + 64 <= p.Sq)) {", 0),
+    "bwd_skips_last_q_tile": (
+        "backward: each key tile's loop stops one 64-row Q / dO tile short",
+        "const int n_it = max(0, (p.Sq + BQ - 1) / BQ - qt0);",
+        "const int n_it = max(0, (p.Sq + BQ - 1) / BQ - qt0 - 1);", 0),
+    "dq_drops_first_tile_add": (
+        "dq: the bulk add of each key tile's first q tile (causal: the "
+        "diagonal one) into the f32 workspace is dropped",
+        "bulk_reduce_add(dq_g + (size_t)r0 * D, dq_s, G::DQ_BYTES);",
+        "if (it > 0) bulk_reduce_add(dq_g + (size_t)r0 * D, dq_s, "
+        "G::DQ_BYTES);", 0),
+    "ds_drops_di": (
+        "backward: ds = p dp scale, the di term dropped (dk and dq; dv "
+        "untouched)",
+        "da[kk][r] = pack_bf16(s[x] * (dp[x] - di2.x) * p.scale,\n"
+        "                                s[x + 1] * (dp[x + 1] - di2.y) * "
+        "p.scale);",
+        "da[kk][r] = pack_bf16(s[x] * dp[x] * p.scale,\n"
+        "                                s[x + 1] * dp[x + 1] * p.scale);",
+        0),
+    "dk_stale_accumulation": (
+        "dk: each q tile's product overwrites the accumulator instead of "
+        "adding to it (dk keeps the last tile's share only)",
+        "mma_rs<1>(dk, da[kk], desc_mn(qb, BQ, kk), 1);",
+        "mma_rs<1>(dk, da[kk], desc_mn(qb, BQ, kk), kk > 0);", 0),
     "keys_past_the_edge_visible": (
         "every kernel: keys past Sk (the zero-filled rows of a ragged "
         "last tile) are no longer hidden",

@@ -7,10 +7,21 @@ paddle_tpu/ops/pallas_flash.py).
 of different segments do not see each other). On CUDA tensors it runs the
 hand-written kernels of ``csrc/flash_attention.cu`` through
 `torch.autograd.Function`: the forward kernel writes ``o`` and an f32
-logsumexp, and `flash_sdpa_bwd` launches the di pre-pass and the dq and
-dkv kernels. On CPU tensors it runs the plain version
+logsumexp, and `flash_sdpa_bwd` launches the lse / di pre-pass, the
+fused backward and dq's conversion. On CPU tensors it runs the plain version
 `flash_sdpa_reference`, which autograd differentiates. A CUDA tensor
 launches the kernels or raises; nothing falls back.
+
+bf16 runs Hopper kernels (wgmma products, TMA tile loads completed on
+mbarriers, two warpgroups a block; ``csrc/flash_sm90.cuh``). The forward
+takes 128 q rows a block against K / V tiles of 128 keys (96 at head_dim
+192). The backward takes 128 keys a block against 64-row Q / dO tiles
+and does the five products in one kernel; its dq tiles are summed in f32
+by bulk reduce-adds into a workspace of ``B * H * ceil(Sq / 64) * 64 *
+(D + 2)`` floats (136 MB at B 1, S 8192, 32 heads of 128), allocated
+zeroed for the call, so dq's summation order, and its last bits, vary
+from run to run. f32 runs a scalar path (di, dq and dkv kernels) that
+holds the plain version at 2e-5.
 
 The forward launch is the operator ``paddle_tpu_torch::flash_fwd``
 (``torch.library.custom_op``), so ``torch.export`` records attention as
@@ -25,8 +36,9 @@ A row that sees no key comes out as zeros (lse = +1e30), where a dense
 softmax would average v; its gradients are zero, never NaN.
 
 Counts: ``flash_sdpa.launches`` counts forward kernels,
-``flash_sdpa_bwd.launches`` backward calls (each the di pre-pass, dq and
-dkv: three CUDA kernels); ``.plain_calls`` the plain versions.
+``flash_sdpa_bwd.launches`` backward calls (each three CUDA kernels:
+bf16 the lse / di pre-pass, the fused backward and dq's conversion; f32
+di, dq and dkv); ``.plain_calls`` the plain versions.
 """
 
 from __future__ import annotations
@@ -156,10 +168,12 @@ def _strides(*ts):
 
 def _kernel_operand(t):
     """`t` as the kernels read it: unit stride along D, rows on 16-byte
-    boundaries (the tiles are copied in 16-byte pieces); a copy if not."""
+    boundaries and no broadcast (zero-stride) dimension (bf16 tiles are
+    TMA boxes, whose strides are multiples of 16 bytes); a copy if not."""
     vec = 16 // t.element_size()
     if (t.stride(-1) != 1 or t.data_ptr() % 16
-            or any(s % vec for s in t.stride()[:3])):
+            or any(s % vec or (s == 0 and n > 1)
+                   for s, n in zip(t.stride()[:3], t.shape[:3]))):
         t = t.contiguous()
     return t
 
@@ -211,15 +225,27 @@ def _launch_fwd(q, k, v, seg_q, seg_kv, causal, scale):
     return out, lse
 
 
+def _bwd_workspace(B, H, Sq, D, dtype) -> int:
+    """f32 elements of the backward's workspace: bf16, dq's sums over
+    [B, H, Sq rounded up to 64, D] (zeroed) and the pre-pass's lse and di
+    rows [B, H, Sq rounded up to 64] each; f32, di [B, H, Sq] alone."""
+    if dtype != torch.bfloat16:
+        return B * H * Sq
+    rows = B * H * -(-Sq // 64) * 64
+    return rows * (D + 2)
+
+
 def flash_sdpa_bwd(q, k, v, o, lse, do, causal: bool = False,
                    segment_ids_q=None, segment_ids_kv=None,
                    scale: Optional[float] = None):
     """(dq, dk, dv) of `flash_sdpa` for the output gradient `do`, given
     the forward's output `o` and its f32 logsumexp `lse` [B, H, Sq]. On
-    CUDA: one call launches the di pre-pass, the dq kernel and the dkv
-    kernel; on CPU tensors the plain version (autograd of
-    `flash_sdpa_reference`; `o` and `lse` unused). A head_dim outside
-    BWD_HEAD_DIMS raises on every device."""
+    CUDA: one call launches three kernels (bf16: the lse / di pre-pass,
+    the fused backward, whose bulk reduce-adds make dq's summation order
+    vary from run to run, and dq's conversion; f32: di, dq, dkv); on CPU
+    tensors the plain version (autograd of `flash_sdpa_reference`; `o`
+    and `lse` unused). A head_dim outside BWD_HEAD_DIMS raises on every
+    device."""
     _refuse_bwd_dim(q.shape[-1])
     if q.device.type == "cpu":
         flash_sdpa_bwd.plain_calls += 1
@@ -240,7 +266,8 @@ def flash_sdpa_bwd(q, k, v, o, lse, do, causal: bool = False,
         raise ValueError("flash_sdpa_bwd: o / do must be [B, Sq, H, D] and "
                          "lse f32 [B, H, Sq]")
     lse = lse.contiguous()
-    di = torch.empty_like(lse)
+    di = torch.zeros(_bwd_workspace(B, H, Sq, D, q.dtype),
+                     dtype=torch.float32, device=q.device)
     dq = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
     dk = torch.empty(B, Sk, H, D, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -307,9 +334,11 @@ def flash_sdpa(q, k, v, causal: bool = False, segment_ids_q=None,
                block_q: int = 512, block_k: int = 512):
     """[B, S, H, D] flash attention; differentiable. Causal is bottom-right
     aligned for Sq != Sk. `block_q` / `block_k` are the TPU kernel's
-    tiling and do not steer the Hopper tiles (64 x 64, fixed in the
-    source). On CUDA, a shape `flash_kernel_eligible` refuses raises
-    ValueError.
+    tiling and do not steer the Hopper tiles, fixed in the source: the
+    forward 128 q rows by 128 keys (96 at head_dim 192), the backward 128
+    keys by 64 q rows. On CUDA, a shape `flash_kernel_eligible` refuses
+    raises ValueError; a bf16 launch with scale <= 0 fails (RuntimeError:
+    the kernels take the row max over the raw products).
 
     Without autograd the forward is the operator ``paddle_tpu_torch::
     flash_fwd`` on every device, so a program exported from a model holds

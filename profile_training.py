@@ -50,8 +50,10 @@ from paddle_tpu_torch.trainer import (PretrainConfig,
                                       build_llama_pretrain_step)
 from profile_serving import busy_ms
 
-#: kernel-name fragments of the flash kernels (ops/csrc/flash_attention.cu)
-FLASH = ("fwd_bf16", "dq_bf16", "dkv_bf16", "di_pass")
+#: kernel-name fragments of the bf16 flash kernels (ops/csrc/
+#: flash_attention.cu): the forward, the fused backward, dq's conversion
+#: and the backward's lse / di pre-pass
+FLASH = ("fwd_sm90", "bwd_sm90", "dq_convert", "bwd_rows")
 OPT_RANGE = "optimizer_update"
 
 

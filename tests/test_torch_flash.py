@@ -275,6 +275,73 @@ class TestFlashOnCard:
         _, lse = _launch_fwd(q, k, v, sq, skv, causal, D ** -0.5)
         torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
 
+    @pytest.mark.parametrize("D,Sq,Sk,causal", [
+        (64, 1024, 1024, True),       # 8 q tiles, the K / V ring wraps
+        (128, 1024, 1024, True),
+        (128, 1000, 1000, True),      # ragged last tiles
+        (64, 1000, 1000, True),
+        (128, 1000, 1100, True),      # Sq < Sk
+        (128, 1100, 1000, True),      # Sq > Sk: rows that see no key
+        (64, 1024, 900, False),
+        (128, 1, 300, True),          # one row
+        (128, 1, 300, False),
+        (64, 129, 129, True),         # one row past a 128-row tile
+        (128, 129, 257, False),
+    ])
+    def test_ring_and_edges(self, D, Sq, Sk, causal):
+        # bf16 (the wgmma / TMA kernels) across tile and ring boundaries
+        self.test_kernel_matches_plain(torch.bfloat16, D, Sq, Sk, causal,
+                                       False)
+
+    @pytest.mark.parametrize("Sq,Sk,causal", [
+        (1024, 1024, True), (1000, 1000, True), (129, 200, False),
+        (1, 300, True), (200, 150, True)])
+    def test_head_dim_192_forward(self, Sq, Sk, causal):
+        g = torch.Generator("cuda").manual_seed(Sq + Sk)
+        q, k, v = (torch.randn(2, S, 3, 192, device="cuda", generator=g)
+                   .to(torch.bfloat16) for S in (Sq, Sk, Sk))
+        n_f = flash_sdpa.launches
+        o = flash_sdpa(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_sdpa.launches == n_f + 1
+        self._assert(o, flash_sdpa_reference(q, k, v, causal=causal),
+                     torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim 192"):
+            flash_sdpa_bwd(q, k, v, o, torch.zeros(2, 3, Sq, device="cuda"),
+                           torch.ones_like(o), causal=causal)
+
+    @pytest.mark.parametrize("layout", ["packed_qkv", "heads_major"])
+    def test_strided_inputs_bf16(self, layout):
+        # views read through their strides by the tensor maps: q / k / v of
+        # one [B, S, 3, H, D] projection, or [B, H, S, D] transposed
+        g = torch.Generator("cuda").manual_seed(1)
+        B, S, H, D = 2, 300, 3, 128
+        if layout == "packed_qkv":
+            qkv = torch.randn(B, S, 3, H, D, device="cuda",
+                              generator=g).to(torch.bfloat16)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, k, v = (torch.randn(B, H, S, D, device="cuda", generator=g)
+                       .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+        assert not q.is_contiguous()
+        do = torch.randn(B, S, H, D, device="cuda",
+                         generator=g).to(torch.bfloat16)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        n_f, n_b = flash_sdpa.launches, flash_sdpa_bwd.launches
+        o = flash_sdpa(*leaves, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        assert flash_sdpa.launches == n_f + 1
+        assert flash_sdpa_bwd.launches == n_b + 1
+        ref_leaves = [t.detach().contiguous().requires_grad_()
+                      for t in (q, k, v)]
+        ref = flash_sdpa_reference(*ref_leaves, causal=True)
+        ref.backward(do)
+        self._assert(o, ref, torch.bfloat16)
+        for a, b in zip(leaves, ref_leaves):
+            assert torch.isfinite(a.grad).all()
+            self._assert(a.grad, b.grad, torch.bfloat16, grad=True)
+
     def test_strided_inputs(self):
         # q as a view of a wider projection: the kernels read its strides
         g = torch.Generator("cuda").manual_seed(0)

@@ -9,8 +9,12 @@
   registry's names, and generic_elementwise, the counterpart of the one
   Pallas kernel the JAX registry never names (the static-program pass's
   per-region loop);
-- chip_smoke.py fails, printing no result, without a card."""
+- chip_smoke.py fails, printing no result, without a card;
+- every planted fault of the *_limits.py scripts finds the text it
+  substitutes in the kernel source it mutates, so none can silently
+  plant nothing."""
 
+import importlib
 import json
 import os
 import subprocess
@@ -234,3 +238,32 @@ def test_chip_smoke_fails_without_a_card():
                          timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+#: the scripts that plant kernel faults (flash_limits.plant)
+LIMITS = ("flash_limits", "gmm_limits", "paged_limits", "quant_limits")
+
+
+def _limits(name):
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module(name)
+
+
+@pytest.mark.parametrize("script,fault", [
+    (m, f) for m in LIMITS for f in _limits(m).FAULTS])
+def test_planted_fault_texts_occur(script, fault):
+    """The substitutions of a fault, made in order as `plant` makes them,
+    each find their text at least occurrence + 1 times in the source."""
+    mod = _limits(script)
+    kernel = getattr(mod, "FAULT_KERNELS", {}).get(fault, mod.KERNEL)
+    text = (ROOT / kernel).read_text()
+    _, *edits = mod.FAULTS[fault]
+    assert edits and len(edits) % 3 == 0
+    for i in range(0, len(edits), 3):
+        old, new, which = edits[i:i + 3]
+        parts = text.split(old)
+        assert old != new and len(parts) >= which + 2, (
+            f"{script}: {fault}'s substitution {i // 3} finds its text "
+            f"{len(parts) - 1} times in {kernel}, needs {which + 1}")
+        text = old.join(parts[:which + 1]) + new + old.join(parts[which + 1:])
