@@ -1400,6 +1400,24 @@ def routed_group_sizes(tokens: int, E: int, k: int, H_: int, seed: int,
                                         device=DEV))
 
 
+def gmm_tile_edges(sizes) -> dict:
+    """The edge cases of the bf16 kernels' tiles, maps and schedule, as
+    key -> (K, N, group sizes, tail rows): K not a multiple of the 64-deep
+    box (the 3-D weight map and the lhs map zero-fill past K), N not a
+    multiple of the 256-column tile, group boundaries inside a 64-row
+    wgmma slice, one group of 5000 rows split over many blocks, more
+    groups (160, of 0-8 rows) than SMs, empty first and last groups with
+    tail rows, and fewer than 64 rows in all."""
+    return {"edge/k136": (136, 256, sizes(70, 0, 90, 33), 20),
+            "edge/n200": (128, 200, sizes(100, 50, 0, 77), 10),
+            "edge/mid_slice": (128, 256, sizes(37, 90, 5, 131, 1), 13),
+            "edge/one_big": (256, 512, sizes(0, 5000, 3), 0),
+            "edge/g160": (128, 128, sizes(*[(7 * i) % 9
+                                            for i in range(160)]), 5),
+            "edge/empty_ends": (128, 256, sizes(0, 40, 0, 60, 0), 17),
+            "edge/m_lt_64": (64, 64, sizes(5, 0, 20), 3)}
+
+
 def check_gmm(timer, rows, hold: bool = True):
     """gmm against its plain version (each group's rows times its weight
     in f32, one cast) at ERNIE-4.5-21B-A3B's experts, the gate / up
@@ -1411,9 +1429,9 @@ def check_gmm(timer, rows, hold: bool = True):
     with the decodes: ~12 rows a group over all 64 experts) and
     generate_cached's prefill (M 12288), and the training step's
     (MOE_TRAIN_SEQ tokens: M 24576, routed as `check_gmm_backward`
-    routes them); and edge cases with rows past
-    the last group, empty groups, one group holding every row and N 64
-    (the tiny preset's expert width). bf16 by `row_rel_errors` over the
+    routes them); and edge cases with rows past the last group, empty
+    groups, one group holding every row, N 64 (the tiny preset's expert
+    width) and `gmm_tile_edges`. bf16 by `row_rel_errors` over the
     grouped rows: the ERNIE cases within GMM_BF16_LIMITS, the edge cases
     by their tensor error within GMM_EDGE_TENSOR_LIMIT; f32 at 2e-5; the
     rows past the last group exactly zero. The ERNIE cases in bf16 (with
@@ -1445,7 +1463,8 @@ def check_gmm(timer, rows, hold: bool = True):
              "train/up": (Hm, Im, train, 0), "train/down": (Im, Hm, train, 0),
              "edge/uneven": (128, 256, sizes(100, 0, 200, 150, 62), 88),
              "edge/one_group": (128, 128, sizes(0, 300, 0), 0),
-             "edge/n64": (128, 64, sizes(10, 0, 25, 5), 30)}
+             "edge/n64": (128, 64, sizes(10, 0, 25, 5), 30),
+             **gmm_tile_edges(sizes)}
     lt, lr = GMM_BF16_LIMITS
     r = rows.setdefault("gmm", {"cases": {}})
     for key, (K, N, gs, tail) in cases.items():
@@ -1523,7 +1542,8 @@ def check_gmm_backward(timer, rows, hold: bool = True):
     seeded router: M 24576) for the gate / up product [2560 -> 1536] and
     the down product [1536 -> 2560], and at the edge cases (empty first,
     middle and last groups with rows past the last group; one group
-    holding every row; N 64). bf16 by `row_rel_errors` within
+    holding every row; N 64; `gmm_tile_edges`). bf16 by `row_rel_errors`
+    within
     GMM_BWD_BF16_LIMITS (the edge cases by the tensor error within
     GMM_BWD_EDGE_TENSOR_LIMIT), f32 at 2e-5; dlhs's tail rows and the
     empty groups' drhs slabs exactly zero (tgmm's output is drawn from
@@ -1547,7 +1567,8 @@ def check_gmm_backward(timer, rows, hold: bool = True):
     cases = {"train/up": (Hm, Im, train, 0), "train/down": (Im, Hm, train, 0),
              "edge/empties": (128, 256, sizes(0, 100, 0, 200, 150, 0), 88),
              "edge/one_group": (128, 128, sizes(0, 300, 0), 0),
-             "edge/n64": (128, 64, sizes(10, 0, 25, 5), 30)}
+             "edge/n64": (128, 64, sizes(10, 0, 25, 5), 30),
+             **gmm_tile_edges(sizes)}
     out = {n: rows.setdefault(n, {"cases": {}}) for n in ("gmm_dlhs", "tgmm")}
     for key, (K, N, gs, tail) in cases.items():
         M = int(gs.sum()) + tail

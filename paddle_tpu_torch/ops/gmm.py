@@ -24,7 +24,8 @@ for dlhs, ``tgmm_plain`` for drhs), so the CPU tests check the backward
 formula itself, not autograd through a plain version. A CUDA tensor
 launches the kernel or raises; nothing falls back. On the card no
 wrapper reads back to the host: the group ends are a ``cumsum`` on the
-card and each grid is fixed by rhs's shape, so neither a serving step
+card, every grid comes from the shapes alone and the bf16 kernels find
+their work items from the ends on the card, so neither a serving step
 nor a training step waits on its routing. Each wrapper counts
 ``.launches`` and ``.plain_calls``.
 """

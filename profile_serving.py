@@ -78,7 +78,7 @@ TORCH_GROUPS = (("index", "index"), ("catarray", "cat"),
 
 
 def group(name: str) -> str:
-    if "gmm::gmm_kernel" in name:       # ops/csrc/gmm.cu
+    if "gmm::gmm_" in name:             # ops/csrc/gmm.cu, either dtype
         return "gmm"
     for k in PORT_KERNELS:
         if k in name:

@@ -62,10 +62,12 @@ def group(name: str) -> str:
         for k in FLASH:
             if k in name:
                 return "flash " + k
-    if "gmm::tgmm_kernel" in name:          # ops/csrc/gmm.cu
+    # ops/csrc/gmm.cu: tgmm_sm90 / gmm_sm90<WT> in bf16, tgmm_kernel /
+    # gmm_kernel<float, WT> in f32; WT true: the weight read as [N, K]
+    if "gmm::tgmm_" in name:
         return "gmm tgmm"
-    if "gmm::gmm_kernel" in name:           # <T, true>: the weight read as
-        return "gmm dlhs" if ", true>" in name else "gmm fwd"  # [N, K]
+    if "gmm::gmm_" in name:
+        return "gmm dlhs" if "true>" in name else "gmm fwd"
     low = name.lower()
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass",
                               "splitkreduce")):

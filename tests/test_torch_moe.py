@@ -601,6 +601,18 @@ def _router_sizes(M_tokens, E, k, seed, live=None):
     return torch.bincount(topi.reshape(-1), minlength=E).to(torch.int32)
 
 
+#: (K, N, group sizes) of the bf16 kernels' tile, map and schedule edges
+#: (chip_smoke.gmm_tile_edges): K not a multiple of the 64-deep box, N not
+#: a multiple of the 256-column tile, group boundaries inside a 64-row
+#: wgmma slice, one group of 5000 rows over many blocks, 160 groups of
+#: 0-8 rows (more than SMs), empty first and last groups, fewer than 64
+#: rows with the 30 tail rows
+TILE_EDGES = [(136, 256, [70, 0, 90, 33]), (128, 200, [100, 50, 0, 77]),
+              (128, 256, [37, 90, 5, 131, 1]), (256, 512, [0, 5000, 3]),
+              (128, 128, [(7 * i) % 9 for i in range(160)]),
+              (128, 256, [0, 40, 0, 60, 0]), (64, 64, [5, 0, 20])]
+
+
 @pytest.mark.cuda
 class TestGmmOnCard:
     """The CUDA kernel against gmm_plain on the same inputs on the card:
@@ -609,7 +621,8 @@ class TestGmmOnCard:
     (every token live) and as a decode step (4 live tokens, 128 padding
     rows in the same 6 groups), its prefill (2048 tokens: M 12288), and
     the edge cases (held by the tensor error alone: a flipped rounding
-    moves a row of 72-256 outputs by up to ~3e-3)."""
+    moves a row of 64-512 outputs by up to ~3e-3), TILE_EDGES among
+    them."""
 
     @pytest.fixture(autouse=True)
     def _card(self):
@@ -623,7 +636,7 @@ class TestGmmOnCard:
         (2560, 1536, 132), (1536, 2560, 132), (2560, 1536, 2048),
         (2560, 1536, "decode"), (1536, 2560, "decode"),
         (128, 256, [100, 200, 150, 62]), (128, 128, [0, 120, 0, 150]),
-        (128, 128, [0, 0, 300]), (64, 72, [5, 0, 17, 1])])
+        (128, 128, [0, 0, 300]), (64, 72, [5, 0, 17, 1]), *TILE_EDGES])
     def test_matches_plain(self, dtype, K, N, sizes):
         routed = not isinstance(sizes, list)    # tokens through the router
         if sizes == "decode":
@@ -661,7 +674,7 @@ class TestGmmOnCard:
     @pytest.mark.parametrize("K,N,sizes", [
         (2560, 1536, 4096), (1536, 2560, 4096), (2560, 1536, 132),
         (128, 256, [0, 100, 0, 200, 150, 0]), (128, 128, [0, 300, 0]),
-        (64, 72, [5, 0, 17, 1]), (128, 64, [10, 0, 25, 5])])
+        (64, 72, [5, 0, 17, 1]), (128, 64, [10, 0, 25, 5]), *TILE_EDGES])
     def test_backward_kernels_match_plain(self, dtype, K, N, sizes):
         """dlhs (gmm_dlhs) against gmm_plain on rhs transposed, drhs
         (tgmm) against tgmm_plain: ERNIE's expert shapes at the training
