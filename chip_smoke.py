@@ -1309,8 +1309,10 @@ def check_weight_only_linear(timer, rows):
     """weight_only_linear, int8 and int4, bf16 and f32, against its plain
     version at the 8B step's largest layer product (T = 132 rows x [4096
     -> 14336]), the int4 LM head of a decode step (M = 5 x [4096 ->
-    128256]) and a ragged case (odd M, N = 1000: byte copies, a masked
-    last column tile); f32 at 2e-5, bf16 by `row_rel_errors`. In bf16
+    128256]), `generate_cached`'s decode product (M = 4 x [4096 -> 14336],
+    whose 56 column tiles take a K split) and a ragged case (odd M, N =
+    1000: byte copies, a masked last column tile); f32 at 2e-5, bf16 by
+    `row_rel_errors`. In bf16
     timed beside its plain version, its bound, `split_ms` (bf16
     torch.matmul on the dequantized weight: what quantizing has to beat)
     and, at the layer and head shapes, torch._weight_int8pack_mm (int8)
@@ -1321,7 +1323,8 @@ def check_weight_only_linear(timer, rows):
     every case is under "cases"."""
     gc_ = torch.Generator(DEV).manual_seed(4)
     shapes = {"layer": (SLOTS + CHUNK, H, FFN),
-              "head": (SLOTS + 1, H, VOCAB), "ragged": (7, H, 1000)}
+              "head": (SLOTS + 1, H, VOCAB), "decode": (SLOTS, H, FFN),
+              "ragged": (7, H, 1000)}
     r = rows.setdefault("weight_only_linear", {"cases": {}})
     wol, ref_fn = ops.weight_only_linear, ops.weight_only_linear_reference
     for algo in (INT8, INT4):
@@ -4532,7 +4535,8 @@ SOURCES = {
     "paged_decode_attention_v2": ("paddle_tpu_torch/ops/csrc/"
                                   "paged_attention.cu",
                                   "paddle_tpu/ops/pallas_paged.py:201"),
-    "weight_only_linear": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+    # the bf16 route (the main path's); f32 runs megakernels.cu's core
+    "weight_only_linear": ("paddle_tpu_torch/ops/csrc/wol_sm90.cu",
                            "paddle_tpu/ops/quant.py:227"),
     "gmm": ("paddle_tpu_torch/ops/csrc/gmm.cu",
             "paddle_tpu/ops/pallas_gmm.py:204"),

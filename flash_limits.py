@@ -157,11 +157,13 @@ def plant(name: str, root: Path, faults=FAULTS, kernel: str = KERNEL,
     return dst
 
 
-def card_tests(cwd: Path, test_file: str = "tests/test_torch_flash.py"):
-    """Pass / fail summary of a card-only test file run in `cwd`."""
+def card_tests(cwd: Path, test_file: str = "tests/test_torch_flash.py",
+               k: str = None):
+    """Pass / fail summary of a card-only test file run in `cwd` (``k``: a
+    pytest -k expression selecting some of its tests)."""
     r = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
-         "-p", "no:cacheprovider", test_file],
+         "-p", "no:cacheprovider", test_file, *(["-k", k] if k else [])],
         cwd=cwd, capture_output=True, text=True, timeout=600)
     tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
     return {"rc": r.returncode, "summary": tail}

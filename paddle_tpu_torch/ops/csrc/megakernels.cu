@@ -13,7 +13,7 @@
 //     (Pallas _ffn_kernel, _ffn_int4_kernel; swiglu and tanh-gelu):
 //     gate/up GEMM, silu(g) * u (or one gate GEMM + b1, gelu(g)), down
 //     GEMM, b2, residual;
-//   paddle_tpu/ops/quant.py:weight_only_linear
+//   paddle_tpu/ops/quant.py:weight_only_linear, f32 (bf16: wol_sm90.cu)
 //     (Pallas _wol_kernel, _wol4_kernel): x @ dequant(W) * scale;
 //   paddle_tpu/ops/pallas_megafront.py:fused_qkv_rope_append, MLA layout
 //     (Pallas _mla_qkv_rope_append_kernel, fp and int8): [q | kv_a] GEMM,
@@ -1175,9 +1175,8 @@ int ptt_ffn(const void* h, const void* x, const void* wg, const void* wu,
   return (int)cudaErrorInvalidValue;
 }
 
-// x [M, K]; qw int8 [K, N] (wfmt 1) or packed int4 [K/2, N] (wfmt 2);
-// scale [N] f32; partial [splits, M, N] f32 workspace -> out [M, N] in x's
-// dtype
+// x [M, K] f32; qw int8 [K, N] (wfmt 1) or packed int4 [K/2, N] (wfmt 2);
+// scale [N] f32; partial [splits, M, N] f32 workspace -> out [M, N] f32
 int ptt_weight_only_linear(const void* x, const void* qw, const void* scale,
                            void* partial, void* out, int M, int N, int K,
                            int kc_split, int splits, int wfmt, int dtype,
@@ -1194,10 +1193,9 @@ int ptt_weight_only_linear(const void* x, const void* qw, const void* scale,
     return (int)cudaErrorInvalidValue;
   p.kc_split = kc_split;
   p.partial = static_cast<float*>(partial);
+  // bf16 runs csrc/wol_sm90.cu (ptt_wol_sm90)
   if (dtype == kF32)
     return mega::wol<float>(p, splits, wfmt, static_cast<float*>(out), st);
-  if (dtype == kBF16)
-    return mega::wol<bf16>(p, splits, wfmt, static_cast<bf16*>(out), st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,10 +7,11 @@ V[t] = c_lat[t]. ``mla_decode_attention`` launches the hand-written CUDA
 kernels of ``csrc/mla.cu`` on CUDA tensors (two CUDA kernels a call,
 counted as one launch: a block per (sequence, split of the cache) that
 reads each cache tile once for the scores and the weighted sum, then a
-merge of the splits) and runs its plain PyTorch version
-``mla_decode_reference`` on CPU tensors. A CUDA tensor launches the
-kernel or raises; nothing falls back. The wrapper counts ``.launches``
-and ``.plain_calls``.
+merge of the splits; bf16 on the tensor cores with its splits from
+`mla_split_plan`, f32 on the CUDA cores in SPLIT_ROWS-row splits) and
+runs its plain PyTorch version ``mla_decode_reference`` on CPU tensors. A
+CUDA tensor launches the kernel or raises; nothing falls back. The
+wrapper counts ``.launches`` and ``.plain_calls``.
 """
 
 from __future__ import annotations
@@ -23,21 +24,47 @@ from . import _build
 from .oracles import register_oracle
 
 __all__ = ["mla_decode_attention", "mla_decode_reference",
-           "mla_kernel_eligible"]
+           "mla_kernel_eligible", "mla_split_plan"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NEG = -1e30
-#: cache rows a block of the kernel walks (its split); a multiple of the
-#: kernel's 32-row tile
+#: cache rows a block of the f32 kernel walks (its split); a multiple of
+#: its 32-row tile
 SPLIT_ROWS = 256
+#: the bf16 kernel's tile of cache rows; its splits are multiples of it
+TILE_ROWS = 16
+
+
+def mla_split_plan(B: int, Tc: int, sms: int):
+    """(rows a split, splits a sequence) of the bf16 kernel: the largest
+    multiple of TILE_ROWS (at least one tile) such that B x splits reaches
+    `sms` blocks, so that a decode step of few sequences still fills the
+    card (4 x 544 on 132 SMs: 16 rows, 136 blocks; 8 x 8192: 480 rows, 144
+    blocks). A function of the shapes only: the host never reads the
+    lengths."""
+    want = -(-sms // max(B, 1))
+    rows = max(TILE_ROWS, Tc // want // TILE_ROWS * TILE_ROWS)
+    return rows, -(-Tc // rows)
+
+
+_sms: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _sms.get(dev.index or 0)
+    if n is None:
+        n = _sms[dev.index or 0] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def mla_kernel_eligible(nh: int, r: int, dr: int) -> bool:
-    """Shapes the Hopper kernel takes, from what it holds: r a multiple
-    of 32 up to 512 (r / 32 dims a lane in registers, one of the five
-    builds 32 .. 512), dr a multiple of 32 up to 64 (its 16-byte row
-    copies, two dims a lane at most) and an even nh up to 32 (two heads a
-    warp). The TPU's r % 128 lane rule does not transfer."""
+    """Shapes the Hopper kernels take, from what they hold: r a power of
+    two from 32 to 512 (f32: r / 32 dims a lane in registers; bf16: r / 4
+    output columns a warp, one of the five builds 32 .. 512), dr 32 or 64
+    (16-byte row copies; f32: two dims a lane at most) and an even nh up to
+    32 (f32: two heads a warp; bf16: one or two m16 tiles of heads). The
+    TPU's r % 128 lane rule does not transfer."""
     return (r in (32, 64, 128, 256, 512) and dr in (32, 64)
             and nh >= 2 and nh % 2 == 0 and nh <= 32)
 
@@ -104,14 +131,17 @@ def mla_decode_attention(q_eff, q_pe, c_lat, c_pe, lengths, *,
     out = torch.empty(B, nh, r, dtype=c_lat.dtype, device=dev)
     if B == 0:
         return out
-    nsplit = -(-Tc // SPLIT_ROWS)
+    if c_lat.dtype == torch.bfloat16:
+        rows, nsplit = mla_split_plan(B, Tc, _sm_count(dev))
+    else:
+        rows, nsplit = SPLIT_ROWS, -(-Tc // SPLIT_ROWS)
     acc = torch.empty(B, nsplit, nh, r, dtype=torch.float32, device=dev)
     ml = torch.empty(B, nsplit, nh, 2, dtype=torch.float32, device=dev)
     fn = _build.kernel("ptt_mla_decode", [_P] * 8 + [_I] * 6
                        + [_F, _I, _I, _P])
     err = fn(q_eff.data_ptr(), q_pe.data_ptr(), c_lat.data_ptr(),
              c_pe.data_ptr(), lens.data_ptr(), acc.data_ptr(), ml.data_ptr(),
-             out.data_ptr(), B, nh, r, dr, Tc, SPLIT_ROWS, float(scale),
+             out.data_ptr(), B, nh, r, dr, Tc, rows, float(scale),
              _build.dtype_code(c_lat), dev.index or 0, _build.stream(c_lat))
     _build.check(name, err)
     mla_decode_attention.launches += 1

@@ -10,14 +10,23 @@ The deploy layouts, byte for byte the JAX package's:
   source rows 2i and 2i + 1 packed into the low and high nibble of byte
   row i.
 
-``weight_only_linear`` launches the hand-written CUDA kernel of
-``csrc/megakernels.cu`` on CUDA tensors (the megakernels' GEMM core with
-an int8 / int4 weight loader, split K, then a pass that sums the f32
-partials and applies the per-column scale) and runs its plain PyTorch
-version ``weight_only_linear_reference`` on CPU tensors. A CUDA tensor
-launches the kernel or raises; nothing falls back. The wrapper counts
-``.launches`` and ``.plain_calls``. Its gradient in x is the JAX custom
-VJP's plain formula ``g @ dequant(W)^T`` (not a kernel in JAX either).
+``weight_only_linear`` launches a hand-written CUDA kernel on CUDA
+tensors and runs its plain PyTorch version
+``weight_only_linear_reference`` on CPU tensors. bf16 activations take
+``csrc/wol_sm90.cu`` (wgmma fed by TMA, the weight dequantized in
+registers as the A operand of the transposed product, K split only where
+the column tiles do not fill the card, the split finished in the same
+launch; its plan comes from ``ptt_wol_plan``); f32 ones take the
+megakernels' GEMM core of ``csrc/megakernels.cu`` (true f32 products,
+split K, then a pass that sums the f32 partials and applies the
+per-column scale). A CUDA tensor launches the kernel or raises; nothing
+falls back. The wrapper counts ``.launches`` and ``.plain_calls``. Its
+gradient in x is the JAX custom VJP's plain formula ``g @ dequant(W)^T``
+(not a kernel in JAX either).
+
+``int4_bf16x2_bits`` and ``int8_bf16_bits`` are the bf16 kernel's
+integer-to-bf16 conversions written out on int32 bit patterns, so that
+the CPU tests hold them, bit for bit, to ``int4_planes`` and to int8.
 
 ``int4_dequantize`` (packed int4 [K/2, N] + scale [N] -> f32 [K, N],
 the MLA absorbed kv_b's whole read) launches its CUDA kernel of
@@ -39,6 +48,7 @@ from . import _build
 from .oracles import register_oracle
 
 __all__ = ["weight_quantize", "weight_dequantize", "int4_planes",
+           "int4_bf16x2_bits", "int8_bf16_bits",
            "weight_only_linear", "weight_only_linear_reference",
            "dequant_matmul_f32", "int4_dequantize",
            "int4_dequantize_reference", "ALGOS"]
@@ -88,6 +98,36 @@ def int4_planes(qw):
     lo = ((q & 0xF) ^ 8) - 8
     hi = q >> 4                          # arithmetic: sign-extends
     return lo.to(torch.int8), hi.to(torch.int8)
+
+
+def _bf16_bits_of_f32(f: torch.Tensor) -> torch.Tensor:
+    """The top half of each f32 (int32 bit patterns of an exact value)."""
+    return (f.view(torch.int32) >> 16) & 0xFFFF
+
+
+def int4_bf16x2_bits(byte: torch.Tensor) -> torch.Tensor:
+    """The bf16x2 bit pattern (low half: the low nibble, source row 2i;
+    high half: the high nibble, row 2i + 1) that csrc/wol_sm90.cu's
+    ``i4pair`` builds from a packed int4 byte (int32 values 0..255): the
+    byte spread to bits 0-7 and 12-19 (* 0x1001), then one LOP3, (y &
+    0x000F000F) ^ 0x43084308: the two nibbles with their sign bits
+    flipped, OR-ed into bf16 128 (128 + (n ^ 8)), then bf16 136 subtracted
+    from each half (exact: the difference is an integer in -8..7)."""
+    y = ((byte.to(torch.int32) * 0x1001) & 0x000F000F) ^ 0x43084308
+    halves = torch.stack([y & 0xFFFF, (y >> 16) & 0xFFFF], -1)
+    val = (halves << 16).to(torch.int32).view(torch.float32) - 136.0
+    bits = _bf16_bits_of_f32(val)
+    return bits[..., 0] | (bits[..., 1] << 16)
+
+
+def int8_bf16_bits(byte: torch.Tensor) -> torch.Tensor:
+    """The bf16 bit pattern that csrc/wol_sm90.cu's ``i8pair`` builds from
+    one int8 weight byte (int32 values 0..255): the byte with its sign bit
+    flipped as the mantissa of f32 2^23 (0x4B0000uu), 2^23 + 128
+    subtracted in f32 (exact), and the top half of the result taken (an
+    integer of at most 8 significant bits is exact in bf16)."""
+    f = (0x4B000000 | (byte.to(torch.int32) ^ 0x80)).view(torch.float32)
+    return _bf16_bits_of_f32(f - 8388736.0)
 
 
 def weight_dequantize(qw, scale, algo: str = INT8):
@@ -168,6 +208,67 @@ def weight_only_linear_reference(x, qweight, scale, bias=None,
     return out.reshape(*shape[:-1], out.shape[-1])
 
 
+#: (M, N, K, algo, device index, forced slices) -> ptt_wol_plan's (token
+#: tile, slices, chunks a slice, counters, f32 partials)
+_plans: dict = {}
+#: (device index, stream handle) -> the bf16 kernel's split counters
+#: (int32). The launches of one stream run in order, and each leaves them
+#: zero (the last slice of a tile resets its counter), so the next launch
+#: on that stream finds them zero; another stream has its own.
+_counters: dict = {}
+
+
+def _plan(M: int, N: int, K: int, algo: str, dev: torch.device,
+          slices: int = 0):
+    """ptt_wol_plan's launch plan; `slices` > 0 forces the K split."""
+    key = (M, N, K, algo, dev.index or 0, slices)
+    got = _plans.get(key)
+    if got is None:
+        out = (ctypes.c_int * 5)()
+        fn = _build.kernel("ptt_wol_plan", [_I] * 6 + [_P])
+        _build.check("ptt_wol_plan", fn(M, N, K, WFMT[algo], slices,
+                                        dev.index or 0,
+                                        ctypes.addressof(out)))
+        got = _plans[key] = tuple(out)
+    return got
+
+
+def _split_counters(n: int, t: torch.Tensor) -> torch.Tensor:
+    """At least n zero counters for a launch on t's device and stream."""
+    key = (t.device.index or 0, _build.stream(t))
+    have = _counters.get(key)
+    if have is None or have.numel() < n:
+        have = _counters[key] = torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=t.device)
+    return have
+
+
+def _launch_bf16(x2, qw, scale, algo: str, out):
+    """The bf16 kernel of csrc/wol_sm90.cu into out [M, N]."""
+    name = "weight_only_linear"
+    M, K = x2.shape
+    N = qw.shape[1]
+    dev = x2.device
+    # K 0: no products, the entry zeroes out
+    _nt, n_ks, per, n_cnt, n_part = (_plan(M, N, K, algo, dev) if K
+                                     else (0, 1, 1, 0, 0))
+    partial = counters = None
+    if n_ks > 1:
+        partial = torch.empty(n_part, dtype=torch.float32, device=dev)
+        counters = _split_counters(n_cnt, x2)
+    fn = _build.kernel("ptt_wol_sm90", [_P] * 6 + [_I] * 7 + [_P])
+    err = fn(x2.data_ptr(), qw.data_ptr(), scale.data_ptr(),
+             _build.ptr(partial), _build.ptr(counters), out.data_ptr(), M, N,
+             K, WFMT[algo], per, n_ks, dev.index or 0, _build.stream(x2))
+    if err and counters is not None:
+        # a refused launch may leave counts behind: the next split on this
+        # stream takes fresh zeros. (A kernel that faults on the card
+        # leaves the context unusable, and every later call fails.)
+        _counters.pop((dev.index or 0, _build.stream(x2)), None)
+    _build.check(name, err)
+    return out
+
+
 def _launch(x2, qw, scale, algo: str):
     """out [M, N] = x2 @ dequant(qw) on the card (the CUDA kernel)."""
     name = "weight_only_linear"
@@ -188,7 +289,9 @@ def _launch(x2, qw, scale, algo: str):
     out = torch.empty(M, N, dtype=x2.dtype, device=dev)
     if M == 0 or N == 0:
         return out
-    _build.require_aligned(name, x2)
+    _build.require_aligned(name, x2, out)
+    if x2.dtype == torch.bfloat16:
+        return _launch_bf16(x2, qw, scale, algo, out)
     per, splits = _build.split_k(M, N, K, x2)
     partial = torch.empty(splits, M, N, dtype=torch.float32, device=dev)
     fn = _build.kernel("ptt_weight_only_linear", [_P] * 5 + [_I] * 8 + [_P])

@@ -4,30 +4,38 @@ kernel checks on one NVIDIA card, for the sound kernels and for planted
 faults.
 
     python3 quant_limits.py [--faults DIR [--only FAULT ...]] [--out FILE]
+    python3 quant_limits.py --splits [--out FILE]
 
 ``chip_smoke.py`` holds the bf16 weight_only_linear kernel, and the
 megakernels' int8 / int4 sites, to their plain versions by two relative
 errors (`chip_smoke.row_rel_errors`: over the whole output, and the
 largest over each output row). This script prints what those measures
 read at the shapes phase 2 runs (weight_only_linear at T = 132 x [4096
--> 14336], M = 5 x [4096 -> 128256], 7 x [4096 -> 1000]; the three
-megakernels at the 8B step), int8 and int4, and the MLA slice's kernels
-as `chip_smoke.check_mla_kernels` reads them at DeepSeek-V2-Lite's
-shapes (int4_dequantize, the MLA site of fused_qkv_rope_append,
-mla_decode_attention, ragged at D 576, flash at D 192, not held), so that
-each limit can sit between the sound kernel's readings and a wrong
-kernel's, and the card tests of tests/test_torch_quant.py,
-tests/test_torch_megakernels.py and tests/test_torch_deepseek.py (``-m
+-> 14336], M = 5 x [4096 -> 128256], M = 4 x [4096 -> 14336] (a K
+split), 7 x [4096 -> 1000]; the three megakernels at the 8B step), int8
+and int4, and the MLA slice's kernels as `chip_smoke.check_mla_kernels`
+reads them at DeepSeek-V2-Lite's shapes (int4_dequantize, the MLA site
+of fused_qkv_rope_append, mla_decode_attention, ragged at D 576, flash
+at D 192, not held), plus the share of mla_decode_attention's bf16
+outputs that differ from the plain version's where both round p against
+the same maximum (`MLA_P_CASE`), so that each limit can sit between the
+sound kernel's readings and a wrong kernel's, and the card tests each
+fault's source reaches (`CARD_TESTS`: tests/test_torch_quant.py,
+tests/test_torch_megakernels.py, tests/test_torch_deepseek.py, ``-m
 cuda``), passed and failed.
 
 With ``--faults DIR``, each fault of `FAULTS` (``--only``: those named;
-text substitutions in ``paddle_tpu_torch/ops/csrc/megakernels.cu``, the
-GEMM core's weight conversion that weight_only_linear and the three
-megakernels share, its int4_dequantize and its MLA finisher, or in the
-source `FAULT_KERNELS` names) is planted in a copy of the package made under DIR,
-built there, and read the same way in a process of its own. The checkout itself is never
-changed. One JSON object per line on stdout, and all of them in
-``--out`` when given.
+text substitutions in ``paddle_tpu_torch/ops/csrc/megakernels.cu`` (the
+GEMM core's weight conversion that the three megakernels and
+weight_only_linear's f32 route share, its int4_dequantize and its MLA
+finisher), in ``wol_sm90.cu`` (weight_only_linear's bf16 kernel) or in
+``mla.cu``, as `FAULT_KERNELS` names) is planted in a copy of the package
+made under DIR, built there, and read the same way in a process of its
+own. The checkout itself is never changed. One JSON object per line on
+stdout, and all of them in ``--out`` when given.
+
+With ``--splits``, `split_sweep` times the bf16 weight_only_linear kernel
+at forced K splits instead (the readings its split plan stands on).
 """
 
 from __future__ import annotations
@@ -43,8 +51,14 @@ import torch
 import flash_limits
 
 KERNEL = "paddle_tpu_torch/ops/csrc/megakernels.cu"
+WOL = "paddle_tpu_torch/ops/csrc/wol_sm90.cu"
+MLA = "paddle_tpu_torch/ops/csrc/mla.cu"
 TESTS = ("tests/test_torch_quant.py", "tests/test_torch_megakernels.py",
          "tests/test_torch_deepseek.py")
+#: mla_decode_attention's single-tile case (B, T, nh, r, dr, seed): one
+#: 16-row tile and one split a sequence, so that the kernel rounds p
+#: against the plain version's maximum
+MLA_P_CASE = (8, 16, 16, 512, 64, 3)
 FILES = ("chip_smoke.py", "flash_limits.py", "quant_limits.py",
          "pytest.ini", *TESTS)
 
@@ -108,21 +122,105 @@ FAULTS = {
         "    if (n >= nq && n < nq + r) v = to_f32(from_f32<T>(v));\n"
         "    row[n] = v;\n    if (n >= nq && n < nq + r) ss += v * v;", 0),
     "mla_dead_rows_not_zeroed": (
-        "mla_decode_attention: cache rows past a sequence's length are "
-        "staged from the cache (garbage) instead of zero-filled",
+        "mla_decode_attention (bf16): cache rows past a sequence's length "
+        "are staged from the cache (garbage) instead of zero-filled",
         "const bool ok = t + row < live;", "const bool ok = t + row < Tc;",
-        0),
+        1),
     "mla_scores_rounded_between_reads": (
-        "mla_decode_attention: the scores are rounded to the cache dtype "
-        "before the softmax, as the two-einsum composite's score tensor "
-        "is between its two reads of the latent cache",
-        "const float sc = warp_sum(part[j]) * scale;",
-        "const float sc = round_to<T>(warp_sum(part[j])) * scale;", 0),
+        "mla_decode_attention (bf16): the scores are rounded to the cache "
+        "dtype before the softmax, as the two-einsum composite's score "
+        "tensor is between its two reads of the latent cache",
+        "        sv[n][e] = tt + row < live ? v * scale : -INFINITY;",
+        "        v = __bfloat162float(__float2bfloat16_rn(v));\n"
+        "        sv[n][e] = tt + row < live ? v * scale : -INFINITY;", 0),
+    # weight_only_linear's bf16 kernel (wol_sm90.cu)
+    "wol_int4_nibbles_swapped": (
+        "weight_only_linear bf16, int4: the high nibble is taken for the "
+        "even source row and the low one for the odd row",
+        "  const uint32_t y = __byte_perm(v, 0u, 0x4440u | j) * 0x1001u;",
+        "  const uint32_t y0 = __byte_perm(v, 0u, 0x4440u | j);\n"
+        "  const uint32_t y = (y0 >> 4) | (y0 << 16);", 0),
+    "wol_sign_extension_dropped": (
+        "weight_only_linear bf16: int4 nibbles read as 0..15 and int8 "
+        "bytes as 0..255, not sign-extended",
+        '"r"(0x43084308u)', '"r"(0x43004300u)', 0,
+        "const uint32_t k136 = 0x43084308u;",
+        "const uint32_t k136 = 0x43004300u;", 0,
+        "0x80808080u;", "0u;", 0, "0x80808080u;", "0u;", 0,
+        "0x80808080u;", "0u;", 0, "0x80808080u;", "0u;", 0,
+        "      8388736.f;", "      8388608.f;", 0,
+        "      8388736.f;", "      8388608.f;", 0),
+    "wol_scale_from_wrong_column": (
+        "weight_only_linear bf16: rows g and g + 8 of each 64-row tile "
+        "take each other's column scale",
+        "v[i] *= sc[i];", "v[i] *= sc[i ^ 1];", 0),
+    "wol_last_k_box_dropped": (
+        "weight_only_linear bf16: the products of the last 64-wide box of "
+        "K are skipped",
+        "      const int kb_live = min(G::KB, (p.K - kc * G::SK + 63) / 64);",
+        "      const int kb_live =\n"
+        "          min(G::KB, (p.K - kc * G::SK + 63) / 64) - "
+        "(kc == p.nk - 1);", 1),
+    "wol_rows_past_m_stored": (
+        "weight_only_linear bf16: the token tile's rows past M (zeros) are "
+        "stored",
+        "        if (tok >= p.M) continue;\n        float v[CPT];\n",
+        "        float v[CPT];\n", 0),
+    "wol_split_partial_lost": (
+        "weight_only_linear bf16: the finishing slice sums every slice's "
+        "partial but the first",
+        "      for (int k = 0; k < p.n_ks; ++k) {",
+        "      for (int k = 1; k < p.n_ks; ++k) {", 0),
+    # mla_decode_attention's bf16 kernel (mla.cu, namespace tc)
+    "mla_p_not_rounded": (
+        "mla_decode_attention bf16: p enters the product with c_lat "
+        "unrounded (bf16 hi + lo planes, two products), not rounded to "
+        "the cache dtype as the TPU kernel's p.astype(cl.dtype)",
+        "    pa[3] = pack_bf16(sv[1][2], sv[1][3]);",
+        "    pa[3] = pack_bf16(sv[1][2], sv[1][3]);\n"
+        "    auto res = [](float a, float b) {\n"
+        "      return pack_bf16(a - __bfloat162float(__float2bfloat16_rn(a)),"
+        "\n                       b - __bfloat162float("
+        "__float2bfloat16_rn(b)));\n    };\n"
+        "    uint32_t pl[4] = {res(sv[0][0], sv[0][1]), res(sv[0][2], "
+        "sv[0][3]),\n                      res(sv[1][0], sv[1][1]), "
+        "res(sv[1][2], sv[1][3])};", 0,
+        "        mma_bf16(o[n], pa, vb[0], vb[1]);\n"
+        "        mma_bf16(o[n + 1], pa, vb[2], vb[3]);",
+        "        mma_bf16(o[n], pa, vb[0], vb[1]);\n"
+        "        mma_bf16(o[n + 1], pa, vb[2], vb[3]);\n"
+        "        mma_bf16(o[n], pl, vb[0], vb[1]);\n"
+        "        mma_bf16(o[n + 1], pl, vb[2], vb[3]);", 0,
+        "      mma_bf16(o[0], pa, vb[0], vb[1]);",
+        "      mma_bf16(o[0], pa, vb[0], vb[1]);\n"
+        "      mma_bf16(o[0], pl, vb[0], vb[1]);", 0),
+    "mla_dead_split_not_skipped": (
+        "mla_decode_attention: the merge does not skip a split whose l is "
+        "0 (no live row; its acc unwritten)",
+        "      if (ml_in[2 * at + 1] > 0.f) M = fmaxf(M, ml_in[2 * at]);",
+        "      M = fmaxf(M, ml_in[2 * at]);", 0,
+        "      const float e = ls > 0.f ? expf(ml_in[2 * at] - M) : 0.f;",
+        "      const float e = expf(ml_in[2 * at] - M);", 0),
+    "mla_head_rows_past_nh_stored": (
+        "mla_decode_attention bf16: the m16 tile's head rows past nh "
+        "(zero queries) are stored as if they were heads",
+        "  const bool hv[2] = {hr[0] < nh, hr[1] < nh};",
+        "  const bool hv[2] = {true, true};", 0),
 }
 #: the source a fault edits, where it is not KERNEL
-FAULT_KERNELS = {"mla_dead_rows_not_zeroed": "paddle_tpu_torch/ops/csrc/mla.cu",
-                 "mla_scores_rounded_between_reads":
-                     "paddle_tpu_torch/ops/csrc/mla.cu"}
+FAULT_KERNELS = {
+    **{n: WOL for n in FAULTS if n.startswith("wol_")},
+    **{n: MLA for n in ("mla_dead_rows_not_zeroed",
+                        "mla_scores_rounded_between_reads",
+                        "mla_p_not_rounded", "mla_dead_split_not_skipped",
+                        "mla_head_rows_past_nh_stored")}}
+#: the card tests a fault's readings run ((file, -k expression or None));
+#: every test file where unnamed
+CARD_TESTS = {
+    **{n: (("tests/test_torch_quant.py", None),) for n in FAULTS
+       if n.startswith("wol_")},
+    **{n: (("tests/test_torch_deepseek.py", "mla_decode"),)
+       for n in FAULTS if n.startswith("mla_") and n != "mla_latent_normed_after_bf16_round"}}
 
 
 def readings() -> dict:
@@ -139,6 +237,7 @@ def readings() -> dict:
     g = torch.Generator("cuda").manual_seed(4)
     shapes = {"layer": (cs.SLOTS + cs.CHUNK, cs.H, cs.FFN),
               "head": (cs.SLOTS + 1, cs.H, cs.VOCAB),
+              "decode": (cs.SLOTS, cs.H, cs.FFN),
               "ragged": (7, cs.H, 1000)}
     for algo in (cs.INT8, cs.INT4):
         for shape, (M, K, N) in shapes.items():
@@ -190,10 +289,29 @@ def readings() -> dict:
            if isinstance(v, dict)},
         "flash_192": {f: mla["flash_sdpa"]["d192"].get(f) for f in (
             "rel_err_bf16", "max_abs_err_f32", "max_abs_err_bf16")}}
+    out["mla"]["p_rounding_differ"] = p_rounding_differ()
     out["smoke_check_passes"] = {"weight_only_linear": wol_passes,
                                  "megakernel_sites": sites_pass,
                                  "mla": mla_passes(mla, cs)}
     return out
+
+
+def p_rounding_differ() -> float:
+    """The share of mla_decode_attention's bf16 outputs that differ from
+    the plain version's at `MLA_P_CASE` (the card test
+    test_mla_decode_rounds_p_as_the_plain_version holds it)."""
+    from paddle_tpu_torch import ops
+    B, T, nh, r, dr, seed = MLA_P_CASE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda",  # noqa: E731
+                                 generator=g).to(torch.bfloat16)
+    qe, qp, cl, cp = rnd(B, nh, r), rnd(B, nh, dr), rnd(B, T, r), \
+        rnd(B, T, dr)
+    lens = torch.full((B,), T, device="cuda", dtype=torch.int32)
+    got = ops.mla_decode_attention(qe, qp, cl, cp, lens, scale=192 ** -0.5)
+    want = ops.mla_decode_reference(qe, qp, cl, cp, lens,
+                                    scale=192 ** -0.5)
+    return float((got.float() != want.float()).float().mean())
 
 
 def mla_passes(mla: dict, cs) -> bool:
@@ -222,6 +340,74 @@ def mla_passes(mla: dict, cs) -> bool:
     return bool(ok)
 
 
+#: the split chain's products at the 8B serving step (T 132) and at four
+#: decode rows (generate_cached, the alternating path): (K, N)
+SPLIT_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+SPLIT_SLICES = (1, 2, 4, 8, 16)
+
+
+def split_sweep() -> list:
+    """weight_only_linear's bf16 kernel (csrc/wol_sm90.cu) timed at each K
+    split of `SPLIT_SLICES` on the split chain's products, int8 and int4,
+    at T = 132 and M = 4 (chip_smoke.Timer: median of 25 after the L2
+    scrub), beside the slice count its plan (ptt_wol_plan) takes: the
+    readings the plan's finish and read costs stand on. One line a
+    product."""
+    import ctypes
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import _build, quant
+
+    cs.DEV = "cuda"
+    timer = cs.Timer()
+    fn = _build.kernel("ptt_wol_sm90", [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    g = torch.Generator("cuda").manual_seed(5)
+    lines = []
+    for algo in (cs.INT8, cs.INT4):
+        for M in (cs.SLOTS + cs.CHUNK, cs.SLOTS):
+            for K, N in SPLIT_SHAPES:
+                qw, sw = ops_quantize(K, N, algo, g)
+                x = torch.randn(M, K, device="cuda", generator=g).to(
+                    torch.bfloat16)
+                want = quant.weight_only_linear_reference(x, qw, sw,
+                                                          algo=algo)
+                dev = x.device
+                plan_ks = quant._plan(M, N, K, algo, dev)[1]
+                out = {"algo": algo[12:], "m": M, "k": K, "n": N,
+                       "plan_slices": plan_ks, "ms": {}, "rel_err": {}}
+                for want_ks in SPLIT_SLICES:
+                    # the forced split's buffers as the library sizes them
+                    _, n_ks, per, n_cnt, n_part = quant._plan(
+                        M, N, K, algo, dev, want_ks)
+                    part = torch.empty(max(1, n_part), dtype=torch.float32,
+                                       device=dev)
+                    cnt = quant._split_counters(max(1, n_cnt), x)
+                    got = torch.empty(M, N, dtype=torch.bfloat16,
+                                      device=dev)
+
+                    def run():
+                        _build.check("ptt_wol_sm90", fn(
+                            x.data_ptr(), qw.data_ptr(), sw.data_ptr(),
+                            part.data_ptr(), cnt.data_ptr(), got.data_ptr(),
+                            M, N, K, quant.WFMT[algo], per, n_ks,
+                            dev.index or 0, _build.stream(x)))
+
+                    run()
+                    torch.cuda.synchronize()
+                    out["rel_err"][n_ks] = cs.row_rel_errors(got, want)[0]
+                    out["ms"][n_ks] = timer.ms(run)
+                print(json.dumps(out), flush=True)
+                lines.append(out)
+    return lines
+
+
+def ops_quantize(K: int, N: int, algo: str, g):
+    from paddle_tpu_torch import ops
+    qw, sw = ops.weight_quantize(torch.randn(
+        K, N, device="cuda", generator=g) * K ** -0.5, algo)
+    return qw, sw.float().contiguous()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--faults", type=Path, default=None,
@@ -229,6 +415,9 @@ def main() -> int:
     ap.add_argument("--only", default=None, nargs="+",
                     choices=sorted(FAULTS), help="plant these faults only")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--splits", action="store_true",
+                    help="time weight_only_linear's bf16 kernel at each K "
+                         "split instead (split_sweep)")
     ap.add_argument("--readings-only", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -238,9 +427,22 @@ def main() -> int:
     if args.readings_only:
         print(json.dumps(readings()), flush=True)
         return 0
+    if args.splits:
+        lines = split_sweep()
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text("".join(json.dumps(x) + "\n"
+                                        for x in lines))
+        return 0
 
-    def card_tests(cwd):
-        return {t: flash_limits.card_tests(cwd, t) for t in TESTS}
+    def card_tests(cwd, name=None):
+        out = {}
+        for t, k in CARD_TESTS.get(name, [(t, None) for t in TESTS]):
+            if k is None:
+                out[t] = flash_limits.card_tests(cwd, t)
+            else:
+                out[f"{t} -k {k}"] = flash_limits.card_tests(cwd, t, k)
+        return out
 
     here = flash_limits.HERE
     lines = [dict(name="sound", **readings(), card_tests=card_tests(here))]
@@ -256,7 +458,7 @@ def main() -> int:
             res.update(json.loads(r.stdout.strip().splitlines()[-1]))
         else:
             res["stderr_tail"] = r.stderr[-2000:]
-        res["card_tests"] = card_tests(cwd)
+        res["card_tests"] = card_tests(cwd, name)
         lines.append(res)
         print(json.dumps(res), flush=True)
     if args.out is not None:

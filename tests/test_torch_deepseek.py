@@ -57,7 +57,7 @@ from paddle_tpu_torch.ops.fused import append_rows_reference, \
 from paddle_tpu_torch.ops.megafront import fused_qkv_rope_append, \
     qkv_rope_append_reference
 from paddle_tpu_torch.ops.mla import mla_decode_attention, \
-    mla_decode_reference, mla_kernel_eligible
+    mla_decode_reference, mla_kernel_eligible, mla_split_plan
 from paddle_tpu_torch.ops.quant import int4_dequantize, weight_quantize
 from paddle_tpu_torch.ops.ragged import ragged_attention_reference
 
@@ -145,6 +145,42 @@ class TestMlaDecodeParity:
         assert not mla_kernel_eligible(4, 16, 8)      # the tiny config
         assert not mla_kernel_eligible(3, 128, 64)    # odd heads
         assert not mla_kernel_eligible(16, 1024, 64)  # past the registers
+
+
+def split_ranges(length: int, T: int, rows: int, nsplit: int):
+    """The live cache rows [t0, t1) that each split of one sequence of
+    `length` tokens reads, as csrc/mla.cu computes them (t0 = s rows, t1 =
+    min(t0 + rows, length); an empty range: the split writes l = 0 and the
+    merge skips it)."""
+    n = min(max(length, 0), T)
+    return [(s * rows, max(s * rows, min(s * rows + rows, n)))
+            for s in range(nsplit)]
+
+
+class TestMlaSplitPlan:
+    """The bf16 kernel's split plan, a host function of (B, T, SMs): every
+    live row of a sequence is read by exactly one split, dead splits read
+    none, and the grid reaches the SM count (132 on an H100 SXM)."""
+
+    @pytest.mark.parametrize("B,T,sms", [(4, 544, 132), (8, 8192, 132),
+                                         (2, 40, 132), (3, 5, 8)])
+    def test_rows_covered_once_and_grid_filled(self, B, T, sms):
+        rows, nsplit = mla_split_plan(B, T, sms)
+        assert rows % 16 == 0 and rows >= 16
+        assert (nsplit - 1) * rows < T <= nsplit * rows
+        assert B * nsplit >= sms or rows == 16
+        cuts = {0, 1, T, rows - 1, rows, rows + 1, T - 1}
+        for n in sorted(c for c in cuts if 0 <= c <= T):
+            ranges = split_ranges(n, T, rows, nsplit)
+            seen = [t for lo, hi in ranges for t in range(lo, hi)]
+            assert seen == list(range(n))
+            # a split past the length reads nothing (the merge skips it)
+            assert all(hi == lo for lo, hi in ranges if lo >= n)
+
+    def test_decode_shapes(self):
+        # DeepSeek-V2-Lite's cached decode at 4 x 544 and 8 x 8192
+        assert mla_split_plan(4, 544, 132) == (16, 34)
+        assert mla_split_plan(8, 8192, 132) == (480, 18)
 
 
 class TestAppendRowsParity:
@@ -576,6 +612,18 @@ def rel_errors(got, want):
 MLA_BF16_LIMITS = {"mla_decode_attention": (1.2e-3, 6e-3),
                    "fused_qkv_rope_append_mla": (3e-4, 1e-3),
                    "ragged_576": (5e-3, 1e-2), "flash_192": (1e-2, 3e-2)}
+#: bf16 (tensor, row) limits of mla_decode_attention at the edge shapes
+#: (latent widths 32-256, 2-32 heads, lengths 0 / 1 / 17 / 700): the bf16
+#: kernel rounds p against each 16-row split's running maximum, the plain
+#: version against the sequence's, and with few or flat scores more of
+#: the output rests on rows rounded apart (up to 2.1e-3 / 4.1e-3 read at
+#: such shapes; readings in PERF.md); a dead row staged, a dead split
+#: merged or a stored padding head read non-finite or O(1)
+MLA_EDGE_LIMITS = (5e-3, 1.5e-2)
+#: the share of bf16 outputs of mla_decode_attention that may differ from
+#: the plain version's where both round p against the same maximum (one
+#: tile a split): sound and planted readings in PERF.md (quant_limits.py)
+MLA_P_ROUNDING_DIFFER = 0.01
 
 
 @pytest.mark.cuda
@@ -621,6 +669,54 @@ class TestMlaOnCard:
             t, rw = rel_errors(got, want)
             lim = MLA_BF16_LIMITS["mla_decode_attention"]
             assert t < lim[0] and rw < lim[1], (t, rw)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("nh,r,dr", [(2, 512, 64), (4, 128, 32),
+                                         (32, 512, 64), (6, 32, 32)])
+    def test_mla_decode_heads_and_dead_splits(self, dtype, nh, r, dr):
+        # head tiles of 2 / 4 / 6 live heads and two m16 tiles (32), every
+        # latent width build; a sequence of length 0 (zeros), one of 1, one
+        # of 17 (every split past the second wholly dead), one full
+        g = torch.Generator(device="cuda").manual_seed(nh + r)
+        B, T = 4, 700
+        rnd = lambda *s: torch.randn(*s, device="cuda",  # noqa: E731
+                                     generator=g).to(dtype)
+        qe, qp, cl, cp = rnd(B, nh, r), rnd(B, nh, dr), rnd(B, T, r), \
+            rnd(B, T, dr)
+        lens = torch.tensor([0, 1, 17, T], device="cuda", dtype=torch.int32)
+        dead = torch.arange(T, device="cuda")[None] >= lens[:, None].long()
+        cl[dead] = float("nan")
+        cp[dead] = float("nan")
+        got = mla_decode_attention(qe, qp, cl, cp, lens, scale=0.07)
+        torch.cuda.synchronize()
+        want = mla_decode_reference(qe, qp, cl, cp, lens, scale=0.07)
+        assert bool(torch.isfinite(got).all())
+        assert bool((got[0] == 0).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        else:
+            t, rw = rel_errors(got[1:], want[1:])
+            assert t < MLA_EDGE_LIMITS[0] and rw < MLA_EDGE_LIMITS[1], (t, rw)
+
+    def test_mla_decode_rounds_p_as_the_plain_version(self):
+        # one 16-row tile and one split a sequence: the bf16 kernel rounds
+        # p = exp(s - m) to bf16 against the same maximum as the plain
+        # version, so the two differ by summation order only and agree on
+        # nearly every output; p carried unrounded into the product moves
+        # the outputs by less than a bf16 step, which the relative bars
+        # cannot see, but flips the rounding of many of them
+        g = torch.Generator(device="cuda").manual_seed(3)
+        B, T, nh, r, dr = 8, 16, 16, 512, 64
+        rnd = lambda *s: torch.randn(*s, device="cuda",  # noqa: E731
+                                     generator=g).to(torch.bfloat16)
+        qe, qp, cl, cp = rnd(B, nh, r), rnd(B, nh, dr), rnd(B, T, r), \
+            rnd(B, T, dr)
+        lens = torch.full((B,), T, device="cuda", dtype=torch.int32)
+        got = mla_decode_attention(qe, qp, cl, cp, lens, scale=192 ** -0.5)
+        torch.cuda.synchronize()
+        want = mla_decode_reference(qe, qp, cl, cp, lens, scale=192 ** -0.5)
+        differ = float((got.float() != want.float()).float().mean())
+        assert differ <= MLA_P_ROUNDING_DIFFER, differ
 
     def test_append_rows_and_int4_dequantize(self):
         g = torch.Generator(device="cuda").manual_seed(1)

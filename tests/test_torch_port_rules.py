@@ -213,7 +213,8 @@ def test_kernel_sources_are_in_the_package():
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["elementwise.cu", "flash_attention.cu",
                      "flashmask.cu", "fused.cu", "gmm.cu", "megakernels.cu",
-                     "mla.cu", "paged_attention.cu", "ragged_attention.cu"]
+                     "mla.cu", "paged_attention.cu", "ragged_attention.cu",
+                     "wol_sm90.cu"]
     # _build.py compiles every source of the list, one nvcc each
     assert [p.name for p in _build._sources()] == names
     flags = " ".join(_build.NVCC_FLAGS)

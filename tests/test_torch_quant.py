@@ -35,7 +35,8 @@ import torch
 
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import quant
-from paddle_tpu_torch.ops.quant import (int4_planes, weight_dequantize,
+from paddle_tpu_torch.ops.quant import (int4_bf16x2_bits, int4_planes,
+                                        int8_bf16_bits, weight_dequantize,
                                         weight_only_linear,
                                         weight_only_linear_reference,
                                         weight_quantize)
@@ -252,14 +253,47 @@ class TestBarsCatchFaults:
         assert tensor > 3 * BF16_TENSOR_LIMIT and row > BF16_ROW_LIMIT
 
 
+def _bf16_values(bits):
+    """Float values of bf16 bit patterns (int32 tensor, low 16 bits)."""
+    return ((bits & 0xFFFF) << 16).to(torch.int32).view(torch.float32)
+
+
+class TestIntegerToBf16Bits:
+    """The bf16 kernel's integer-to-bf16 conversions (csrc/wol_sm90.cu
+    i4pair / i8pair, written out on int32 bit patterns in ops.quant) over
+    every byte value: exactly the bf16 of int4_planes' nibbles and of the
+    int8 value, nibble -8 and byte -128 included."""
+
+    def test_int4_pairs_equal_the_planes(self):
+        byte = torch.arange(256, dtype=torch.int32)
+        bits = int4_bf16x2_bits(byte)
+        lo, hi = int4_planes(quant._to_int8(byte)[:, None])
+        for half, plane in ((bits, lo), (bits >> 16, hi)):
+            want = plane[:, 0].float().to(torch.bfloat16).view(torch.int16)
+            got = (half & 0xFFFF).to(torch.int32)
+            assert torch.equal(got, want.to(torch.int32) & 0xFFFF)
+            assert torch.equal(_bf16_values(half), plane[:, 0].float())
+        assert set(lo[:, 0].tolist()) == set(range(-8, 8))
+
+    def test_int8_bytes_equal_their_values(self):
+        byte = torch.arange(256, dtype=torch.int32)
+        value = quant._to_int8(byte).float()
+        bits = int8_bf16_bits(byte)
+        want = value.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        assert torch.equal(bits, want & 0xFFFF)
+        assert torch.equal(_bf16_values(bits), value)
+        assert value.min() == -128 and value.max() == 127
+
+
 # ------------------------------------------------------------ on the card
 @pytest.mark.cuda
 class TestWeightOnlyLinearOnCard:
-    """The CUDA kernel against its plain version on the same inputs on
-    the card: f32 at 2e-5 (summation order), bf16 by `rel_errors`. T = 132
-    rows is the 8B serving step's (one 160-row tile), 200 takes two; M =
-    5 the int4 LM head's decode rows; N = 1000 takes byte copies of the
-    int8 rows and a ragged last column tile."""
+    """The CUDA kernels against their plain version on the same inputs on
+    the card: f32 at 2e-5 (summation order; the megakernels' GEMM core),
+    bf16 by `rel_errors` (csrc/wol_sm90.cu). T = 132 rows is the 8B
+    serving step's (one 136-row token tile in bf16, one 160-row tile in
+    f32), 200 takes two; M = 5 the int4 LM head's decode rows; N = 1000
+    takes byte copies of the rows and a ragged last column tile."""
 
     @pytest.fixture(autouse=True)
     def _card(self):
@@ -313,6 +347,73 @@ class TestWeightOnlyLinearOnCard:
                                            dtype=torch.bfloat16), qw, s)
         with pytest.raises(ValueError, match="against"):
             weight_only_linear(torch.zeros(2, 16, device="cuda"), qw, s)
+
+    @staticmethod
+    def _random_bytes(algo, M, K, N, seed):
+        """bf16 x [M, K] and a weight of random bytes (every int4 nibble,
+        -8 included; int8 -128 included) with scales in [1e-3, 5e-2]."""
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+        rows = K // 2 if algo == INT4 else K
+        qw = torch.randint(-128, 128, (rows, N), device="cuda", generator=g,
+                           dtype=torch.int32).to(torch.int8)
+        s = torch.rand(N, device="cuda", generator=g) * 0.049 + 1e-3
+        return x, qw, s
+
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("M,K,N", [
+        (1, 512, 384), (4, 4096, 4096), (8, 264, 1000), (9, 200, 136),
+        (257, 520, 640), (5, 256, 1004), (3, 128, 999)])
+    def test_bf16_edges(self, algo, M, K, N):
+        # token widths n8 / n16 and two token tiles (257 rows: 136 + 121),
+        # a K split (4 x [4096 -> 4096]), N past the last 128-column box
+        # (1000 and 136 also no whole 16-byte rows: 8-byte copies; 1004:
+        # 4-byte; 999: single bytes and an odd output row), K past the
+        # last 64-wide box (264, 200, 520), weights of random bytes
+        x, qw, s = self._random_bytes(algo, M, K, N, M + K + N)
+        n = weight_only_linear.launches
+        got = weight_only_linear(x, qw, s, algo=algo)
+        torch.cuda.synchronize()
+        assert weight_only_linear.launches == n + 1
+        want = weight_only_linear_reference(x, qw, s, algo=algo)
+        assert bool(torch.isfinite(got).all())
+        tensor, row = rel_errors(got, want)
+        assert tensor <= BF16_TENSOR_LIMIT, tensor
+        assert row <= BF16_ROW_LIMIT, row
+
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    @pytest.mark.parametrize("M,K,N", [(5, 256, 512), (4, 4096, 1024),
+                                       (140, 256, 256)])
+    def test_bf16_writes_no_row_past_m(self, algo, M, K, N):
+        # the output as the first M rows of a NaN buffer: the rows after
+        # them stay NaN (the token tile's rows past M are computed, on
+        # zeros, and never stored), with and without a K split
+        x, qw, s = self._random_bytes(algo, M, K, N, 11)
+        big = torch.full((M + 136, N), float("nan"), device="cuda",
+                         dtype=torch.bfloat16)
+        got = quant._launch_bf16(x, qw, s, algo, big[:M])
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(big[M:]).all())
+        tensor, row = rel_errors(
+            got, weight_only_linear_reference(x, qw, s, algo=algo))
+        assert tensor <= BF16_TENSOR_LIMIT and row <= BF16_ROW_LIMIT
+
+    @pytest.mark.parametrize("algo", [INT8, INT4])
+    def test_bf16_past_the_map_cache(self, algo):
+        # one x against 300 weights at distinct addresses: more tensor maps
+        # than the kernel's cache holds (256), so its round robin comes to
+        # evict x's map in the launch that has just found it; every
+        # product still matches its plain version
+        x, _, _ = self._random_bytes(algo, 4, 128, 256, 3)
+        weights = [self._random_bytes(algo, 4, 128, 256, 100 + i)[1:]
+                   for i in range(300)]
+        got = [weight_only_linear(x, qw, s, algo=algo) for qw, s in weights]
+        torch.cuda.synchronize()
+        for out, (qw, s) in zip(got, weights):
+            tensor, row = rel_errors(
+                out, weight_only_linear_reference(x, qw, s, algo=algo))
+            assert tensor <= BF16_TENSOR_LIMIT, tensor
+            assert row <= BF16_ROW_LIMIT, row
 
 
 def test_module_names_its_queue_b_kernel():
