@@ -23,7 +23,12 @@ Phases, one line each on stdout:
    1 on the trash page, 64-page tables with a -1 entry) in bf16 and f32,
    and at a long-context shape (8 sequences, tables of 8192 tokens,
    seeded lengths including 1 and 8192) in bf16; bf16 outputs are held
-   by relative errors (`paged_rel_errors`), f32 at 2e-5; the int8 and
+   by relative errors (`paged_rel_errors`), f32 at 2e-5; the ragged
+   kernel also with the chunk idle (a decode-only step, held as the
+   mixed one, its idle rows zero) and at the long-context shape (8
+   decode rows over those tables), its bf16 outputs also held by
+   `row_rel_errors` within MLA_BF16_LIMITS["ragged_576"] (`ragged_rel`);
+   the int8 and
    int4 sites of the three megakernels at the same shapes
    (`check_quantized_megakernels`: bf16 also by `row_rel_errors` within
    QSITE_BF16_LIMITS; split_ms on the dequantized bf16 weights);
@@ -726,7 +731,7 @@ def check_kernels(timer: Timer):
         r[f"max_abs_err_{tag}"] = err
         if main:
             r.update(max_abs_err=err, **time_ragged(timer, qa, kp, vp, o,
-                                                    tabs, dtype))
+                                                    ref, tabs, dtype))
         check_megakernels(timer, mb, cos, sin, rows, dtype, tol[dtype], gc)
         check_quantized_megakernels(timer, mb, cos, sin, rows, dtype,
                                     tol[dtype], gc)
@@ -734,6 +739,7 @@ def check_kernels(timer: Timer):
             g, SLOTS, MAX_CTX // PSZ, [300, 1024, 517, 1], idle=3))
     check_paged(timer, rows, torch.bfloat16, gc, *long_context_batch(g),
                 tag="long")
+    check_ragged_long(timer, rows, g, gc)
     check_rep_shapes(timer, rows, g, gc, mb)
     check_gpt_kernels(timer, rows, gc, mb)
     check_flash(timer, rows)
@@ -746,12 +752,28 @@ def check_kernels(timer: Timer):
     return rows
 
 
-def time_ragged(timer, qa, kp, vp, o, tabs, dtype):
+def ragged_rel(name, got, want, tabs):
+    """Hold a bf16 ragged output, beside the 2e-2 bar, by `row_rel_errors`
+    over the (row, head) vectors of the rows some sequence owns, within
+    the limits of the latent-row site (MLA_BF16_LIMITS["ragged_576"]);
+    returns the readings."""
+    live = torch.zeros(got.shape[0], dtype=torch.bool)
+    for a, n in zip(tabs[0].tolist(), tabs[1].tolist()):
+        live[a:a + n] = True
+    live = live.to(got.device)
+    return assert_rel_bf16(name, got[live], want[live],
+                           MLA_BF16_LIMITS["ragged_576"])
+
+
+def time_ragged(timer, qa, kp, vp, o, ref, tabs, dtype):
     """The ragged kernel's time over a mixed batch beside its plain
     version and its bound (the live K/V rows, q, o and the tables, or the
     4 H D operations of every visible (query, key) pair, whichever is
-    longer), and its time with the prefill chunk idle (a decode-only
-    step) beside that step's bytes bound."""
+    longer), held by its bf16 relative errors (`ragged_rel`), and the
+    same step with the prefill chunk idle (a decode-only step): held to
+    its plain version at the same 2e-2 bar and relative limits, the rows
+    no live sequence owns exactly zero, and timed beside that step's
+    bytes bound."""
     hq, kv = qa.shape[1], kp.shape[0]
     nt = tabs[1].cpu().tolist()
     kvl = tabs[2].cpu().tolist()
@@ -762,15 +784,65 @@ def time_ragged(timer, qa, kp, vp, o, tabs, dtype):
     dec = (tabs[0], tabs[1] * (tabs[1] == 1), tabs[2] * (tabs[1] == 1),
            tabs[3])
     dec_live = sum(k * kv * D * 2 * isz for k, n in zip(kvl, nt) if n == 1)
+    n0 = ops.ragged_paged_attention.launches
+    od = ops.ragged_paged_attention(qa, kp, vp, *dec)
+    torch.cuda.synchronize()
+    assert ops.ragged_paged_attention.launches == n0 + 1
+    refd = ops.ragged_attention_reference(qa, kp, vp, *dec)
+    torch.testing.assert_close(od.float(), refd.float(), atol=2e-2,
+                               rtol=2e-2)
+    owned = torch.zeros(od.shape[0], dtype=torch.bool)
+    for a, n in zip(dec[0].tolist(), dec[1].tolist()):
+        owned[a:a + n] = True
+    assert float(od[~owned.to(od.device)].float().abs().sum()) == 0.0
     return dict(
         bound_ms=b, bound_by=by,
         ms=timer.ms(lambda: ops.ragged_paged_attention(qa, kp, vp, *tabs)),
         plain_ms=timer.ms(lambda: ops.ragged_attention_reference(
             qa, kp, vp, *tabs)),
         library_ms=None, live_kv_bytes=live, qk_pairs=pairs,
+        rel_err_bf16=ragged_rel(f"ragged H {hq} KV {kv}", o, ref, tabs),
+        decode_only_max_abs_err=max_err(od, refd),
+        decode_only_rel_err_bf16=ragged_rel(
+            f"ragged decode-only H {hq} KV {kv}", od, refd, dec),
         decode_only_ms=timer.ms(
             lambda: ops.ragged_paged_attention(qa, kp, vp, *dec)),
         decode_only_bound_ms=bound(nbytes(qa, o, *tabs) + dec_live)[0])
+
+
+def check_ragged_long(timer, rows, g, gc):
+    """The ragged kernel at the long-context shape (LONG_SEQS decode rows,
+    one a sequence, over `long_context_batch`'s tables and lengths; the 8B
+    heads), bf16: held to its plain version at the 2e-2 bar and by its
+    relative errors (`ragged_rel`), timed beside its plain version and
+    the bytes bound; readings under rows[name]["long"]."""
+    P, lens, tables = long_context_batch(g)
+    B = lens.shape[0]
+    tabs = (torch.arange(B, dtype=torch.int32, device=DEV),
+            torch.ones(B, dtype=torch.int32, device=DEV), lens, tables)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEV, generator=gc).to(
+            torch.bfloat16)
+
+    qa, kp, vp = rnd(B, HQ, D), rnd(KV, P, PSZ, D), rnd(KV, P, PSZ, D)
+    n0 = ops.ragged_paged_attention.launches
+    o = ops.ragged_paged_attention(qa, kp, vp, *tabs)
+    torch.cuda.synchronize()
+    assert ops.ragged_paged_attention.launches == n0 + 1
+    ref = ops.ragged_attention_reference(qa, kp, vp, *tabs)
+    torch.testing.assert_close(o.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    live = int(tabs[2].sum()) * KV * D * 2 * qa.element_size()
+    b_, by = bound(live + nbytes(qa, o, *tabs))
+    rows["ragged_paged_attention"]["long"] = dict(
+        heads=HQ, kv_heads=KV, lengths=tabs[2].tolist(),
+        max_abs_err=max_err(o, ref),
+        rel_err_bf16=ragged_rel("ragged long", o, ref, tabs),
+        bound_ms=b_, bound_by=by,
+        ms=timer.ms(lambda: ops.ragged_paged_attention(qa, kp, vp, *tabs)),
+        plain_ms=timer.ms(lambda: ops.ragged_attention_reference(
+            qa, kp, vp, *tabs)),
+        library_ms=None, live_kv_bytes=live)
 
 
 #: the query / KV heads of the two geometries the Llama-3-8B shapes leave
@@ -781,8 +853,8 @@ REP_SHAPES = {"rep1": (32, 32), "rep7": (28, 4)}
 def check_rep_shapes(timer, rows, g, gc, mb):
     """The ragged kernel over the mixed batch and both paged decode
     kernels over the alternating decode batch at REP_SHAPES, bf16, each
-    against its plain version (ragged at 2e-2, paged by
-    `assert_paged_bf16`) and timed beside it and its bound; readings
+    against its plain version (ragged at 2e-2 and by `ragged_rel`, paged
+    by `assert_paged_bf16`) and timed beside it and its bound; readings
     under rows[name][rep]."""
     dtype = torch.bfloat16
     T, P = mb["T"], mb["P"]
@@ -804,7 +876,7 @@ def check_rep_shapes(timer, rows, g, gc, mb):
                                    rtol=2e-2)
         rows["ragged_paged_attention"][tag] = dict(
             heads=hq, kv_heads=kv, max_abs_err=max_err(o, ref),
-            **time_ragged(timer, qa, kp, vp, o, tabs, dtype))
+            **time_ragged(timer, qa, kp, vp, o, ref, tabs, dtype))
         del qa, kp, vp
         args = paged_batch(gc, dtype, *dec, heads=hq, kv_heads=kv)
         ref = ops.paged_decode_reference(*args)
@@ -1831,7 +1903,9 @@ MLA_DECODE_CASES = {"decode": (GEN_BATCH, GEN_PROMPT + GEN_NEW),
 #: plain version against the final one), with its scores rounded to bf16
 #: between reads 2.2e-3 / 1.1e-2; the sound MLA site 4.6e-5 / 2.8e-4,
 #: with its latent normed after the bf16 round 1.2e-3 / 1.4e-3; ragged
-#: and flash keep the paged and flash limits
+#: (at both of its sites) and flash keep the paged and flash limits: the
+#: sound ragged kernel read at most 2.2e-3 / 3.9e-3, a split's keys one
+#: past its end at least 9.6e-2 a row at the long case (ragged_limits.py)
 MLA_BF16_LIMITS = {"mla_decode_attention": (1.2e-3, 6e-3),
                    "fused_qkv_rope_append_mla": (3e-4, 1e-3),
                    "ragged_576": (5e-3, 1e-2), "flash_192": (1e-2, 3e-2)}
@@ -4878,6 +4952,10 @@ def main() -> int:
         if name == "ragged_paged_attention":
             row["mla_576"] = dict(r["mla_576"],
                                   launches=mla_launches["fused"][name])
+            row["long"] = {k: r["long"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "rel_err_bf16")}
+            row.update({k: r[k] for k in ("decode_only_ms",
+                                          "decode_only_bound_ms")})
         if name == "flash_sdpa":
             row["d192"] = dict(r["d192"], launches=mla_launches[
                 "generate_cached"]["flash_sdpa"])

@@ -313,8 +313,9 @@ def _llama_decode_params(model, weight_only_int8: bool = False,
         inner = getattr(model, "qwen2", None)
     if inner is None:
         raise NotImplementedError(
-            "expected a Llama-family model (model.llama / model.qwen2); "
-            "the MoE and MLA families are ROADMAP.md queue A item 5")
+            f"cached decoding of a {type(model).__name__} (no model.llama / "
+            "model.qwen2 backbone): the port serves the llama, gpt, MoE and "
+            "MLA families (ROADMAP.md queue A item 5 lists the others)")
     layers = []
     for lyr in inner.layers:
         a, m = lyr.self_attn, lyr.mlp

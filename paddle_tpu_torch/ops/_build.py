@@ -37,7 +37,7 @@ from torch._subclasses.fake_tensor import FakeTensor as _FakeTensor
 
 __all__ = ["library", "kernel", "check", "dtype_code", "stream",
            "require_cuda", "require_aligned", "index32", "ptr", "split_k",
-           "faked",
+           "faked", "sm_count",
            "weight_layout",
            "build_seconds", "build_log", "CSRC", "BUILD_ROOT", "NVCC_FLAGS"]
 
@@ -172,6 +172,18 @@ def dtype_code(t) -> int:
 def stream(t) -> int:
     """Handle of PyTorch's current stream on the tensor's device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_sms: Dict[int, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors (read once a device)."""
+    n = _sms.get(dev.index or 0)
+    if n is None:
+        n = _sms[dev.index or 0] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

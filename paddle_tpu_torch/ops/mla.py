@@ -47,17 +47,6 @@ def mla_split_plan(B: int, Tc: int, sms: int):
     return rows, -(-Tc // rows)
 
 
-_sms: dict = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    n = _sms.get(dev.index or 0)
-    if n is None:
-        n = _sms[dev.index or 0] = \
-            torch.cuda.get_device_properties(dev).multi_processor_count
-    return n
-
-
 def mla_kernel_eligible(nh: int, r: int, dr: int) -> bool:
     """Shapes the Hopper kernels take, from what they hold: r a power of
     two from 32 to 512 (f32: r / 32 dims a lane in registers; bf16: r / 4
@@ -132,7 +121,7 @@ def mla_decode_attention(q_eff, q_pe, c_lat, c_pe, lengths, *,
     if B == 0:
         return out
     if c_lat.dtype == torch.bfloat16:
-        rows, nsplit = mla_split_plan(B, Tc, _sm_count(dev))
+        rows, nsplit = mla_split_plan(B, Tc, _build.sm_count(dev))
     else:
         rows, nsplit = SPLIT_ROWS, -(-Tc // SPLIT_ROWS)
     acc = torch.empty(B, nsplit, nh, r, dtype=torch.float32, device=dev)

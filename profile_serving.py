@@ -63,13 +63,16 @@ STEPS = 6                          # engine steps per profiled window
 #: kernel-name fragments of the port's own kernels (ops/csrc)
 PORT_KERNELS = ("rms_norm_kernel", "ptt::layer_norm_kernel",
                 "rope_append_kernel", "ragged_attention_kernel",
+                "ragged_split_kernel",
                 "mega::gemm_kernel", "qkv_finalize_kernel", "oproj_norm_finalize_kernel",
                 "residual_finalize_kernel", "paged_v1_kernel",
                 "paged_v2_kernel", "paged_v2_mma_kernel",
                 "mla_finalize_kernel", "append_rows_kernel",
                 "int4_dequantize_kernel", "mla::split_kernel",
                 "mla::merge_kernel")
-# (weight_only_linear runs mega::gemm_kernel and residual_finalize_kernel)
+# (weight_only_linear runs mega::gemm_kernel and residual_finalize_kernel;
+# ragged_split_kernel is ragged attention's bf16 route, its splits merged
+# in the same launch, ragged_attention_kernel its f32 route)
 #: name fragments of PyTorch's own passes, in match order: gathers and
 #: scatters (page gathers, append_to_cache's index_put_), concatenations
 #: (the alternating path's inline rope), other elementwise passes

@@ -781,6 +781,29 @@ class TestMlaOnCard:
                 torch.cat([qr.reshape(T, -1), ref_pool[0, page, off]], 1))
             assert t < lim[0] and rw < lim[1], (t, rw)
 
+    @pytest.mark.parametrize("same", [True, False])
+    @pytest.mark.parametrize("psz", [8, 16])
+    def test_ragged_576_splits(self, psz, same):
+        # the latent row's bf16 kernel at lengths 1, 15, 16, 17, 1023 and
+        # 8192 (keys across many splits), an idle slot and a 96-token
+        # chunk, NaN in every pool row past a length and every page no
+        # table names, one pool as K and V (the engine's) and two: within
+        # the ragged_576 limits of the plain version on the clean pools
+        from test_torch_ops import _ragged_batch
+        args, clean = _ragged_batch([1, 15, 16, 17, 1023, 8192, 0, 200],
+                                    [1, 1, 1, 1, 1, 1, 0, 96], 16, 1, 576,
+                                    psz, seed=6, same=same, poison=True)
+        scale = 192 ** -0.5
+        got = ops.ragged_paged_attention(*args, scale=scale)
+        torch.cuda.synchronize()
+        want = ragged_attention_reference(*clean, scale=scale)
+        assert torch.isfinite(got.float()).all()
+        live = torch.arange(102, device="cuda")
+        assert float(got[102:].float().abs().sum()) == 0.0
+        t, rw = rel_errors(got[live], want[live])
+        lim = MLA_BF16_LIMITS["ragged_576"]
+        assert t < lim[0] and rw < lim[1], (t, rw)
+
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_ragged_576_and_flash_192(self, dtype):
         g = torch.Generator(device="cuda").manual_seed(3)

@@ -18,7 +18,11 @@ the card; it needs one and skips elsewhere. On the machine with the card,
 which has no JAX: python -m pytest --noconftest tests/test_torch_ops.py
 -m cuda."""
 
+import subprocess
+import sys
+import textwrap
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -249,6 +253,228 @@ class TestRaggedParity:
         np.testing.assert_array_equal(out1[:T - 1], out2[:T - 1])
 
 
+# ------------------------------------------------- ragged's split plan
+def _ragged_items(nt, kvl, ss, T, KV, rep, cap, split, psz, sms=132):
+    """The bf16 kernel's work items as csrc/ragged_attention.cu enumerates
+    them: (sequence, KV head, 16-row tile, split, the tile's splits, keys
+    [k0, k1)) for every split that some row of its tile sees; a sequence
+    of at least half of `sms` items (KV x tiles) whose keys span fewer
+    than SPLIT_PAGES pages is not split."""
+    out = []
+    for i in range(len(nt)):
+        start = int(ss[i])
+        n = 0 if start < 0 or start >= T else min(max(int(nt[i]), 0),
+                                                  T - start)
+        hi = min(int(kvl[i]), cap)
+        rows = n * rep
+        if n <= 0 or hi <= 0:
+            continue
+        tiles = -(-rows // 16)
+        whole = KV * tiles >= (sms + 1) // 2 and \
+            hi <= (ops.ragged.SPLIT_PAGES - 1) * psz
+        lim0 = int(kvl[i]) - int(nt[i])
+        for gk in range(KV):
+            for qt in range(tiles):
+                last_t = (min(16 * qt + 16, rows) - 1) // rep
+                tile_hi = min(lim0 + last_t + 1, cap)
+                if tile_hi <= 0:
+                    continue
+                if whole:
+                    out.append((i, gk, qt, 0, 1, 0, tile_hi))
+                    continue
+                ns = -(-tile_hi // split)
+                for s in range(ns):
+                    k0 = s * split
+                    out.append((i, gk, qt, s, ns, k0,
+                                min(k0 + split, tile_hi)))
+    return out
+
+
+class TestRaggedSplitPlan:
+    """ragged_split_plan and the bf16 kernel's split-and-merge, on the
+    CPU (the kernel itself runs only on the card)."""
+
+    @pytest.mark.parametrize("S,KV,rep,T,cap,D,layout", [
+        # the 8B step: slots at 300 / 1024 / idle / 517, a 128-token chunk
+        (5, 8, 4, 132, 1024, 128,
+         ([1, 1, 0, 1, 128], [300, 1024, 0, 517, 384])),
+        # rep 7, a chunk whose tiles cross token boundaries; MLA's row
+        (5, 4, 7, 40, 512, 128, ([1, 1, 1, 0, 36], [1, 129, 512, 0, 200])),
+        (5, 1, 16, 20, 256, 576, ([1, 0, 1, 1, 16], [17, 0, 255, 64, 80])),
+    ])
+    def test_covers_each_visible_pair_once(self, S, KV, rep, T, cap, D,
+                                           layout):
+        nt, kvl = (np.asarray(a) for a in layout)
+        ss = np.concatenate([[0], np.cumsum(nt)[:-1]])
+        split, nsplit, most = ops.ragged.ragged_split_plan(
+            S, KV, rep, T, cap, 132, D)
+        assert split % ops.ragged.SPLIT_QUANTUM == 0
+        assert nsplit == -(-cap // split)
+        seen = np.zeros((KV, T * rep, cap), np.int32)
+        items = _ragged_items(nt, kvl, ss, T, KV, rep, cap, split, 16)
+        assert len(items) <= most
+        for i, gk, qt, s, _ns, k0, k1 in items:
+            for r in range(16 * qt, min(16 * qt + 16, nt[i] * rep)):
+                t = r // rep
+                hi = min(kvl[i] - nt[i] + t + 1, k1)
+                seen[gk, ss[i] * rep + r, k0:max(hi, k0)] += 1
+        want = np.zeros_like(seen)
+        for i in range(S):
+            for t in range(nt[i]):
+                lim = min(kvl[i] - nt[i] + t + 1, cap)
+                want[:, (ss[i] + t) * rep:(ss[i] + t + 1) * rep,
+                     :max(lim, 0)] = 1
+        np.testing.assert_array_equal(seen, want)
+
+    def test_fills_the_card_at_the_8b_decode_step(self):
+        # 4 decode slots (the chunk sequence idle) at full length: items
+        # enough for every SM of the H100
+        split, nsplit, _ = ops.ragged.ragged_split_plan(5, 8, 4, 132, 1024,
+                                                        132, 128)
+        assert 4 * 8 * nsplit >= 132
+        assert split * (nsplit - 1) < 1024 <= split * nsplit
+
+    def test_depends_on_shapes_only(self):
+        import inspect
+        params = list(inspect.signature(
+            ops.ragged.ragged_split_plan).parameters)
+        assert params == ["S", "KV", "rep", "T", "capacity", "sms",
+                          "head_dim", "page_size"]
+        plans = {ops.ragged.ragged_split_plan(5, 8, 4, 132, 1024, 132, 128)
+                 for _ in range(3)}
+        assert len(plans) == 1
+        # the MLA engine's shapes keep its partials within the workspace
+        split, nsplit, most = ops.ragged.ragged_split_plan(
+            5, 1, 16, 132, 1024, 132, 576)
+        assert most * (16 * 576 + 32) * 4 <= \
+            ops.ragged.SPLIT_WORKSPACE_BYTES
+
+    def test_split_pages_is_the_kernels(self):
+        # the plan bounds a split by the table entries the bf16 kernel
+        # stages (rag::SPG), which refuses a longer split
+        src = (Path(ops.__file__).parent / "csrc"
+               / "ragged_attention.cu").read_text()
+        assert f"constexpr int SPG = {ops.ragged.SPLIT_PAGES};" in src
+
+    def test_split_and_merge_matches_reference(self):
+        # f32: each item's (acc, m, l) over its keys, merged as the kernel
+        # merges (splits with l = 0 skipped), against the plain version.
+        # Sequence 1 has length 0 and 3 is idle; sequence 4's first tile
+        # sees no key of its last split (an item the kernel skips), and
+        # sequence 5's first tile holds rows that see none of its last
+        # split beside rows that do (partials with l = 0); two rows at
+        # the end belong to no sequence
+        rng = np.random.RandomState(11)
+        S, KV, rep, D, psz, nj = 6, 2, 2, 128, 16, 32
+        cap, T = nj * psz, 28
+        nt = np.asarray([1, 1, 2, 0, 10, 12])
+        kvl = np.asarray([300, 0, 140, 0, 258, 264])
+        ss = np.concatenate([[0], np.cumsum(nt)[:-1]])
+        P = S * nj + 1
+        q = torch.from_numpy(rng.randn(T, KV * rep, D).astype(np.float32))
+        kp = torch.from_numpy(rng.randn(KV, P, psz, D).astype(np.float32))
+        vp = torch.from_numpy(rng.randn(KV, P, psz, D).astype(np.float32))
+        tab = torch.from_numpy(
+            (1 + rng.permutation(P - 1)[:S * nj]).reshape(S, nj)
+            .astype(np.int32))
+        split, nsplit, _ = ops.ragged.ragged_split_plan(S, KV, rep, T, cap,
+                                                        132, D)
+        assert nsplit >= 3
+        scale = D ** -0.5
+        out = torch.zeros_like(q)
+        parts = {}
+        for i, gk, qt, s, ns, k0, k1 in _ragged_items(
+                nt, kvl, ss, T, KV, rep, cap, split, psz, sms=10):
+            rows = torch.arange(16 * qt, min(16 * qt + 16, nt[i] * rep))
+            t, hd = rows // rep, gk * rep + rows % rep
+            keys = torch.arange(k0, k1)
+            pages = tab[i].long()[keys // psz]
+            kk, vv = kp[gk, pages, keys % psz], vp[gk, pages, keys % psz]
+            sc = (q[ss[i] + t, hd] @ kk.T) * scale
+            vis = keys[None, :] < (kvl[i] - nt[i] + t + 1)[:, None]
+            sc = torch.where(vis, sc, torch.full_like(sc, -torch.inf))
+            m = sc.amax(-1)
+            p = torch.where(vis, torch.exp(sc - m.clamp_min(-1e30)[:, None]),
+                            torch.zeros_like(sc))
+            parts.setdefault((i, gk, qt), []).append(
+                (p @ vv, m, p.sum(-1), ss[i] + t, hd))
+        for (i, gk, qt), ps in parts.items():
+            M = torch.stack([torch.where(l > 0, m, torch.full_like(m, -1e30))
+                             for _, m, l, _, _ in ps]).amax(0)
+            acc, lsum = 0.0, 0.0
+            for a, m, l, _, _ in ps:
+                e = torch.where(l > 0, torch.exp(m - M), torch.zeros_like(m))
+                acc, lsum = acc + a * e[:, None], lsum + l * e
+            rows_t, hd = ps[0][3], ps[0][4]
+            out[rows_t, hd] = acc / torch.where(lsum > 0, lsum,
+                                                torch.ones_like(lsum))[:, None]
+        want = ops.ragged_attention_reference(
+            q, kp, vp, torch.from_numpy(ss.astype(np.int32)),
+            torch.from_numpy(nt.astype(np.int32)),
+            torch.from_numpy(kvl.astype(np.int32)), tab, scale=scale)
+        torch.testing.assert_close(out, want, **TOL)
+
+
+def _ragged_batch(lengths, nts, H, KV, D, psz, *, seed=0, same=False,
+                  poison=False, pad=2, sentinels=()):
+    """A bf16 unified step on the card: sequence i owns nts[i] rows (0: an
+    idle slot) at kv length lengths[i], on random pages of one pool; each
+    table ends in -1 entries past its length, and `pad` trailing rows
+    belong to no sequence. `sentinels` are (sequence, page index, entry)
+    written INSIDE a length (-1 and entries past the pool read the clamped
+    page, as the plain version reads it). With `poison`, every pool row
+    past a length and every page no table names hold NaN. Returns
+    (args, clean): the kernel's operands and the same with the clean
+    pools, which the plain version reads."""
+    g = torch.Generator().manual_seed(seed)
+    S = len(lengths)
+    nj = max(-(-max(lengths) // psz), 1) + 1
+    need = sum(-(-n // psz) for n in lengths)
+    P = need + 3                   # page 0 and two more no table names
+    perm = 1 + torch.randperm(P - 1, generator=g)
+    tab = torch.full((S, nj), -1, dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        k = -(-n // psz)
+        tab[i, :k] = perm[used:used + k].to(torch.int32)
+        used += k
+    T = sum(nts) + pad
+    ss = torch.tensor([sum(nts[:i]) for i in range(S)], dtype=torch.int32)
+    nt = torch.tensor(nts, dtype=torch.int32)
+    kvl = torch.tensor(lengths, dtype=torch.int32)
+    r = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+    q, kp = r(T, H, D), r(KV, P, psz, D)
+    vp = kp if same else r(KV, P, psz, D)
+    clean_tab = tab.clone()
+    for i, j, entry in sentinels:
+        clean_tab[i, j] = min(max(entry, 0), P - 1)
+        tab[i, j] = entry
+    dirty_k, dirty_v = kp.clone(), vp.clone()
+    if poison:
+        named = torch.zeros(P, dtype=torch.bool)
+        for i, n in enumerate(lengths):
+            for j in range(-(-n // psz)):
+                page = int(clean_tab[i, j])
+                named[page] = True
+                for pool in (dirty_k, dirty_v):
+                    pool[:, page, max(n - j * psz, 0):] = torch.nan
+        for pool in (dirty_k, dirty_v):
+            pool[:, ~named] = torch.nan
+    dev = lambda t: t.cuda()  # noqa: E731
+    bf = lambda t: t.to(torch.bfloat16).cuda()  # noqa: E731
+    rows = [dev(ss), dev(nt), dev(kvl)]
+    kd = bf(dirty_k)
+    args = [bf(q), kd, kd if same else bf(dirty_v)] + rows + [dev(tab)]
+    kc = bf(kp)
+    clean = [args[0], kc, kc if same else bf(vp)] + rows + [dev(clean_tab)]
+    return args, clean
+
+
+#: GQA geometries of the card tests: rep 1 (GPT-3 6.7B), 4 (Llama-3-8B),
+#: 7 (Qwen2-7B), 16 (DeepSeek-V2's latent row)
+RAGGED_REPS = {1: (8, 8), 4: (8, 2), 7: (14, 2), 16: (16, 1)}
+
+
 # ------------------------------------------------------------ on the card
 @pytest.mark.cuda
 class TestKernelsOnCard:
@@ -348,6 +574,147 @@ class TestKernelsOnCard:
         ref = ops.ragged_attention_reference(*args)
         torch.testing.assert_close(got.float(), ref.float(),
                                    **self._tol(dtype))
+
+    @staticmethod
+    def _ragged_bf16(args, clean, split=None, scale=None):
+        """The bf16 kernel (the wrapper, or `split` keys a split) on
+        `args` against the plain version on `clean`: finite, zeros where
+        no sequence's row is, and within today's bar."""
+        n = ragged_paged_attention.launches
+        if split is None:
+            got = ragged_paged_attention(*args, scale=scale)
+        else:
+            got = ops.ragged._launch(*args, scale=scale, split=split)
+        torch.cuda.synchronize()
+        assert ragged_paged_attention.launches == n + (split is None)
+        ref = ops.ragged_attention_reference(*clean, scale=scale)
+        assert torch.isfinite(got.float()).all()
+        ss, nt = args[3].tolist(), args[4].tolist()
+        owned = torch.zeros(got.shape[0], dtype=torch.bool)
+        for a, b in zip(ss, nt):
+            owned[a:a + b] = True
+        assert float(got[~owned.cuda()].float().abs().sum()) == 0.0
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        return got, ref
+
+    @pytest.mark.parametrize("split", [None, 24, 40])
+    def test_ragged_bf16_lengths_cross_splits(self, split):
+        # decode rows at 1, 15, 16, 17, 1023 and 8192 keys, an idle slot
+        # and a 40-token chunk: with the plan's splits and with splits of
+        # 24 / 40 keys, whose boundaries fall inside pages and stages
+        lengths = [1, 15, 16, 17, 1023, 8192, 0, 300]
+        nts = [1, 1, 1, 1, 1, 1, 0, 40]
+        args, clean = _ragged_batch(lengths, nts, 32, 8, 128, 16, seed=1,
+                                    poison=True)
+        self._ragged_bf16(args, clean, split)
+
+    def test_ragged_bf16_decode_only(self):
+        # the engine's decode-only step: 4 slots (slot 2 idle), the chunk
+        # sequence idle, its 128 rows zero; pools poisoned past lengths
+        args, clean = _ragged_batch([300, 1024, 0, 517, 0], [1, 1, 0, 1, 0],
+                                    32, 8, 128, 16, seed=2, poison=True,
+                                    pad=128)
+        self._ragged_bf16(args, clean)
+
+    def test_ragged_bf16_sentinels_inside_lengths(self):
+        # -1 and past-the-pool entries inside a length read the clamped
+        # page (page 0, page P - 1), as the plain version reads them
+        args, clean = _ragged_batch(
+            [300, 70, 517], [1, 1, 20], 32, 8, 128, 16, seed=3,
+            sentinels=((0, 3, -1), (1, 0, 10 ** 6), (2, 30, -1)))
+        self._ragged_bf16(args, clean)
+
+    @pytest.mark.parametrize("same", [False, True])
+    @pytest.mark.parametrize("psz", [8, 16])
+    @pytest.mark.parametrize("D", ops.ragged.HEAD_DIMS)
+    @pytest.mark.parametrize("rep", sorted(RAGGED_REPS))
+    def test_ragged_bf16_shapes(self, rep, D, psz, same):
+        # decode rows at 1 / 37 / 300 keys, an idle slot, a 20-token chunk
+        # at 70; K and V as one pool and as two; NaN past every length
+        H, KV = RAGGED_REPS[rep]
+        args, clean = _ragged_batch([1, 37, 300, 0, 70], [1, 1, 1, 0, 20],
+                                    H, KV, D, psz, seed=4, same=same,
+                                    poison=True)
+        self._ragged_bf16(args, clean, scale=D ** -0.5)
+
+    @pytest.mark.parametrize("split", [None, 24])
+    @pytest.mark.parametrize("D,rep", [(128, 4), (576, 16)])
+    def test_ragged_bf16_split_boundary_keys(self, D, rep, split):
+        # two keys dominate every score equally, one at the first position
+        # of the second split (values +1) and one early in the first (-1):
+        # the output is their mean, 0; a key counted by both splits it
+        # borders moves it to 1/3
+        H, KV = RAGGED_REPS[rep]
+        L, psz = 600, 16
+        args, clean = _ragged_batch([L, L], [1, 1], H, KV, D, psz, seed=7,
+                                    pad=1)
+        q, kp, vp, ss, nt, kvl, tab = args
+        keys = split or ops.ragged.ragged_split_plan(
+            2, KV, rep, q.shape[0], tab.shape[1] * psz,
+            torch.cuda.get_device_properties(0).multi_processor_count, D)[0]
+        assert keys < L
+        kp.zero_()
+        vp.zero_()
+        q.zero_()
+        q[..., 0] = 8.0
+        for key, val in ((keys, 1.0), (3, -1.0)):
+            page, off = tab[:, key // psz].long(), key % psz
+            kp[:, page, off, 0] = 8.0
+            vp[:, page, off] = val
+        self._ragged_bf16(args, args, split, scale=1.0)
+
+    @pytest.mark.parametrize("D,rep", [(128, 4), (576, 16)])
+    def test_ragged_bf16_rounds_p(self, D, rep):
+        # one stage of at most 16 keys and one split: the kernel rounds
+        # p = exp(s - m) to bf16 against the same maximum as a plain
+        # version that rounds it (the TPU kernel's p.astype(v.dtype)), so
+        # the two differ by summation order only and agree on nearly
+        # every output; p carried unrounded moves the outputs by less than
+        # a bf16 step, but flips the rounding of many of them
+        H, KV = RAGGED_REPS[rep]
+        args, _ = _ragged_batch([16] * 8, [1] * 8, H, KV, D, 16, seed=5,
+                                pad=0)
+        got = ragged_paged_attention(*args)
+        torch.cuda.synchronize()
+        q, kp, vp, ss, nt, kvl, tab = args
+        ks = kp[:, tab[:, 0].long()]                   # [KV, S, 16, D]
+        kr = ks.permute(1, 0, 2, 3).repeat_interleave(rep, 1).float()
+        vr = vp[:, tab[:, 0].long()].permute(1, 0, 2, 3) \
+            .repeat_interleave(rep, 1).float()
+        sc = torch.einsum("shd,shkd->shk", q.float(), kr) * D ** -0.5
+        p = torch.exp(sc - sc.amax(-1, keepdim=True))
+        want = (torch.einsum("shk,shkd->shd", p.bfloat16().float(), vr)
+                / p.sum(-1, keepdim=True)).bfloat16()
+        differ = float((got.float() != want.float()).float().mean())
+        assert differ <= 0.01, differ
+
+    def test_ragged_bf16_overlapping_rows_trap(self):
+        # four sequences over the same 64 rows (outside the contract) make
+        # more work items than the plan sizes the workspace for: the launch
+        # traps rather than drop items or write past the workspace. In a
+        # process of its own: a trap leaves the CUDA context unusable
+        code = textwrap.dedent("""
+            import torch
+            from paddle_tpu_torch import ops
+            T, H, KV, D, psz, S, nj = 64, 32, 8, 128, 16, 4, 8
+            g = torch.Generator().manual_seed(0)
+            q = torch.randn(T, H, D, generator=g).bfloat16().cuda()
+            kp = torch.randn(KV, S * nj, psz, D,
+                             generator=g).bfloat16().cuda()
+            i32 = dict(dtype=torch.int32, device="cuda")
+            ops.ragged_paged_attention(
+                q, kp, kp, torch.zeros(S, **i32),
+                torch.full((S,), T, **i32),
+                torch.full((S,), nj * psz, **i32),
+                torch.arange(S * nj, **i32).reshape(S, nj))
+            torch.cuda.synchronize()
+        """)
+        r = subprocess.run([sys.executable, "-c", code],
+                           cwd=Path(__file__).resolve().parent.parent,
+                           capture_output=True, text=True, timeout=600)
+        assert r.returncode != 0 and "CUDA error" in r.stderr, \
+            r.stderr[-2000:]
 
 
 def _bf16_spacings(got, ref):

@@ -35,7 +35,7 @@ for n in names:
     importlib.import_module(n)
 # imports only: the scripts run under __main__
 import chip_smoke, flash_limits, paged_limits, profile_serving, profile_training
-import gmm_limits, quant_limits
+import gmm_limits, quant_limits, ragged_limits
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -242,7 +242,8 @@ def test_chip_smoke_fails_without_a_card():
 
 
 #: the scripts that plant kernel faults (flash_limits.plant)
-LIMITS = ("flash_limits", "gmm_limits", "paged_limits", "quant_limits")
+LIMITS = ("flash_limits", "gmm_limits", "paged_limits", "quant_limits",
+          "ragged_limits")
 
 
 def _limits(name):
