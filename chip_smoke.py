@@ -4595,9 +4595,10 @@ SOURCES = {
                                "paddle_tpu/ops/pallas_ragged.py:139"),
     "fused_qkv_rope_append": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
                               "paddle_tpu/ops/pallas_megafront.py:356"),
-    "fused_oproj_norm": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+    # the bf16 route (the main path's); f32 runs megakernels.cu's core
+    "fused_oproj_norm": ("paddle_tpu_torch/ops/csrc/megadecode_sm90.cu",
                          "paddle_tpu/ops/pallas_megadecode.py:182"),
-    "fused_ffn": ("paddle_tpu_torch/ops/csrc/megakernels.cu",
+    "fused_ffn": ("paddle_tpu_torch/ops/csrc/megadecode_sm90.cu",
                   "paddle_tpu/ops/pallas_megadecode.py:341"),
     "flash_sdpa": ("paddle_tpu_torch/ops/csrc/flash_attention.cu",
                    "paddle_tpu/ops/pallas_flash.py:335"),

@@ -5,14 +5,8 @@
 //   paddle_tpu/ops/pallas_megafront.py:fused_qkv_rope_append
 //     (Pallas _qkv_rope_append_kernel, _qkv_rope_append_int4_kernel): qkv
 //     GEMM + bias + rope + paged K/V append;
-//   paddle_tpu/ops/pallas_megadecode.py:fused_oproj_norm
-//     (Pallas _oproj_norm_kernel, _oproj_norm_int4_kernel; rms and layer
-//     norm): o-proj GEMM + bias + residual + rms or layer norm, emitting
-//     both the new residual stream and its normed copy;
-//   paddle_tpu/ops/pallas_megadecode.py:fused_ffn
-//     (Pallas _ffn_kernel, _ffn_int4_kernel; swiglu and tanh-gelu):
-//     gate/up GEMM, silu(g) * u (or one gate GEMM + b1, gelu(g)), down
-//     GEMM, b2, residual;
+//   paddle_tpu/ops/pallas_megadecode.py:fused_oproj_norm and fused_ffn,
+//     f32 (bf16: megadecode_sm90.cu): o-proj + residual + norm; the FFN;
 //   paddle_tpu/ops/quant.py:weight_only_linear, f32 (bf16: wol_sm90.cu)
 //     (Pallas _wol_kernel, _wol4_kernel): x @ dequant(W) * scale;
 //   paddle_tpu/ops/pallas_megafront.py:fused_qkv_rope_append, MLA layout
@@ -28,14 +22,11 @@
 // TB/s); the MLA site is bound like the qkv site, by its weight bytes
 // (DeepSeek-V2-Lite's [2048, 3648] slab: 14.9 MB bf16, 4.5 us; int8 half).
 // At the serving step's shapes (T = 132 token rows,
-// Llama-3-8B) the bf16 sites are bound by their weight bytes at 3.35 TB/s:
-// qkv 50.3 MB (0.0150 ms), o-proj 33.6 MB (0.0100 ms), FFN 352 MB
-// (0.105 ms); their bf16 tensor-core work (2 * T * K * N per product at
-// 989 TFLOP/s) takes less than half of that. int8 halves the weight bytes
-// (FFN 0.0526 ms, still bytes); packed int4 quarters them, and at T = 132
-// the same tensor-core work then takes longer than the bytes (FFN
-// 0.047 ms of operations against 0.026 of bytes): int4 is operation-bound.
-// The int4 LM head of decode (M = 5, N = 128256) is bytes-bound.
+// Llama-3-8B) the bf16 qkv site is bound by its weight bytes at 3.35 TB/s,
+// 50.3 MB (0.0150 ms); its bf16 tensor-core work (2 * T * K * N at 989
+// TFLOP/s) takes less than half of that. int8 halves the weight bytes;
+// packed int4 quarters them, and at T = 132 the same tensor-core work then
+// takes about as long as the bytes.
 //
 // Design. Every TPU kernel kept its whole weight slab resident in VMEM
 // and walked the token rows in order, carrying the f32 accumulator in
@@ -46,8 +37,8 @@
 // into an SM once, and the activation tile that every column tile
 // re-reads stays below ~0.6 of the weight bytes beside it. A block
 // streams its K range through a 4-stage cp.async ring of 16-byte copies
-// (zero-filled past the ragged row, column and K edges) and multiplies
-// on the tensor cores with mma.sync m16n8k16 bf16 and f32 accumulators,
+// (zero-filled past the ragged row, column and K edges) and, bf16 (the
+// qkv sites), multiplies on the tensor cores with mma.sync m16n8k16 bf16 and f32 accumulators,
 // its operands fed by ldmatrix (.trans for the [in, out] row-major
 // weights); warps skip the 16-row tiles past the last row. A bf16 x bf16
 // product is exact in f32, so this is the TPU kernels' f32 dot up to
@@ -64,27 +55,19 @@
 //           straight into the caller's pools at its clamped page and
 //           offset; rows of one page land in disjoint slots, only the
 //           trash page 0 takes duplicates. Two CUDA kernels per call.
-//   o-proj: one block per row sums the partials, adds bias and residual
-//           in f32, stores x_new and normalises the f32 sum (not the
+//   o-proj (f32): one block per row sums the partials, adds bias and
+//           residual, stores x_new and normalises the sum (not the
 //           rounded x_new) in _norm_f32's op order: rms, or layer norm
-//           with its two passes (the f32 mean, then the centred variance
+//           with its two passes (the mean, then the centred variance
 //           mean((x - mu)^2); no one-pass E[x^2] - E[x]^2). Two CUDA
 //           kernels.
-//   FFN:    the [T, I] activation does not fit a block: the gate/up GEMM
-//           (two accumulators a block for swiglu, g * sigmoid(g) * u; one
-//           for gelu, the tanh form 0.5 g (1 + tanh(sqrt(2/pi) (g +
+//   FFN (f32): the [T, I] activation does not fit a block: the gate/up
+//           GEMM (two accumulators a block for swiglu, g * sigmoid(g) * u;
+//           one for gelu, the tanh form 0.5 g (1 + tanh(sqrt(2/pi) (g +
 //           0.044715 g^3))) with tanhf, as jax.nn.gelu(approximate=True);
-//           no split) computes the activation in f32, as the TPU kernel's
-//           f32 scratch holds it, and writes it to a workspace. The down
-//           GEMM must read it at that precision: on the f32 route the
-//           workspace is f32; on the bf16 route it is two bf16 planes, hi
-//           = bf16(a) and lo = bf16(a - hi), so hi + lo is a to ~2^-17
-//           relative, and the down GEMM multiplies both planes by each
-//           weight fragment into one f32 accumulator (two mma.sync a
-//           fragment). Rounding the activation to one bf16 plane instead
-//           put a 2^-9 error on every activation, ~40x the other sites'
-//           error against the plain f32 version. The down GEMM splits K;
-//           a third kernel adds the partials, the bias and the residual.
+//           no split) writes the f32 activation to a workspace, as the
+//           TPU kernel's f32 scratch holds it. The down GEMM splits K; a
+//           third kernel adds the partials, the bias and the residual.
 //           Three CUDA kernels per call.
 //   weight_only_linear: the same split-K GEMM, then one thread per output
 //           sums the partials, applies the scale and stores. Two CUDA
@@ -101,9 +84,9 @@
 // f32 q * s): in the qkv pass before the bias and rope, in the o-proj pass
 // before the residual and norm, in the gate/up epilogue on g and u before
 // the swiglu, and in the FFN's and weight_only_linear's last pass on the
-// down / output sums. So the bf16 route equals the TPU kernels' f32 dot up
-// to summation order, as for fp weights. The int4 down product reads the
-// [T, I] activation workspace as it is: the packed rows are in its column
+// down / output sums. So the bf16 qkv route equals the TPU kernels' f32
+// dot up to summation order, as for fp weights. The int4 down product
+// reads the [T, I] activation workspace as it is: the packed rows are in its column
 // order already (the TPU kernel split its f32 scratch into even and odd
 // columns instead). int4 takes swiglu only, as the TPU kernel does.
 // The wrappers allocate every workspace.
@@ -136,28 +119,27 @@ struct Tile<float> {
 enum WFmt : int { kWFp = 0, kWInt8 = 1, kWInt4 = 2 };
 
 // A block's tile: BM = 32 * MT rows (MT 16-row tiles a warp) by BN
-// columns of each of its NB accumulators. bf16 tiles are 160 rows (the 8B
-// serving step's 132 rows in one tile; fewer rows leave the tail's warps
-// idle, more take more blocks) by 256 columns (2 x 128 for the
-// two-accumulator gate/up product), so the activation tile, which every
-// column tile re-reads, is at most ~0.6 of the weight bytes that cross
-// into the SM with it. f32 tiles are 64 x 128. A ring stage holds the A
-// chunk of each of NA planes (2: the FFN's bf16 activation as hi + lo,
-// else 1) and each weight chunk as it arrives: [BK][LDW] in the working
-// type, or, quantized, the chunk's int8 rows (BK of them, or BK / 2 of
-// packed int4), BN bytes each; quantized weights also take one converted
-// [BK][LDW] tile per accumulator beside the ring.
-template <typename T, int NB, int WQ = kWFp, int NA = 1>
+// columns of each of its NB accumulators. bf16 tiles (one accumulator)
+// are 160 rows (the 8B serving step's 132 rows in one tile; fewer rows
+// leave the tail's warps idle, more take more blocks) by 256 columns, so
+// the activation tile, which every column tile re-reads, is at most ~0.6
+// of the weight bytes that cross into the SM with it. f32 tiles are 64 x
+// 128. A ring stage holds the A chunk and each weight chunk as it
+// arrives: [BK][LDW] in the working type, or, quantized, the chunk's int8
+// rows (BK of them, or BK / 2 of packed int4), BN bytes each; quantized
+// weights also take one converted [BK][LDW] tile per accumulator beside
+// the ring.
+template <typename T, int NB, int WQ = kWFp>
 struct Cfg {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static_assert(NA == 1 || (NA == 2 && kBf16), "two A planes are bf16's");
+  static_assert(NB == 1 || !kBf16, "bf16 takes one accumulator");
   static constexpr int MT = kBf16 ? 5 : 2;
   // threads: bf16 16 warps as 2 (rows) x 8 (columns), four a scheduler
   // to hide the ldmatrix -> mma latency; f32 a 16 x 16 grid
   static constexpr int NT = kBf16 ? 512 : 256;
   static constexpr int WARPS_N = NT / 64;
   static constexpr int BM = 32 * MT;
-  static constexpr int BN = !kBf16 ? 128 : (NB == 2 ? 128 : 256);
+  static constexpr int BN = kBf16 ? 256 : 128;
   static constexpr int BK = Tile<T>::BK;
   static constexpr int LDA = BK + Tile<T>::PAD;
   static constexpr int LDW = BN + Tile<T>::PAD;
@@ -169,11 +151,10 @@ struct Cfg {
   static constexpr size_t RAW_BYTES = (size_t)W_ROWS * BN;
   static constexpr size_t W_BYTES =
       WQ == kWFp ? (size_t)W_ELEMS * sizeof(T) : RAW_BYTES;
-  static constexpr size_t STAGE_BYTES = NA * A_BYTES + NB * W_BYTES;
+  static constexpr size_t STAGE_BYTES = A_BYTES + NB * W_BYTES;
   static constexpr size_t CONV_BYTES =
       WQ == kWFp ? 0 : (size_t)NB * W_ELEMS * sizeof(T);
-  // cp.async ring depth: 4 stages where they fit, else 3, else 2 (the
-  // two-plane fp down GEMM: 2 x 78 KB, the accumulator tile is larger)
+  // cp.async ring depth: 4 stages where they fit, else 3, else 2
   static constexpr int STAGES =
       4 * STAGE_BYTES + CONV_BYTES <= SMEM_MAX   ? 4
       : 3 * STAGE_BYTES + CONV_BYTES <= SMEM_MAX ? 3
@@ -186,7 +167,7 @@ struct Cfg {
 enum Epi : int { kEpiSwiglu = 0, kEpiPartial = 1, kEpiGelu = 2 };
 
 struct Args {
-  const void* a;          // A [NA, M, K]: its planes, summed
+  const void* a;          // A [M, K]
   const void* w[2];       // W [K, N] (int4: [K/2, N]), one accumulator each
   const float* scale[2];  // [N] per-column scales of quantized W, or null
   int M, N, K;
@@ -194,8 +175,7 @@ struct Args {
   int w_vec;              // quantized W rows copied in 16-byte pieces
   const float* bias;      // [N] or null (kEpiSwiglu, kEpiGelu)
   float* partial;         // [gridDim.z, M, N] (kEpiPartial)
-  void* act;              // activation (kEpiSwiglu, kEpiGelu): f32 [M, N],
-                          // bf16 [2, M, N] (hi, lo)
+  float* act;             // activation [M, N] (kEpiSwiglu, kEpiGelu)
 };
 
 template <typename T>
@@ -203,18 +183,16 @@ struct alignas(4 * sizeof(T)) Vec4 {
   T v[4];
 };
 
-// One K chunk [k0, k0 + BK) of every A plane's tile and every W tile into
-// a stage.
-template <typename T, typename C, int NB, int WQ, int NA>
+// One K chunk [k0, k0 + BK) of the A tile and every W tile into a stage.
+template <typename T, typename C, int NB, int WQ>
 __device__ __forceinline__ void load_stage(unsigned char* st, const Args& p,
                                            int m0, int n0, int k0,
                                            int kend) {
   constexpr int VE = 16 / sizeof(T);
   constexpr int AROW = C::BK / VE;
-#pragma unroll
-  for (int pl = 0; pl < NA; ++pl) {
-    const T* A = static_cast<const T*>(p.a) + (size_t)pl * p.M * p.K;
-    T* sa = reinterpret_cast<T*>(st) + pl * C::A_ELEMS;
+  {
+    const T* A = static_cast<const T*>(p.a);
+    T* sa = reinterpret_cast<T*>(st);
     for (int c = threadIdx.x; c < C::BM * AROW; c += C::NT) {
       const int r = c / AROW, kc = (c % AROW) * VE;
       const int m = m0 + r, k = k0 + kc;
@@ -224,7 +202,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Args& p,
   }
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
-    unsigned char* dst = st + NA * C::A_BYTES + b * C::W_BYTES;
+    unsigned char* dst = st + C::A_BYTES + b * C::W_BYTES;
     if constexpr (WQ == kWFp) {
       constexpr int WROW = C::BN / VE;
       const T* W = static_cast<const T*>(p.w[b]);
@@ -308,9 +286,8 @@ __device__ __forceinline__ void convert_stage(const unsigned char* raw,
 
 // bf16 on the tensor cores: warp (wm, wn) owns rows wm * 16 MT + 16 i
 // (i < MT) and columns wn * BN / WARPS_N + 8 j (j < WN) of every
-// accumulator; each of NA A planes multiplies every B fragment into the
-// same accumulator.
-template <typename C, int NB, int NA>
+// accumulator.
+template <typename C, int NB>
 struct MmaBf16 {
   static constexpr int MT = C::MT;
   static constexpr int WN = C::BN / (8 * C::WARPS_N);  // n8 tiles a warp
@@ -328,8 +305,8 @@ struct MmaBf16 {
   }
 
   // One chunk, 16 deep at a time: the warp's B fragments first, then its
-  // row tiles (ldmatrix and mma issue in program order). a: the NA A
-  // tiles [BM][LDA], A_ELEMS apart; w: the NB weight tiles [BK][LDW].
+  // row tiles (ldmatrix and mma issue in program order). a: the A tile
+  // [BM][LDA]; w: the NB weight tiles [BK][LDW].
   // live: the block's 16-row tiles that hold rows (a warp-uniform skip).
   __device__ void step(const bf16* a, const bf16* w, int wm, int wn,
                        int live) {
@@ -349,34 +326,24 @@ struct MmaBf16 {
                                         (kk + lr) * C::LDW +
                                         wn * (C::BN / C::WARPS_N) + jp * 16 +
                                         lc);
-      // one plane: tile i + 1's fragment loads while tile i multiplies;
-      // two planes: each tile loads its own (a second buffer would spill)
-      constexpr int BUF = NA == 1 ? 2 : 1;
-      unsigned af[BUF][NA][4];
-      if constexpr (BUF == 2) ldsm_x4(af[0][0], arow + kk);
+      // tile i + 1's fragment loads while tile i multiplies
+      unsigned af[2][4];
+      ldsm_x4(af[0], arow + kk);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         if (i >= tiles) break;
-        if constexpr (BUF == 2) {
-          if (i + 1 < tiles)
-            ldsm_x4(af[(i + 1) & 1][0], arow + (i + 1) * 16 * C::LDA + kk);
-        } else {
+        if (i + 1 < tiles)
+          ldsm_x4(af[(i + 1) & 1], arow + (i + 1) * 16 * C::LDA + kk);
+        const int cur = i & 1;
 #pragma unroll
-          for (int pl = 0; pl < NA; ++pl)
-            ldsm_x4(af[0][pl], arow + pl * C::A_ELEMS + i * 16 * C::LDA + kk);
-        }
-        const int cur = BUF == 2 ? (i & 1) : 0;
+        for (int b = 0; b < NB; ++b)
 #pragma unroll
-        for (int pl = 0; pl < NA; ++pl)
-#pragma unroll
-          for (int b = 0; b < NB; ++b)
-#pragma unroll
-            for (int jp = 0; jp < WN / 2; ++jp) {
-              mma_bf16(acc[b][i][2 * jp], af[cur][pl], bfr[b][jp][0],
-                       bfr[b][jp][1]);
-              mma_bf16(acc[b][i][2 * jp + 1], af[cur][pl], bfr[b][jp][2],
-                       bfr[b][jp][3]);
-            }
+          for (int jp = 0; jp < WN / 2; ++jp) {
+            mma_bf16(acc[b][i][2 * jp], af[cur], bfr[b][jp][0],
+                     bfr[b][jp][1]);
+            mma_bf16(acc[b][i][2 * jp + 1], af[cur], bfr[b][jp][2],
+                     bfr[b][jp][3]);
+          }
       }
     }
   }
@@ -460,15 +427,13 @@ __device__ __forceinline__ float gelu_tanh(float g) {
   return g * (0.5f * (1.f + tanhf(k * (g + 0.044715f * (g * g * g)))));
 }
 
-// The activation in f32 (swiglu: g * sigmoid(g) * u from the two
-// accumulators; gelu: gelu(g) from one), scales before the bias, then
-// stored as the down GEMM reads it: f32, or bf16 hi and lo planes.
-template <typename T, typename C, int EPI>
+// The f32 activation (swiglu: g * sigmoid(g) * u from the two
+// accumulators; gelu: gelu(g) from one), scales before the bias.
+template <typename C, int EPI>
 __device__ void epi_act(const Args& p, const float* Cs, int m0, int n0) {
   const float* Cg = Cs;
   const float* Cu = Cs + C::BM * C::LDC;  // swiglu's second accumulator
   const int rows = min(C::BM, p.M - m0);
-  const size_t plane = (size_t)p.M * p.N;
   for (int i = threadIdx.x; i < rows * (C::BN / 4); i += C::NT) {
     const int r = i / (C::BN / 4), c = (i % (C::BN / 4)) * 4;
     const int n = n0 + c;
@@ -487,20 +452,8 @@ __device__ void epi_act(const Args& p, const float* Cs, int m0, int n0) {
         a[e] = gelu_tanh(g);
       }
     }
-    const size_t at = (size_t)(m0 + r) * p.N + n;
-    if constexpr (std::is_same<T, float>::value) {
-      *reinterpret_cast<float4*>(static_cast<float*>(p.act) + at) =
-          make_float4(a[0], a[1], a[2], a[3]);
-    } else {
-      Vec4<T> hi, lo;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        hi.v[e] = from_f32<T>(a[e]);
-        lo.v[e] = from_f32<T>(a[e] - to_f32(hi.v[e]));
-      }
-      *reinterpret_cast<Vec4<T>*>(static_cast<T*>(p.act) + at) = hi;
-      *reinterpret_cast<Vec4<T>*>(static_cast<T*>(p.act) + plane + at) = lo;
-    }
+    *reinterpret_cast<float4*>(p.act + (size_t)(m0 + r) * p.N + n) =
+        make_float4(a[0], a[1], a[2], a[3]);
   }
 }
 
@@ -523,11 +476,11 @@ __device__ void epi_partial(const Args& p, const float* Cs, int m0, int n0) {
 }
 
 // ------------------------------------------------------------ GEMM core
-template <typename T, int NB, int EPI, int WQ, int NA>
-__global__ void __launch_bounds__(Cfg<T, NB, WQ, NA>::NT)
+template <typename T, int NB, int EPI, int WQ>
+__global__ void __launch_bounds__(Cfg<T, NB, WQ>::NT)
     gemm_kernel(const Args p) {
-  using C = Cfg<T, NB, WQ, NA>;
-  using Mma = typename std::conditional<C::kBf16, MmaBf16<C, NB, NA>,
+  using C = Cfg<T, NB, WQ>;
+  using Mma = typename std::conditional<C::kBf16, MmaBf16<C, NB>,
                                         FmaF32<C, NB>>::type;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* conv = reinterpret_cast<T*>(smem_raw + C::STAGES * C::STAGE_BYTES);
@@ -545,8 +498,8 @@ __global__ void __launch_bounds__(Cfg<T, NB, WQ, NA>::NT)
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
     if (s < nk)
-      load_stage<T, C, NB, WQ, NA>(smem_raw + s * C::STAGE_BYTES, p, m0,
-                                   n0, (c0 + s) * C::BK, kend);
+      load_stage<T, C, NB, WQ>(smem_raw + s * C::STAGE_BYTES, p, m0, n0,
+                               (c0 + s) * C::BK, kend);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -554,17 +507,17 @@ __global__ void __launch_bounds__(Cfg<T, NB, WQ, NA>::NT)
     __syncthreads();              // ... for every thread; kt-1 is consumed
     const int nxt = kt + C::STAGES - 1;
     if (nxt < nk)
-      load_stage<T, C, NB, WQ, NA>(
+      load_stage<T, C, NB, WQ>(
           smem_raw + (nxt % C::STAGES) * C::STAGE_BYTES, p, m0, n0,
           (c0 + nxt) * C::BK, kend);
     cp_async_commit();
     const unsigned char* st = smem_raw + (kt % C::STAGES) * C::STAGE_BYTES;
     const T* a = reinterpret_cast<const T*>(st);
     if constexpr (WQ == kWFp) {
-      mma.step(a, reinterpret_cast<const T*>(st + NA * C::A_BYTES), wm, wn,
+      mma.step(a, reinterpret_cast<const T*>(st + C::A_BYTES), wm, wn,
                live);
     } else {
-      convert_stage<T, C, NB, WQ>(st + NA * C::A_BYTES, conv);
+      convert_stage<T, C, NB, WQ>(st + C::A_BYTES, conv);
       __syncthreads();            // the converted chunk, for every warp
       mma.step(a, conv, wm, wn, live);
     }
@@ -577,18 +530,18 @@ __global__ void __launch_bounds__(Cfg<T, NB, WQ, NA>::NT)
   if constexpr (EPI == kEpiPartial)
     epi_partial<C>(p, Cs, m0, n0);
   else
-    epi_act<T, C, EPI>(p, Cs, m0, n0);
+    epi_act<C, EPI>(p, Cs, m0, n0);
 }
 
-template <typename T, int NB, int EPI, int WQ, int NA>
+template <typename T, int NB, int EPI, int WQ>
 static cudaError_t launch_gemm(const Args& p, int splits, cudaStream_t st) {
-  using C = Cfg<T, NB, WQ, NA>;
+  using C = Cfg<T, NB, WQ>;
   const int kc_total = (p.K + C::BK - 1) / C::BK;
   // every grid.z slice holds at least one chunk, and they cover K
   if (splits < 1 || p.kc_split < 1 || (splits - 1) * p.kc_split >= kc_total ||
       splits * p.kc_split < kc_total || (EPI != kEpiPartial && splits != 1))
     return cudaErrorInvalidValue;
-  auto kern = gemm_kernel<T, NB, EPI, WQ, NA>;
+  auto kern = gemm_kernel<T, NB, EPI, WQ>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e != cudaSuccess) return e;
@@ -598,14 +551,12 @@ static cudaError_t launch_gemm(const Args& p, int splits, cudaStream_t st) {
 }
 
 // launch_gemm for the weight layout `wq` (a WFmt).
-template <typename T, int NB, int EPI, int NA = 1>
+template <typename T, int NB, int EPI>
 static cudaError_t launch_gemm_w(const Args& p, int splits, int wq,
                                  cudaStream_t st) {
-  if (wq == kWFp) return launch_gemm<T, NB, EPI, kWFp, NA>(p, splits, st);
-  if (wq == kWInt8)
-    return launch_gemm<T, NB, EPI, kWInt8, NA>(p, splits, st);
-  if (wq == kWInt4)
-    return launch_gemm<T, NB, EPI, kWInt4, NA>(p, splits, st);
+  if (wq == kWFp) return launch_gemm<T, NB, EPI, kWFp>(p, splits, st);
+  if (wq == kWInt8) return launch_gemm<T, NB, EPI, kWInt8>(p, splits, st);
+  if (wq == kWInt4) return launch_gemm<T, NB, EPI, kWInt4>(p, splits, st);
   return cudaErrorInvalidValue;
 }
 
@@ -707,17 +658,16 @@ __global__ void qkv_finalize_kernel(const float* partial, int splits,
 
 // One block of 1024 threads per row t (a row's splits * N partials are
 // read with every thread's loads in flight): x_new = x + (scaled sum of
-// partials + bias) in f32; h = norm(that f32 sum) * nw + nb, the norm
-// rms (layer 0) or layer norm (layer 1: the mean, then the centred
-// variance over a second pass). Split 0's row holds the f32 sum between
-// the passes; each thread reads back only the entries it wrote.
-template <typename T>
+// partials + bias); h = norm(that sum) * nw + nb, the norm rms (layer 0)
+// or layer norm (layer 1: the mean, then the centred variance over a
+// second pass). Split 0's row holds the sum between the passes; each
+// thread reads back only the entries it wrote.
 __global__ void oproj_norm_finalize_kernel(float* partial, int splits,
                                            const float* scale,
-                                           const float* bias, const T* x,
+                                           const float* bias, const float* x,
                                            const float* nw, const float* nb,
-                                           T* x_new, T* h, int M, int N,
-                                           float eps, int layer) {
+                                           float* x_new, float* h, int M,
+                                           int N, float eps, int layer) {
   __shared__ float red[33];
   const int t = blockIdx.x;
   const size_t total = (size_t)M * N, base = (size_t)t * N;
@@ -729,9 +679,9 @@ __global__ void oproj_norm_finalize_kernel(float* partial, int splits,
     for (int z = 1; z < splits; ++z) pv += partial[z * total + base + n];
     if (scale) pv *= scale[n];
     if (bias) pv += bias[n];
-    const float xs = to_f32(x[base + n]) + pv;
+    const float xs = x[base + n] + pv;
     row[n] = xs;
-    x_new[base + n] = from_f32<T>(xs);
+    x_new[base + n] = xs;
     acc += layer ? xs : xs * xs;
   }
   const float tot = block_sum(acc, red) / (float)N;
@@ -751,7 +701,7 @@ __global__ void oproj_norm_finalize_kernel(float* partial, int splits,
     float y = (row[n] - mu) * r;
     if (nw) y *= nw[n];
     if (nb) y += nb[n];
-    h[base + n] = from_f32<T>(y);
+    h[base + n] = y;
   }
 }
 
@@ -896,31 +846,27 @@ static int mla_qkv(const Args& p, int splits, int wq, const float* cosv,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int oproj_norm(const Args& p, int splits, int wq, const T* x,
-                      const float* nw, const float* nb, T* x_new, T* h,
-                      float eps, int layer, cudaStream_t st) {
-  cudaError_t e = launch_gemm_w<T, 1, kEpiPartial>(p, splits, wq, st);
+static int oproj_norm(const Args& p, int splits, int wq, const float* x,
+                      const float* nw, const float* nb, float* x_new,
+                      float* h, float eps, int layer, cudaStream_t st) {
+  cudaError_t e = launch_gemm_w<float, 1, kEpiPartial>(p, splits, wq, st);
   if (e != cudaSuccess) return (int)e;
-  oproj_norm_finalize_kernel<T><<<p.M, 1024, 0, st>>>(
+  oproj_norm_finalize_kernel<<<p.M, 1024, 0, st>>>(
       p.partial, splits, p.scale[0], p.bias, x, nw, nb, x_new, h, p.M, p.N,
       eps, layer);
   return (int)cudaGetLastError();
 }
 
-// gelu 0: swiglu over the two accumulators; 1: gelu over one. The down
-// GEMM reads the bf16 activation as its hi + lo planes.
-template <typename T>
+// gelu 0: swiglu over the two accumulators; 1: gelu over one.
 static int ffn(const Args& up, const Args& down, int splits, int wq,
-               int gelu, const T* x, T* out, cudaStream_t st) {
-  constexpr int NA = std::is_same<T, bf16>::value ? 2 : 1;
+               int gelu, const float* x, float* out, cudaStream_t st) {
   cudaError_t e =
-      gelu ? launch_gemm_w<T, 1, kEpiGelu>(up, 1, wq, st)
-           : launch_gemm_w<T, 2, kEpiSwiglu>(up, 1, wq, st);
+      gelu ? launch_gemm_w<float, 1, kEpiGelu>(up, 1, wq, st)
+           : launch_gemm_w<float, 2, kEpiSwiglu>(up, 1, wq, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_w<T, 1, kEpiPartial, NA>(down, splits, wq, st);
+  e = launch_gemm_w<float, 1, kEpiPartial>(down, splits, wq, st);
   if (e != cudaSuccess) return (int)e;
-  residual_finalize_kernel<T>
+  residual_finalize_kernel<float>
       <<<grid_for((size_t)down.M * down.N), 256, 0, st>>>(
           down.partial, splits, down.scale[0], down.bias, x, out, down.M,
           down.N);
@@ -1087,15 +1033,15 @@ int ptt_int4_dequantize(const void* qw, const void* scale, void* out, int K2,
   return (int)cudaGetLastError();
 }
 
-// o [T, Ko]; x [T, H]; w [Ko, H] (int4 [Ko/2, H]); scale [H] f32 or null;
-// bias/nw/nb [H] f32 or null; partial [splits, T, H] f32 workspace;
-// layer 0: rms norm, 1: layer norm -> x_new, h [T, H]
+// The f32 route (bf16: ptt_md_oproj_norm, megadecode_sm90.cu). o [T,
+// Ko]; x [T, H]; w [Ko, H] (int4 [Ko/2, H]); scale [H] or null;
+// bias/nw/nb [H] or null; partial [splits, T, H] workspace; layer 0: rms
+// norm, 1: layer norm -> x_new, h [T, H]; all f32
 int ptt_oproj_norm(const void* o, const void* x, const void* w,
                    const void* scale, const void* bias, const void* nw,
                    const void* nb, void* partial, void* x_new, void* h,
                    int T, int Ko, int H, int kc_split, int splits, float eps,
-                   int layer, int wfmt, int dtype, int device,
-                   void* stream) {
+                   int layer, int wfmt, int device, void* stream) {
   PTT_SET_DEVICE(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T == 0) return (int)cudaSuccess;
@@ -1112,29 +1058,21 @@ int ptt_oproj_norm(const void* o, const void* x, const void* w,
   p.partial = static_cast<float*>(partial);
   const float* g = static_cast<const float*>(nw);
   const float* be = static_cast<const float*>(nb);
-  if (dtype == kF32)
-    return mega::oproj_norm<float>(p, splits, wfmt,
-                                   static_cast<const float*>(x), g, be,
-                                   static_cast<float*>(x_new),
-                                   static_cast<float*>(h), eps, layer, st);
-  if (dtype == kBF16)
-    return mega::oproj_norm<bf16>(p, splits, wfmt,
-                                  static_cast<const bf16*>(x), g, be,
-                                  static_cast<bf16*>(x_new),
-                                  static_cast<bf16*>(h), eps, layer, st);
-  return (int)cudaErrorInvalidValue;
+  return mega::oproj_norm(p, splits, wfmt, static_cast<const float*>(x), g,
+                          be, static_cast<float*>(x_new),
+                          static_cast<float*>(h), eps, layer, st);
 }
 
-// h, x [T, H]; wg, wu [H, I] (int4 [H/2, I]); wd [I, H] (int4 [I/2, H]);
-// sg, su [I] / sd [H] f32 (quantized) or null; b1 [I] / b2 [H] f32 or
-// null; gelu 0: swiglu (wg, wu), 1: gelu (wg alone; not int4); act
-// workspace, f32 [T, I] or, bf16, [2, T, I] (hi, lo); partial [splits, T,
-// H] f32 workspace -> out [T, H] = x + ffn(h)
+// The f32 route (bf16: ptt_md_ffn, megadecode_sm90.cu). h, x [T, H]; wg,
+// wu [H, I] (int4 [H/2, I]); wd [I, H] (int4 [I/2, H]); sg, su [I] / sd
+// [H] (quantized) or null; b1 [I] / b2 [H] or null; gelu 0: swiglu (wg,
+// wu), 1: gelu (wg alone; not int4); act [T, I] workspace; partial
+// [splits, T, H] workspace -> out [T, H] = x + ffn(h); all f32
 int ptt_ffn(const void* h, const void* x, const void* wg, const void* wu,
             const void* wd, const void* sg, const void* su, const void* sd,
             const void* b1, const void* b2, void* act, void* partial,
             void* out, int T, int H, int I, int kc_split, int splits,
-            int gelu, int wfmt, int dtype, int device, void* stream) {
+            int gelu, int wfmt, int device, void* stream) {
   PTT_SET_DEVICE(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T == 0) return (int)cudaSuccess;
@@ -1148,7 +1086,7 @@ int ptt_ffn(const void* h, const void* x, const void* wg, const void* wu,
   const void* wgu[2] = {wg, wu};
   const void* sgu[2] = {sg, su};
   up.bias = static_cast<const float*>(b1);
-  up.act = act;
+  up.act = static_cast<float*>(act);
   Args down{};
   down.a = act;
   down.M = T;
@@ -1160,19 +1098,9 @@ int ptt_ffn(const void* h, const void* x, const void* wg, const void* wu,
   down.kc_split = kc_split;
   down.bias = static_cast<const float*>(b2);
   down.partial = static_cast<float*>(partial);
-  if (dtype == kF32) {
-    up.kc_split = mega::chunks<float>(H);
-    return mega::ffn<float>(up, down, splits, wfmt, gelu,
-                            static_cast<const float*>(x),
-                            static_cast<float*>(out), st);
-  }
-  if (dtype == kBF16) {
-    up.kc_split = mega::chunks<bf16>(H);
-    return mega::ffn<bf16>(up, down, splits, wfmt, gelu,
-                           static_cast<const bf16*>(x),
-                           static_cast<bf16*>(out), st);
-  }
-  return (int)cudaErrorInvalidValue;
+  up.kc_split = mega::chunks<float>(H);
+  return mega::ffn(up, down, splits, wfmt, gelu, static_cast<const float*>(x),
+                   static_cast<float*>(out), st);
 }
 
 // x [M, K] f32; qw int8 [K, N] (wfmt 1) or packed int4 [K/2, N] (wfmt 2);

@@ -51,7 +51,8 @@
 //   under the swizzle: TPW 2, chunks w and w + 4 for int4 (rows c: chunk ^
 //   c stays within its half), 2w and 2w + 1 for int8 (rows 2c: chunk ^ 2c
 //   keeps its parity); TPW 1, one chunk a warp.
-// - The bf16 pairs come by exact bit operations (`i4pair`, `i8pair`; their
+// - The bf16 pairs come by exact bit operations (`i4pair`, `i8pair` in
+//   wq_sm90.cuh, shared with megadecode_sm90.cu; their
 //   plain counterparts are quant.int4_bf16x2_bits / int8_bf16_bits):
 //   int4: one byte holds k = 2i, 2i + 1 of a column, exactly the two k of
 //   one bf16x2 register: the byte spread to bits 0-7 and 12-19 (* 0x1001),
@@ -85,15 +86,15 @@
 //   past N are not written.
 
 #include <algorithm>
-#include <mutex>
 
-#include "sm90.cuh"
+#include "wq_sm90.cuh"
 
 namespace ptt {
 namespace wol {
 
 using bf16 = __nv_bfloat16;
 using namespace sm90;
+using namespace wq;
 
 constexpr int kWG = 128;                   // a warpgroup
 constexpr int kConsumers = 2 * kWG;        // two consumer warpgroups
@@ -141,101 +142,12 @@ struct Plan {
   int unit;              // else the bytes a producer copy moves: 8, 4, 1
 };
 
-// `bytes` (4 or 8) from global `src` to shared `dst`, both aligned to it,
-// or zeros where `full` is false (nothing read).
-__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
-                                            int bytes, bool full) {
-  const unsigned d = smem_u32(dst);
-  const int n = full ? bytes : 0;
-  if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-}
-
 __device__ __forceinline__ void decode(const Plan& p, int item, int& ct,
                                        int& tt, int& ks) {
   ks = item % p.n_ks;
   const int r = item / p.n_ks;
   tt = r % p.n_tt;
   ct = r / p.n_tt;
-}
-
-// The bf16 pair (low nibble, high nibble) of byte j of `v`: the byte at
-// bits 0-7 and 12-19, masked to the two nibbles with their sign bits
-// flipped and OR-ed into bf16 128, 128 + (n ^ 8), less 136: n.
-__device__ __forceinline__ uint32_t i4pair(uint32_t v, int j) {
-  const uint32_t y = __byte_perm(v, 0u, 0x4440u | j) * 0x1001u;
-  uint32_t r;
-  // (y & 0x000F000F) ^ 0x43084308: the mask, the sign flips and the OR
-  asm("lop3.b32 %0, %1, %2, %3, 0x6A;"
-      : "=r"(r)
-      : "r"(y), "r"(0x000F000Fu), "r"(0x43084308u));
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&r);
-  const uint32_t k136 = 0x43084308u;
-  h = __hsub2(h, *reinterpret_cast<const __nv_bfloat162*>(&k136));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The bf16 pair (byte j of lo, byte j of hi), both words with their sign
-// bits flipped (^ 0x80808080): f32 2^23 + (b ^ 128) - (2^23 + 128) = b,
-// whose top half is its bf16.
-__device__ __forceinline__ uint32_t i8pair(uint32_t lo, uint32_t hi, int j) {
-  const float fl =
-      __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540u | j)) -
-      8388736.f;
-  const float fh =
-      __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540u | j)) -
-      8388736.f;
-  return __byte_perm(__float_as_uint(fl), __float_as_uint(fh), 0x7632u);
-}
-
-// The thread's columns of byte row `row` of a weight box: a 32-bit word
-// (TPW 2: 4 columns) or 16 bits (TPW 1: 2 columns) at byte offset `o`.
-template <int TPW>
-__device__ __forceinline__ uint32_t word(const unsigned char* row, int o) {
-  if constexpr (TPW == 2)
-    return *reinterpret_cast<const uint32_t*>(row + o);
-  else
-    return *reinterpret_cast<const unsigned short*>(row + o);
-}
-
-// The A pairs of k16 step `step` of a stage, a[t] for each m64 tile t,
-// from the warpgroup's weight box `wb`; o0 / o1 are the thread's byte
-// offsets in the rows it reads (see the design note): tile t takes bytes
-// 2t (rows g) and 2t + 1 (rows g + 8) of each word.
-template <bool I4, int TPW>
-__device__ __forceinline__ void build(uint32_t (&a)[TPW][4],
-                                      const unsigned char* wb, int step,
-                                      int c, int o0, int o1) {
-  if constexpr (I4) {
-    const unsigned char* r = wb + (8 * step + c) * 128;
-    const uint32_t v0 = word<TPW>(r, o0), v1 = word<TPW>(r + 512, o1);
-#pragma unroll
-    for (int t = 0; t < TPW; ++t) {
-      a[t][0] = i4pair(v0, 2 * t);
-      a[t][1] = i4pair(v0, 2 * t + 1);
-      a[t][2] = i4pair(v1, 2 * t);
-      a[t][3] = i4pair(v1, 2 * t + 1);
-    }
-  } else {
-    const unsigned char* r = wb + (16 * step + 2 * c) * 128;
-    const uint32_t p = word<TPW>(r, o0) ^ 0x80808080u;
-    const uint32_t q = word<TPW>(r + 128, o1) ^ 0x80808080u;
-    const uint32_t u = word<TPW>(r + 1024, o0) ^ 0x80808080u;
-    const uint32_t v = word<TPW>(r + 1152, o1) ^ 0x80808080u;
-#pragma unroll
-    for (int t = 0; t < TPW; ++t) {
-      a[t][0] = i8pair(p, q, 2 * t);
-      a[t][1] = i8pair(p, q, 2 * t + 1);
-      a[t][2] = i8pair(u, v, 2 * t);
-      a[t][3] = i8pair(u, v, 2 * t + 1);
-    }
-  }
 }
 
 // One commit group: the A pairs of GS k16 steps from `s0`, their products
@@ -535,15 +447,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// SMs of `device`, read once.
-static int sm_count(int device) {
-  static int counts[64] = {0};
-  int& n = counts[device & 63];
-  if (n == 0)
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-  return n > 0 ? n : 1;
-}
-
 // The K split of an [M, K] x [K, N] product on `sms` SMs: the slice count
 // (at most 16) that minimises, in units of one SK chunk of one item, the
 // rounds of items times their chunks, plus, for a split, each item's
@@ -613,54 +516,6 @@ static void plan_w(int M, int N, int K, int sms, int slices, int* per,
   }
 }
 
-using u64 = unsigned long long;
-
-// A 2-D map of `type` elements over [rows, cols] at `base` on `device`
-// (row stride cols elements), boxes box0 x box1, from a small cache: a
-// map holds no more than the address and the shape, so one encoded for
-// the same (device, address, shape, box) is the same map, whatever tensor
-// lives there now. Encoding costs a driver call, and a serving step
-// launches this kernel hundreds of times on the same weights and the same
-// activation buffers. The map is copied out under a lock, so a later
-// eviction (round robin) or another thread's lookup cannot change it.
-static int cached_map(CUtensorMap* map, int device, const void* base,
-                      u64 cols, u64 rows, unsigned box0, unsigned box1,
-                      CUtensorMapDataType type) {
-  struct Entry {
-    CUtensorMap map;
-    const void* base;
-    u64 cols, rows;
-    unsigned box0, box1;
-    int device, type, used;
-  };
-  constexpr int kEntries = 256;
-  static Entry cache[kEntries];
-  static int next = 0;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < kEntries; ++i) {
-    const Entry& c = cache[i];
-    if (c.used && c.base == base && c.cols == cols && c.rows == rows &&
-        c.box0 == box0 && c.box1 == box1 && c.device == device &&
-        c.type == (int)type) {
-      *map = c.map;
-      return 0;
-    }
-  }
-  Entry& c = cache[next];
-  next = (next + 1) % kEntries;
-  const unsigned esize = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
-  const u64 dims[2] = {cols, rows}, str[1] = {cols * esize};
-  const unsigned box[2] = {box0, box1};
-  c.used = 0;
-  const int e = encode_tiled(&c.map, base, 2, dims, str, box, type);
-  if (e != 0) return e;
-  c.base = base, c.cols = cols, c.rows = rows, c.box0 = box0;
-  c.box1 = box1, c.device = device, c.type = (int)type, c.used = 1;
-  *map = c.map;
-  return 0;
-}
-
 template <int WQ, int NT>
 static int launch(const void* x, const void* qw, const float* scale,
                   float* partial, int* counters, bf16* out, int M, int N,
@@ -676,12 +531,15 @@ static int launch(const void* x, const void* qw, const float* scale,
   p.tma_w = N % 16 == 0 && a % 16 == 0;
   p.unit = N % 8 == 0 && a % 8 == 0 ? 8 : N % 4 == 0 && a % 4 == 0 ? 4 : 1;
   CUtensorMap tx, tw;
-  int e = cached_map(&tx, device, x, (u64)K, (u64)M, 64, NT,
+  const u64 xd[2] = {(u64)K, (u64)M};
+  const unsigned xb[2] = {64, NT};
+  int e = cached_map(&tx, device, x, 2, xd, xb,
                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
   if (e != 0) return e;
   if (p.tma_w) {
-    e = cached_map(&tw, device, qw, (u64)N, (u64)p.R, 128, G::WR,
-                   CU_TENSOR_MAP_DATA_TYPE_UINT8);
+    const u64 wd[2] = {(u64)N, (u64)p.R};
+    const unsigned wb[2] = {128, G::WR};
+    e = cached_map(&tw, device, qw, 2, wd, wb, CU_TENSOR_MAP_DATA_TYPE_UINT8);
     if (e != 0) return e;
   } else {
     tw = tx;  // unused

@@ -3,19 +3,21 @@ tanh-GELU FFN, one wrapper call each (counterpart of
 paddle_tpu/ops/pallas_megadecode.py: the fp, int8 and packed-int4
 weight sites).
 
-``fused_oproj_norm`` and ``fused_ffn`` launch the hand-written CUDA
-kernels of ``csrc/megakernels.cu`` on CUDA tensors and run their plain
-PyTorch versions ``oproj_norm_reference`` / ``megadecode_ffn_reference``
-(from paddle_tpu/ops/references.py) on CPU tensors. A CUDA tensor
-launches the kernels or raises; nothing falls back. Each wrapper counts
-``.launches`` once per call, although a call issues more than one CUDA
-kernel: ``fused_oproj_norm`` two (a split-K tensor-core GEMM into f32
-partials, then one block per row for residual + norm), ``fused_ffn``
-three (gate/up GEMM with the activation epilogue, split-K down GEMM,
-then the residual add). The wrappers allocate the workspaces and pick
-the split of K (``_build.split_k``). As in the JAX package, the packed
-int4 layout takes swiglu only: an int4 gelu FFN raises
-NotImplementedError.
+``fused_oproj_norm`` and ``fused_ffn`` launch hand-written CUDA kernels
+on CUDA tensors and run their plain PyTorch versions
+``oproj_norm_reference`` / ``megadecode_ffn_reference`` (from
+paddle_tpu/ops/references.py) on CPU tensors. A CUDA tensor launches the
+kernels or raises; nothing falls back. bf16 runs ``csrc/megadecode_sm90.cu``
+(wgmma on the transposed product, TMA, K slices merged in the same
+launch); f32 runs ``csrc/megakernels.cu``'s GEMM core. Each wrapper
+counts ``.launches`` once per call, although a call issues two CUDA
+kernels (bf16: ``fused_oproj_norm`` the o-proj into an f32 [T, H] sum,
+then a block a row for residual + norm; ``fused_ffn`` gate/up with the
+activation epilogue into bf16 hi + lo planes, then down + b2 + residual)
+or, f32, two and three. The wrappers allocate every workspace and take
+the launch plan from the library (bf16: ``ptt_md_plan``; f32:
+``_build.split_k``). As in the JAX package, the packed int4 layout takes
+swiglu only: an int4 gelu FFN raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..nn.functional import gelu
 from . import _build
 from .oracles import register_oracle
+from . import quant
 from .quant import INT4, WFMT, check_algo, dequant_matmul_f32
 
 __all__ = ["fused_oproj_norm", "oproj_norm_reference", "fused_ffn",
@@ -60,6 +63,42 @@ def _check_act(act: str, algo) -> None:
 def _f32(t, n: int, dev):
     """An optional [n] vector as contiguous f32 on `dev` (exact upcast)."""
     return None if t is None else t.reshape(n).to(dev, torch.float32)
+
+
+def md_plan(M: int, N: int, K: int, wfmt: int, pair: bool, planes: int,
+            dev: torch.device):
+    """The bf16 kernel's launch plan for an [M, K] x [K, N] product
+    (``pair``: swiglu's gate and up; ``planes`` 2: the down product's hi
+    + lo): (token tile, K slices, chunks a slice, split counters, f32
+    partials)."""
+    out = (ctypes.c_int * 5)()
+    fn = _build.kernel("ptt_md_plan", [_I] * 7 + [_P])
+    _build.check("ptt_md_plan", fn(M, N, K, wfmt, int(pair), planes,
+                                   dev.index or 0, ctypes.addressof(out)))
+    return tuple(out)
+
+
+def _vectors(ns, dev, *vs):
+    """Optional vectors of lengths `ns` (one int for all) as the bf16
+    kernels read them: as they are where every given one is bf16 (flag
+    1; read exactly as f32), else f32 copies (flag 0)."""
+    ns = ns if isinstance(ns, tuple) else (ns,) * len(vs)
+    given = [v for v in vs if v is not None]
+    if given and all(v.dtype == torch.bfloat16 for v in given):
+        return (1, *(None if v is None else v.reshape(n).to(dev).contiguous()
+                     for v, n in zip(vs, ns)))
+    return (0, *(_f32(v, n, dev) for v, n in zip(vs, ns)))
+
+
+def _workspaces(t: torch.Tensor, *plans):
+    """The f32 partials (the largest any plan needs) and the stream's
+    split counters for launches of `plans` on t's stream, or None."""
+    n_part = max(pl[4] for pl in plans)
+    n_cnt = max(pl[3] for pl in plans)
+    if not n_part:
+        return None, None
+    return (torch.empty(n_part, dtype=torch.float32, device=t.device),
+            quant._split_counters(n_cnt, t))
 
 
 # ---------------------------------------------------------------------------
@@ -135,20 +174,64 @@ def fused_oproj_norm(o, x, w, scale=None, bias=None, norm_weight=None,
     # earlier would hand its memory to the next one)
     s = _build.weight_layout(name, algo, w, scale, H, x.dtype, dev)
     _build.require_aligned(name, o2, w)
+    if x.dtype == torch.bfloat16:
+        x_new, h = _oproj_norm_bf16(o2, x2, w, s, bias, norm_weight,
+                                    norm_bias, eps, norm, algo)
+        fused_oproj_norm.launches += 1
+        return x_new.reshape(shape), h.reshape(shape)
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: takes float32 or bfloat16, got {x.dtype}")
+    b, nw, nb = (_f32(v, H, dev) for v in (bias, norm_weight, norm_bias))
     per, splits = _build.split_k(T, H, Ko, x)
     partial = torch.empty(splits, T, H, dtype=torch.float32, device=dev)
     x_new, h = torch.empty_like(x2), torch.empty_like(x2)
-    b, nw, nb = (_f32(v, H, dev) for v in (bias, norm_weight, norm_bias))
     fn = _build.kernel("ptt_oproj_norm",
-                       [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _I, _P])
+                       [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _P])
     err = fn(o2.data_ptr(), x2.data_ptr(), w.data_ptr(), _build.ptr(s),
              _build.ptr(b), _build.ptr(nw), _build.ptr(nb),
              partial.data_ptr(), x_new.data_ptr(), h.data_ptr(), T, Ko, H,
              per, splits, float(eps), NORMS[norm], WFMT[algo],
-             _build.dtype_code(x), dev.index or 0, _build.stream(x))
+             dev.index or 0, _build.stream(x))
     _build.check(name, err)
     fused_oproj_norm.launches += 1
     return x_new.reshape(shape), h.reshape(shape)
+
+
+def _oproj_norm_bf16(o2, x2, w, s, bias, norm_weight, norm_bias,
+                     eps: float, norm: str, algo):
+    """The bf16 kernels of csrc/megadecode_sm90.cu: (x_new, h) [T, H]."""
+    T, Ko = o2.shape
+    H = x2.shape[1]
+    dev = x2.device
+    if x2.data_ptr() % 16:           # the norm reads x 16 bytes at a time
+        x2 = x2.clone()
+    vbf, b, nw, nb = _vectors(H, dev, bias, norm_weight, norm_bias)
+    wfmt = WFMT[algo]
+    _nt, n_ks, per, _c, _p = plan = md_plan(T, H, Ko, wfmt, False, 1, dev)
+    partial, counters = _workspaces(x2, plan)
+    total = torch.empty(T, H, dtype=torch.float32, device=dev)
+    x_new, h = torch.empty_like(x2), torch.empty_like(x2)
+    fn = _build.kernel("ptt_md_oproj_norm",
+                       [_P] * 7 + [_I] + [_P] * 5 + [_I] * 5
+                       + [_F, _I, _I, _I, _P])
+    err = fn(o2.data_ptr(), x2.data_ptr(), w.data_ptr(), _build.ptr(s),
+             _build.ptr(b), _build.ptr(nw), _build.ptr(nb), vbf,
+             total.data_ptr(), _build.ptr(partial), _build.ptr(counters),
+             x_new.data_ptr(), h.data_ptr(), T, Ko, H, per, n_ks,
+             float(eps), NORMS[norm], wfmt, dev.index or 0,
+             _build.stream(x2))
+    _check_split("fused_oproj_norm", err, counters, x2)
+    return x_new, h
+
+
+def _check_split(name: str, err: int, counters, t) -> None:
+    """Raise on a refused launch; a refused split may leave counts behind,
+    so the next split on this stream takes fresh zeros. (A kernel that
+    faults on the card leaves the context unusable, and every later call
+    fails.)"""
+    if err and counters is not None:
+        quant._counters.pop((t.device.index or 0, _build.stream(t)), None)
+    _build.check(name, err)
 
 
 fused_oproj_norm.launches = 0
@@ -236,23 +319,56 @@ def fused_ffn(h, x, wg, sg=None, wu=None, su=None, wd=None, sd=None,
                 for w_, s_ in ((wg, sg), (wu, su)))
     fsd = _build.weight_layout(name, algo, wd, sd, H, x.dtype, dev)
     _build.require_aligned(name, h2, *ups, wd)
-    # the f32 activation as the down GEMM reads it: f32, or bf16 hi + lo
-    planes = 2 if x.dtype == torch.bfloat16 else 1
-    work = torch.empty(planes, T, I, dtype=x.dtype, device=dev)
+    if x.dtype == torch.bfloat16:
+        out = _ffn_bf16(h2, x2, wg, fsg, wu, fsu, wd, fsd, b1, b2, gelu,
+                        algo)
+        fused_ffn.launches += 1
+        return out.reshape(shape)
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: takes float32 or bfloat16, got {x.dtype}")
+    fb1, fb2 = _f32(b1, I, dev), _f32(b2, H, dev)
+    work = torch.empty(1, T, I, dtype=x.dtype, device=dev)
     per, splits = _build.split_k(T, H, I, x)
     partial = torch.empty(splits, T, H, dtype=torch.float32, device=dev)
     out = torch.empty_like(x2)
-    fb1, fb2 = _f32(b1, I, dev), _f32(b2, H, dev)
-    fn = _build.kernel("ptt_ffn", [_P] * 13 + [_I] * 9 + [_P])
+    fn = _build.kernel("ptt_ffn", [_P] * 13 + [_I] * 8 + [_P])
     err = fn(h2.data_ptr(), x2.data_ptr(), wg.data_ptr(), _build.ptr(wu),
              wd.data_ptr(), _build.ptr(fsg), _build.ptr(fsu),
              _build.ptr(fsd), _build.ptr(fb1), _build.ptr(fb2),
              work.data_ptr(), partial.data_ptr(), out.data_ptr(), T, H, I,
-             per, splits, ACTS[act], WFMT[algo], _build.dtype_code(x),
-             dev.index or 0, _build.stream(x))
+             per, splits, ACTS[act], WFMT[algo], dev.index or 0,
+             _build.stream(x))
     _build.check(name, err)
     fused_ffn.launches += 1
     return out.reshape(shape)
+
+
+def _ffn_bf16(h2, x2, wg, sg, wu, su, wd, sd, b1, b2, gelu: bool, algo):
+    """The bf16 kernels of csrc/megadecode_sm90.cu: out [T, H]. The f32
+    activation reaches the down product as the bf16 hi + lo planes of one
+    [2, T, I] workspace."""
+    T, H = x2.shape
+    I = wg.shape[1]
+    dev = x2.device
+    wfmt = WFMT[algo]
+    if x2.data_ptr() % 16:           # the residual is read 8 bytes at a time
+        x2 = x2.clone()
+    vbf, b1, b2 = _vectors((I, H), dev, b1, b2)
+    pu = md_plan(T, I, H, wfmt, not gelu, 1, dev)
+    pd = md_plan(T, H, I, wfmt, False, 2, dev)
+    partial, counters = _workspaces(x2, pu, pd)
+    act = torch.empty(2, T, I, dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x2)
+    fn = _build.kernel("ptt_md_ffn",
+                       [_P] * 10 + [_I] + [_P] * 4 + [_I] * 10 + [_P])
+    err = fn(h2.data_ptr(), x2.data_ptr(), wg.data_ptr(), _build.ptr(wu),
+             wd.data_ptr(), _build.ptr(sg), _build.ptr(su), _build.ptr(sd),
+             _build.ptr(b1), _build.ptr(b2), vbf, act.data_ptr(),
+             _build.ptr(partial), _build.ptr(counters), out.data_ptr(), T,
+             H, I, pu[2], pu[1], pd[2], pd[1], int(gelu), wfmt,
+             dev.index or 0, _build.stream(x2))
+    _check_split("fused_ffn", err, counters, x2)
+    return out
 
 
 fused_ffn.launches = 0

@@ -69,8 +69,10 @@ PORT_KERNELS = ("rms_norm_kernel", "ptt::layer_norm_kernel",
                 "paged_v2_kernel", "paged_v2_mma_kernel",
                 "mla_finalize_kernel", "append_rows_kernel",
                 "int4_dequantize_kernel", "mla::split_kernel",
-                "mla::merge_kernel")
-# (weight_only_linear runs mega::gemm_kernel and residual_finalize_kernel;
+                "mla::merge_kernel", "md::md_gemm", "md::norm_kernel")
+# (md::md_gemm and md::norm_kernel are the bf16 o-proj and FFN,
+# csrc/megadecode_sm90.cu; weight_only_linear's f32 route runs
+# mega::gemm_kernel and residual_finalize_kernel;
 # ragged_split_kernel is ragged attention's bf16 route, its splits merged
 # in the same launch, ragged_attention_kernel its f32 route)
 #: name fragments of PyTorch's own passes, in match order: gathers and

@@ -28,8 +28,10 @@ With ``--faults DIR``, each fault of `FAULTS` (``--only``: those named;
 text substitutions in ``paddle_tpu_torch/ops/csrc/megakernels.cu`` (the
 GEMM core's weight conversion that the three megakernels and
 weight_only_linear's f32 route share, its int4_dequantize and its MLA
-finisher), in ``wol_sm90.cu`` (weight_only_linear's bf16 kernel) or in
-``mla.cu``, as `FAULT_KERNELS` names) is planted in a copy of the package
+finisher), in ``wol_sm90.cu`` (weight_only_linear's bf16 kernel), in
+``wq_sm90.cuh`` (the register conversions it shares with the bf16
+megakernels of ``megadecode_sm90.cu``) or in ``mla.cu``, as
+`FAULT_KERNELS` names) is planted in a copy of the package
 made under DIR, built there, and read the same way in a process of its
 own. The checkout itself is never changed. One JSON object per line on
 stdout, and all of them in ``--out`` when given.
@@ -52,6 +54,7 @@ import flash_limits
 
 KERNEL = "paddle_tpu_torch/ops/csrc/megakernels.cu"
 WOL = "paddle_tpu_torch/ops/csrc/wol_sm90.cu"
+WQ = "paddle_tpu_torch/ops/csrc/wq_sm90.cuh"
 MLA = "paddle_tpu_torch/ops/csrc/mla.cu"
 TESTS = ("tests/test_torch_quant.py", "tests/test_torch_megakernels.py",
          "tests/test_torch_deepseek.py")
@@ -96,9 +99,8 @@ FAULTS = {
         "(scale[b]);\n    p.scale[b] = nullptr;\n"
         "    if (wq != kWFp && !p.wscale[b]) return false;", 0,
         "T* conv) {", "T* conv, const Args& p, int n0) {", 0,
-        "convert_stage<T, C, NB, WQ>(st + NA * C::A_BYTES, conv);",
-        "convert_stage<T, C, NB, WQ>(st + NA * C::A_BYTES, conv, p, n0);",
-        0,
+        "convert_stage<T, C, NB, WQ>(st + C::A_BYTES, conv);",
+        "convert_stage<T, C, NB, WQ>(st + C::A_BYTES, conv, p, n0);", 0,
         "const unsigned byte = v >> (8 * e);",
         "const unsigned byte = v >> (8 * e);\n"
         "        const float sc = p.wscale[b][min(n0 + n + e, p.N - 1)];", 0,
@@ -207,9 +209,12 @@ FAULTS = {
         "  const bool hv[2] = {hr[0] < nh, hr[1] < nh};",
         "  const bool hv[2] = {true, true};", 0),
 }
-#: the source a fault edits, where it is not KERNEL
+#: the source a fault edits, where it is not KERNEL (the conversions
+#: that wol_sm90.cu and megadecode_sm90.cu share live in wq_sm90.cuh)
 FAULT_KERNELS = {
     **{n: WOL for n in FAULTS if n.startswith("wol_")},
+    **{n: WQ for n in ("wol_int4_nibbles_swapped",
+                       "wol_sign_extension_dropped")},
     **{n: MLA for n in ("mla_dead_rows_not_zeroed",
                         "mla_scores_rounded_between_reads",
                         "mla_p_not_rounded", "mla_dead_split_not_skipped",

@@ -617,3 +617,222 @@ class TestKernelsOnCard:
                                    **self._tol(dtype))
         if dtype == torch.bfloat16:
             _hold_rel("ffn", got, ref)
+
+
+# -------------------------------------------- the bf16 route's launch plan
+def _bf16_items(n_ct, n_tt, nk, per, paired, grid):
+    """Mirror of csrc/megadecode_sm90.cu's item walk: a persistent grid of
+    `grid` CTAs, CTA c taking items c, c + grid, ..., an item (column
+    tile, token tile, K slice[, matrix]) decoded slice (and matrix)
+    fastest, its K chunks walked from the rotated start `rot_of`. Returns
+    {(column tile, token tile, matrix): [chunk, ...]} over the whole
+    walk."""
+    n_ks = -(-nk // per)
+    items = n_ct * n_tt * n_ks * (2 if paired else 1)
+    seen = {}
+    for c in range(grid):
+        for item in range(c, items, grid):
+            i2 = item
+            mt = i2 % 2 if paired else 0
+            if paired:
+                i2 //= 2
+            ks, rest = i2 % n_ks, i2 // n_ks
+            tt, ct = rest % n_tt, rest // n_tt
+            c0, c1 = ks * per, min(ks * per + per, nk)
+            length = c1 - c0
+            rot = (item * 37) % length if length > 1 else 0
+            chunks = seen.setdefault((ct, tt, mt), [])
+            chunks += [c0 + (i + rot) % length for i in range(length)]
+    return seen
+
+
+class TestBf16Plan:
+    """The bf16 kernels' item walk covers every (column tile, token tile,
+    matrix) with every K chunk exactly once, at the plans phase 2 and the
+    serving families give it (the 8B step's o-proj: 32 column tiles, 64
+    chunks in 4 slices; the down product; quantized gate/up as two
+    matrices; a ragged last column tile; fewer CTAs than items; slices
+    that do not divide K's chunks; 16 slices of a 4-row product)."""
+
+    @pytest.mark.parametrize("n_ct,n_tt,nk,per,paired,grid", [
+        (32, 1, 64, 16, False, 128), (32, 1, 224, 56, False, 128),
+        (112, 1, 64, 64, True, 132), (86, 2, 171, 43, False, 132),
+        (43, 1, 64, 64, False, 21), (9, 3, 40, 7, True, 5),
+        (3, 1, 64, 4, False, 132)])
+    def test_every_item_once(self, n_ct, n_tt, nk, per, paired, grid):
+        seen = _bf16_items(n_ct, n_tt, nk, per, paired, grid)
+        mats = 2 if paired else 1
+        assert set(seen) == {(ct, tt, m) for ct in range(n_ct)
+                             for tt in range(n_tt) for m in range(mats)}
+        for chunks in seen.values():
+            assert sorted(chunks) == list(range(nk))
+
+
+@pytest.mark.cuda
+class TestBf16KernelsOnCard:
+    """csrc/megadecode_sm90.cu at the widths the ported families serve
+    (Llama-3-8B, Qwen2-7B, GPT-3 6.7B, ERNIE-4.5-21B-A3B's dense layer,
+    DeepSeek-V2-Lite's dense layer: I 10944 ends in a ragged column tile)
+    and T 4 / 132 / 200 (one and two token tiles; K splits and none, as
+    the plan takes them), fp / int8 / int4, the gelu and layer-norm sites;
+    K splits where the plan takes them at a ragged width; two streams,
+    past the tensor-map cache and with split counters in flight. Each
+    output is held by `_hold_rel` within QSITE_BF16_LIMITS against its
+    plain version on the same inputs."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels are CUDA C++ "
+                        "with no CPU mode")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _weights(g, k, n, algo):
+        w = torch.randn(k, n, device="cuda", generator=g) * k ** -0.5
+        if algo is None:
+            return w.to(torch.bfloat16), None
+        return weight_quantize(w, algo)
+
+    @staticmethod
+    def _bf(g, *shape, shift=0.0):
+        return (torch.randn(*shape, device="cuda", generator=g)
+                + shift).to(torch.bfloat16)
+
+    @pytest.mark.parametrize("T", [4, 132, 200])
+    @pytest.mark.parametrize("algo", [None, INT8, INT4])
+    @pytest.mark.parametrize("H,I", [(4096, 14336), (3584, 18944),
+                                     (2560, 12288), (2048, 10944)])
+    def test_ffn_family_widths(self, T, algo, H, I):
+        g = torch.Generator("cuda").manual_seed(T + H)
+        h, x = self._bf(g, T, H), self._bf(g, T, H)
+        ws = [self._weights(g, k, n, algo) for k, n in ((H, I), (H, I),
+                                                        (I, H))]
+        args = [t for pair in ws for t in pair]
+        n = fused_ffn.launches
+        got = fused_ffn(h, x, *args, algo=algo)
+        torch.cuda.synchronize()
+        assert fused_ffn.launches == n + 1
+        _hold_rel("ffn", got, ops.megadecode_ffn_reference(h, x, *args,
+                                                           algo=algo))
+
+    @pytest.mark.parametrize("T", [4, 132, 200])
+    @pytest.mark.parametrize("algo", [None, INT8])
+    def test_ffn_gelu_gpt_width(self, T, algo):
+        g = torch.Generator("cuda").manual_seed(T)
+        H, I = 4096, 16384
+        h, x, b1, b2 = (self._bf(g, T, H), self._bf(g, T, H),
+                        self._bf(g, I), self._bf(g, H))
+        (wi, si), (wf, sf) = (self._weights(g, k, n, algo)
+                              for k, n in ((H, I), (I, H)))
+        args = (h, x, wi, si, None, None, wf, sf, b1, b2)
+        got = fused_ffn(*args, act="gelu", algo=algo)
+        _hold_rel("ffn", got, ops.megadecode_ffn_reference(
+            *args, act="gelu", algo=algo))
+
+    @pytest.mark.parametrize("T", [4, 132, 200])
+    @pytest.mark.parametrize("algo", [None, INT8, INT4])
+    @pytest.mark.parametrize("H,norm", [(4096, "rms"), (3584, "rms"),
+                                        (2560, "rms"), (2048, "rms"),
+                                        (4096, "layer")])
+    def test_oproj_family_widths(self, T, algo, H, norm):
+        g = torch.Generator("cuda").manual_seed(T + H)
+        layer = norm == "layer"
+        o = self._bf(g, T, H)
+        x = self._bf(g, T, H, shift=30.0 if layer else 0.0)
+        w, s = self._weights(g, H, H, algo)
+        nw = self._bf(g, H)
+        b, nb = (self._bf(g, H), self._bf(g, H)) if layer else (None, None)
+        kw = dict(eps=1e-5, norm=norm, algo=algo)
+        n = fused_oproj_norm.launches
+        got = fused_oproj_norm(o, x, w, s, b, nw, nb, **kw)
+        torch.cuda.synchronize()
+        assert fused_oproj_norm.launches == n + 1
+        ref = ops.oproj_norm_reference(o, x, w, s, b, nw, nb, **kw)
+        _hold_rel("oproj", _site_rows(got), _site_rows(ref))
+
+    @pytest.mark.parametrize("T", [4, 200])
+    @pytest.mark.parametrize("algo", [None, INT8, INT4])
+    def test_k_splits_the_plan_takes(self, T, algo):
+        # H 712 (a last column tile of 72 or 200 columns) against K 4096:
+        # too few column tiles to fill the card, so the plan splits the
+        # down product's and the o-proj's K, merged by the last slice to
+        # arrive (at T 200 over two token tiles; quantized gate / up there
+        # are items of their own, merged the same way)
+        from paddle_tpu_torch.ops import megadecode as md
+        from paddle_tpu_torch.ops.quant import WFMT
+        g = torch.Generator("cuda").manual_seed(T + 7)
+        H, I = 712, 4096
+        dev = torch.device("cuda")
+        assert md.md_plan(T, H, I, WFMT[algo], False, 2, dev)[1] > 1
+        assert md.md_plan(T, H, I, WFMT[algo], False, 1, dev)[1] > 1
+        h, x = self._bf(g, T, H), self._bf(g, T, H)
+        ws = [self._weights(g, k, n, algo) for k, n in ((H, I), (H, I),
+                                                        (I, H))]
+        args = [t for pair in ws for t in pair]
+        _hold_rel("ffn", fused_ffn(h, x, *args, algo=algo),
+                  ops.megadecode_ffn_reference(h, x, *args, algo=algo))
+        o, nw = self._bf(g, T, I), self._bf(g, H)
+        w, s_ = self._weights(g, I, H, algo)
+        kw = dict(eps=1e-5, algo=algo)
+        got = fused_oproj_norm(o, x, w, s_, None, nw, **kw)
+        ref = ops.oproj_norm_reference(o, x, w, s_, None, nw, **kw)
+        _hold_rel("oproj", _site_rows(got), _site_rows(ref))
+
+    @staticmethod
+    def _two_streams(calls):
+        """Run `calls` alternately on two side streams, none waited for
+        before the last; returns their outputs."""
+        main = torch.cuda.current_stream()
+        streams = (torch.cuda.Stream(), torch.cuda.Stream())
+        for s_ in streams:
+            s_.wait_stream(main)
+        outs = []
+        for i, call in enumerate(calls):
+            with torch.cuda.stream(streams[i % 2]):
+                outs.append(call())
+        for s_ in streams:
+            main.wait_stream(s_)
+        torch.cuda.synchronize()
+        return outs
+
+    def test_two_streams_past_the_map_cache(self):
+        # one activation against 1100 weights at distinct addresses: more
+        # tensor maps than megadecode_sm90.cu's cache holds (1024 in
+        # buckets of 4; each source keeps its own), so entries are evicted
+        # while the other stream's launches still use the maps they copied
+        # out; every output matches its plain version
+        # (rows of 2 x 128 outputs: held at the file's bf16 bar, 2e-2; a
+        # map of another weight or activation moves every output by O(1))
+        g = torch.Generator("cuda").manual_seed(21)
+        T, H = 4, 128
+        o, x, nw = self._bf(g, T, H), self._bf(g, T, H), self._bf(g, H)
+        ws = [self._weights(g, H, H, None)[0] for _ in range(1100)]
+        outs = self._two_streams([
+            (lambda w=w: fused_oproj_norm(o, x, w, None, None, nw,
+                                          eps=1e-5)) for w in ws])
+        for got, w in zip(outs, ws):
+            ref = ops.oproj_norm_reference(o, x, w, None, None, nw,
+                                           eps=1e-5)
+            for a_, b_ in zip(got, ref):
+                torch.testing.assert_close(a_.float(), b_.float(),
+                                           atol=2e-2, rtol=2e-2)
+
+    def test_two_streams_with_split_counters(self):
+        # K splits (the down product's and the o-proj's at four rows)
+        # and quantized gate / up items on two streams at once: each
+        # stream's launches count on its own counters, left zero
+        g = torch.Generator("cuda").manual_seed(22)
+        T, H, I = 4, 1024, 4096
+        h, x = self._bf(g, T, H), self._bf(g, T, H)
+        cases = []
+        for algo in (None, INT8, INT4) * 4:
+            ws = [self._weights(g, k, n, algo) for k, n in ((H, I), (H, I),
+                                                            (I, H))]
+            cases.append((algo, [t for pair in ws for t in pair]))
+        outs = self._two_streams([
+            (lambda a=a, args=args: fused_ffn(h, x, *args, algo=a))
+            for a, args in cases])
+        for got, (algo, args) in zip(outs, cases):
+            _hold_rel("ffn", got, ops.megadecode_ffn_reference(
+                h, x, *args, algo=algo))

@@ -212,9 +212,14 @@ def test_kernel_sources_are_in_the_package():
     from paddle_tpu_torch.ops import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["elementwise.cu", "flash_attention.cu",
-                     "flashmask.cu", "fused.cu", "gmm.cu", "megakernels.cu",
-                     "mla.cu", "paged_attention.cu", "ragged_attention.cu",
+                     "flashmask.cu", "fused.cu", "gmm.cu",
+                     "megadecode_sm90.cu", "megakernels.cu", "mla.cu",
+                     "paged_attention.cu", "ragged_attention.cu",
                      "wol_sm90.cu"]
+    # the headers the sources share, each part of the build's hash
+    headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
+    assert headers == ["common.cuh", "flash_sm90.cuh", "flash_tiles.cuh",
+                       "sm90.cuh", "wq_sm90.cuh"]
     # _build.py compiles every source of the list, one nvcc each
     assert [p.name for p in _build._sources()] == names
     flags = " ".join(_build.NVCC_FLAGS)
@@ -242,8 +247,8 @@ def test_chip_smoke_fails_without_a_card():
 
 
 #: the scripts that plant kernel faults (flash_limits.plant)
-LIMITS = ("flash_limits", "gmm_limits", "paged_limits", "quant_limits",
-          "ragged_limits")
+LIMITS = ("flash_limits", "gmm_limits", "mega_limits", "paged_limits",
+          "quant_limits", "ragged_limits")
 
 
 def _limits(name):

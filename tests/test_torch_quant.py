@@ -400,16 +400,27 @@ class TestWeightOnlyLinearOnCard:
 
     @pytest.mark.parametrize("algo", [INT8, INT4])
     def test_bf16_past_the_map_cache(self, algo):
-        # one x against 300 weights at distinct addresses: more tensor maps
-        # than the kernel's cache holds (256), so its round robin comes to
-        # evict x's map in the launch that has just found it; every
-        # product still matches its plain version
-        x, _, _ = self._random_bytes(algo, 4, 128, 256, 3)
-        weights = [self._random_bytes(algo, 4, 128, 256, 100 + i)[1:]
-                   for i in range(300)]
+        # one x against 2048 weights at distinct addresses: twice the
+        # tensor maps that wol_sm90.cu's cache holds (1024 in hashed
+        # buckets of 4, a bucket that takes a fifth evicting one), so the
+        # buckets, x's among them, take ~8 maps each and evict. Every
+        # product has the bits of the same product through one reused
+        # weight buffer (two maps in all, none evicted), and matches its
+        # plain version ([4, 2048] outputs: a bf16 rounding flip of one
+        # output moves the tensor's error by ~1e-4; at [4, 256] one flip
+        # could pass 3e-4 alone)
+        x, _, _ = self._random_bytes(algo, 4, 128, 2048, 3)
+        weights = [self._random_bytes(algo, 4, 128, 2048, 100 + i)[1:]
+                   for i in range(2048)]
         got = [weight_only_linear(x, qw, s, algo=algo) for qw, s in weights]
+        buf = torch.empty_like(weights[0][0])
+        alone = []
+        for qw, s in weights:
+            buf.copy_(qw)
+            alone.append(weight_only_linear(x, buf, s, algo=algo))
         torch.cuda.synchronize()
-        for out, (qw, s) in zip(got, weights):
+        for out, one, (qw, s) in zip(got, alone, weights):
+            assert torch.equal(out, one)
             tensor, row = rel_errors(
                 out, weight_only_linear_reference(x, qw, s, algo=algo))
             assert tensor <= BF16_TENSOR_LIMIT, tensor
